@@ -1,0 +1,219 @@
+"""Static-shape horizontal NMS.
+
+Port of the horizontal half of ``sm3det_tpu/ops/nms.py``: every function
+returns fixed-size outputs with a validity mask. Each function takes one
+image (``(N, 4)`` boxes) or a batch (``(B, N, 4)``); a batch is one
+suppression-matrix launch and one greedy pass for all its images.
+
+The suppression matrix comes from ``ops/cuda/hbb_iou_kernel.hbb_iou`` with
+``triu=True``: the kernel on a CUDA tensor, its plain version on a CPU
+tensor. Greedy keep decisions come from the blocked-exact algorithm
+(``greedy_keep``), equal to sequential greedy NMS. Ties in score keep the
+lower index first, as JAX's stable sorts do.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .cuda.hbb_iou_kernel import hbb_iou
+
+NEG_INF = -1e10
+
+
+def _topk_scores(flat_scores: torch.Tensor, k: int):
+    """Top-k along the last axis, ties to the lower index (``lax.top_k``)."""
+    vals, idx = torch.sort(flat_scores, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def bbox_overlaps(boxes1, boxes2, mode: str = "iou", aligned: bool = False,
+                  eps: float = 1e-6):
+    """Horizontal IoU/IoF, mmdet ``bbox_overlaps`` semantics."""
+    area1 = (boxes1[..., 2] - boxes1[..., 0]) * \
+        (boxes1[..., 3] - boxes1[..., 1])
+    area2 = (boxes2[..., 2] - boxes2[..., 0]) * \
+        (boxes2[..., 3] - boxes2[..., 1])
+    if not aligned:
+        b1 = boxes1[..., :, None, :]
+        b2 = boxes2[..., None, :, :]
+        area1 = area1[..., :, None]
+        area2 = area2[..., None, :]
+    else:
+        b1, b2 = boxes1, boxes2
+    lt = torch.maximum(b1[..., :2], b2[..., :2])
+    rb = torch.minimum(b1[..., 2:4], b2[..., 2:4])
+    wh = torch.clamp(rb - lt, min=0)
+    inter = wh[..., 0] * wh[..., 1]
+    if mode == "iou":
+        union = area1 + area2 - inter
+    elif mode == "iof":
+        union = area1
+    else:
+        raise ValueError(mode)
+    return inter / torch.clamp(union, min=eps)
+
+
+def _fixpoint_keep(supf: torch.Tensor, eligible: torch.Tensor):
+    """Greedy keep on a strictly upper-triangular (B, n, n) float
+    suppression matrix by fixpoint iteration: after sweep t every decision
+    i <= t is exact. Each sweep checks convergence on the host."""
+    n = supf.shape[-1]
+    keep, prev = eligible, torch.zeros_like(eligible)
+    it = 0
+    while it < n and bool((keep != prev).any()):
+        suppressed = (keep.to(supf.dtype).unsqueeze(-2) @ supf) \
+            .squeeze(-2) > 0.5
+        keep, prev = eligible & ~suppressed, keep
+        it += 1
+    return keep
+
+
+def greedy_keep(sup: torch.Tensor, eligible: torch.Tensor,
+                block: int = 256) -> torch.Tensor:
+    """Greedy-NMS keep mask from a score-ordered suppression matrix.
+
+    ``sup[..., j, i]`` is True if box j (higher score) suppresses box i;
+    only the strict upper triangle is read. Blocks of ``block`` rows are
+    resolved in score order: a small fixpoint inside the block, then one
+    (block, N) product propagates the block's suppression to every later
+    box. Equal to sequential greedy NMS. (N, N) or (B, N, N).
+    """
+    squeeze = sup.dim() == 2
+    if squeeze:
+        sup, eligible = sup[None], eligible[None]
+    n = sup.shape[-1]
+    dev = sup.device
+    if n <= block:
+        tri = torch.triu(torch.ones(n, n, dtype=torch.bool, device=dev), 1)
+        keep = _fixpoint_keep((sup & tri).float(), eligible)
+        return keep[0] if squeeze else keep
+    pad = (-n) % block
+    if pad:
+        sup = torch.nn.functional.pad(sup, (0, pad, 0, pad))
+        eligible = torch.nn.functional.pad(eligible, (0, pad))
+    tri_b = torch.triu(torch.ones(block, block, dtype=torch.bool,
+                                  device=dev), 1)
+    alive = eligible
+    keeps = []
+    for r0 in range(0, n + pad, block):
+        rows = sup[:, r0:r0 + block, :]
+        sub = rows[:, :, r0:r0 + block]
+        keep_b = _fixpoint_keep((sub & tri_b).float(),
+                                alive[:, r0:r0 + block])
+        # within the block, lower-triangle entries can only clear alive
+        # columns that are never read again (blocks go in row order)
+        suppressed = (keep_b.float().unsqueeze(-2) @ rows.float()) \
+            .squeeze(-2) > 0.5
+        alive = alive & ~suppressed
+        keeps.append(keep_b)
+    keep = torch.cat(keeps, dim=-1)[:, :n]
+    return keep[0] if squeeze else keep
+
+
+def _finalize(boxes_sorted, scores_sorted, order, keep, max_out):
+    """Pack kept entries first, padded to max_out, in score order. Batched
+    (B, n, ...)."""
+    b, n = keep.shape
+    dev = keep.device
+    rank = torch.cumsum(keep.long(), dim=-1) - 1
+    slot = torch.where(keep, rank, torch.full_like(rank, n))
+    inv = torch.full((b, max(max_out, n) + 1), n, dtype=torch.long,
+                     device=dev)
+    inv.scatter_(1, slot, torch.arange(n, device=dev).expand(b, n))
+    inv[:, n] = n                       # clear the scratch slot
+    take = inv[:, :max_out]
+    valid = take < n
+    take_safe = torch.where(valid, take, torch.zeros_like(take))
+    out_idx = torch.where(valid, torch.gather(order, 1, take_safe),
+                          torch.full_like(take, -1))
+    out_boxes = torch.gather(
+        boxes_sorted, 1,
+        take_safe[..., None].expand(-1, -1, boxes_sorted.shape[-1])) \
+        * valid[..., None]
+    out_scores = torch.where(valid, torch.gather(scores_sorted, 1, take_safe),
+                             torch.zeros((), device=dev))
+    return out_boxes, out_scores, out_idx, valid
+
+
+def _batched(fn):
+    """Run a batched (B, N, ...) implementation on one image as well."""
+    def wrapper(boxes, scores, *args, **kwargs):
+        if boxes.dim() == 2:
+            args = [a[None] if torch.is_tensor(a) else a for a in args]
+            return tuple(o[0] for o in fn(boxes[None], scores[None], *args,
+                                          **kwargs))
+        return fn(boxes, scores, *args, **kwargs)
+    wrapper.__name__ = fn.__name__
+    wrapper.__doc__ = fn.__doc__
+    return wrapper
+
+
+@_batched
+def nms(boxes, scores, iou_threshold: float, max_out: int,
+        score_thr: float = float("-inf")):
+    """Horizontal greedy NMS with static output size.
+
+    boxes (N, 4) xyxy, scores (N,); entries with score <= score_thr are
+    ignored. Returns (dets (max_out, 5), idx (max_out,) into the input or
+    -1, valid (max_out,) bool); batched inputs give batched outputs.
+    """
+    order = torch.sort(-scores, dim=-1, stable=True).indices
+    boxes_s = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4))
+    scores_s = torch.gather(scores, 1, order)
+    eligible = scores_s > score_thr
+    iou = hbb_iou(boxes_s, boxes_s, triu=True)
+    keep = greedy_keep(iou > iou_threshold, eligible)
+    ob, os_, oi, ov = _finalize(boxes_s, scores_s, order, keep, max_out)
+    return torch.cat([ob, os_[..., None]], dim=-1), oi, ov
+
+
+@_batched
+def batched_nms(boxes, scores, idxs, iou_threshold: float, max_out: int,
+                score_thr: float = float("-inf")):
+    """Class-aware NMS by the coordinate-offset trick (mmcv
+    ``batched_nms``): boxes of different ``idxs`` never suppress each
+    other. The offset is ``idx * 2 * (max|boxes| + 1)`` per image."""
+    max_coord = boxes.abs().amax(dim=(-2, -1)) + 1.0          # (B,)
+    offsets = idxs.to(boxes.dtype) * (2.0 * max_coord[:, None])
+    dets, oi, ov = nms(boxes + offsets[..., None], scores, iou_threshold,
+                       max_out, score_thr)
+    safe = torch.where(oi >= 0, oi, torch.zeros_like(oi))
+    out_boxes = torch.where(
+        ov[..., None], torch.gather(boxes, 1, safe[..., None].expand(
+            -1, -1, 4)), torch.zeros((), device=boxes.device))
+    return torch.cat([out_boxes, dets[..., 4:5]], dim=-1), oi, ov
+
+
+@_batched
+def multiclass_nms(multi_bboxes, multi_scores, score_thr: float,
+                   iou_thr: float, max_num: int, pre_nms: int = 2000):
+    """Multi-class horizontal NMS (mmdet ``multiclass_nms`` semantics).
+
+    multi_bboxes (N, 4) or (N, C*4); multi_scores (N, C+1), the last column
+    background. The top ``pre_nms`` (box, class) pairs by score are the
+    candidates. Returns (dets (max_num, 5), labels (max_num,) or -1,
+    valid (max_num,)).
+    """
+    num_classes = multi_scores.shape[-1] - 1
+    b, n = multi_scores.shape[:2]
+    scores = multi_scores[..., :-1]
+    k = min(pre_nms, n * num_classes)
+    top_scores, top_idx = _topk_scores(scores.reshape(b, -1), k)
+    box_idx = top_idx // num_classes
+    cls_idx = top_idx % num_classes
+    if multi_bboxes.shape[-1] > 4:
+        flat = multi_bboxes.reshape(b, n * num_classes, 4)
+        cand_boxes = torch.gather(flat, 1, top_idx[..., None].expand(
+            -1, -1, 4))
+    else:
+        cand_boxes = torch.gather(multi_bboxes, 1, box_idx[..., None].expand(
+            -1, -1, 4))
+    cand_scores = torch.where(top_scores > score_thr, top_scores,
+                              torch.full((), NEG_INF, device=scores.device))
+    dets, oi, ov = batched_nms(cand_boxes, cand_scores, cls_idx, iou_thr,
+                               max_num, score_thr=score_thr)
+    safe = torch.where(oi >= 0, oi, torch.zeros_like(oi))
+    labels = torch.where(ov, torch.gather(cls_idx, 1, safe),
+                         torch.full_like(safe, -1))
+    return dets, labels, ov

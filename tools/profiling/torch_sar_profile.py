@@ -1,0 +1,237 @@
+#!/usr/bin/env python3
+"""Where the time of the PyTorch port's SAR forward goes, on one CUDA card.
+
+Run from the root of the repository on a machine with a card:
+
+    python3 tools/profiling/torch_sar_profile.py [--batch 8] [--size 800]
+
+It builds the full-width ``TriSourceDetector`` (``DEFAULT_MODEL_CFG``,
+bf16, random weights from ``--seed``, the ``gfl_cls`` bias raised to 0 so
+that the NMS sees real candidates), warms ``simple_test(imgs, "sar")`` up
+and then reports:
+
+1. CUDA-event times of the stages of one forward (stem and norms, dense
+   blocks, MoE blocks split into dwconv_ln, gate, dispatch + FFN +
+   combine, neck, head, decode + NMS), the median of ``--reps`` forwards;
+2. one forward under ``torch.profiler``: device time by kernel name, and
+   the device's busy share of the forward's wall time (the union of the
+   kernels' intervals over the span of the forward).
+
+The kernel table goes to ``chiprun_out/torch_sar_profile.txt``; the
+summary is printed. It imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import statistics
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+sys.path.insert(0, str(ROOT))
+
+# the __global__ functions of sm3det_tpu_torch/ops/cuda/csrc/*.cu
+PORT_KERNELS = ("dwconv_ln_kernel", "gemm_bf16_kernel", "gemm_f32_kernel",
+                "hbb_iou_kernel", "layernorm_kernel")
+
+
+def stage_of(name, module):
+    """Category of a module of the detector, or None to leave it untimed."""
+    from sm3det_tpu_torch.models.backbones.convnext import ConvNeXtBlock
+    if isinstance(module, ConvNeXtBlock):
+        return "moe block (total)" if module.moe else "dense block"
+    if name.endswith(".ffn.w_gate"):
+        return "moe gate"
+    if name.endswith(".ffn"):
+        return "moe dispatch + ffn + combine (with gate)"
+    if name.startswith("backbone.") and name.count(".") == 1:
+        return "stem, downsample, out norms"
+    if name in ("neck", "sar_bbox_head"):
+        return name
+    return None
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--size", type=int, default=800)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--reps", type=int, default=5)
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("no CUDA device")
+    from sm3det_tpu_torch.models.detectors.trisource import (
+        DEFAULT_MODEL_CFG, TriSourceDetector)
+    from sm3det_tpu_torch.ops.cuda import convnext_block_kernel as cbk
+
+    cfg = dict(DEFAULT_MODEL_CFG, compute_dtype="bfloat16")
+    model = TriSourceDetector(cfg, seed=args.seed)
+    model.sar_bbox_head.gfl_cls.bias.fill_(0.0)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    imgs = torch.rand(args.batch, args.size, args.size, 3, generator=gen,
+                      device="cuda")
+    shape = (args.size, args.size)
+
+    def forward():
+        return model.simple_test(imgs, "sar", img_shape=shape)
+
+    for _ in range(2):
+        forward()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(args.reps):
+        t = time.perf_counter()
+        forward()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    wall_med = statistics.median(walls)
+
+    # ---- 1. stage times with CUDA events ---------------------------------
+    marks = []          # (stage, start event, end event)
+    open_ = {}
+
+    def pre(stage):
+        def hook(mod, inp):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            open_.setdefault(id(mod), []).append(ev)
+        return hook
+
+    def post(stage):
+        def hook(mod, inp, out):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((stage, open_[id(mod)].pop(), ev))
+        return hook
+
+    handles = []
+    for name, mod in model.named_modules():
+        stage = stage_of(name, mod)
+        if stage:
+            handles += [mod.register_forward_pre_hook(pre(stage)),
+                        mod.register_forward_hook(post(stage))]
+    dw = cbk.fused_dwconv_ln
+    dw_marks = []
+
+    def timed_dwconv_ln(*a, **k):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        out = dw(*a, **k)
+        e.record()
+        dw_marks.append((s, e))
+        return out
+    # the MoE blocks reach it through the backbone module's own import
+    from sm3det_tpu_torch.models.backbones import convnext
+    convnext.fused_dwconv_ln = timed_dwconv_ln
+
+    per_rep = []
+    for _ in range(args.reps):
+        marks.clear()
+        dw_marks.clear()
+        t0, t1, t2 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        t0.record()
+        cls_s, reg_s = model.head_sar(imgs)
+        t1.record()
+        model.get_bboxes_sar(cls_s, reg_s, shape)
+        t2.record()
+        torch.cuda.synchronize()
+        sums = defaultdict(float)
+        for stage, s, e in marks:
+            sums[stage] += s.elapsed_time(e)
+        sums["moe dwconv_ln"] = sum(s.elapsed_time(e) for s, e in dw_marks)
+        sums["backbone+neck+head"] = t0.elapsed_time(t1)
+        sums["decode + NMS"] = t1.elapsed_time(t2)
+        per_rep.append(sums)
+    for h in handles:
+        h.remove()
+    convnext.fused_dwconv_ln = dw
+
+    smi = "not read"
+    try:
+        import subprocess
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        pass
+    print(f"[profile] card {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
+    print(f"[profile] {args.batch} x {args.size}^2 bf16: median forward "
+          f"{wall_med:.3f} ms (host clock, no hooks, {args.reps} forwards)")
+    print(f"[profile] stages, median of {args.reps} forwards (CUDA events "
+          f"around each module; the hooks add host time, so the stages "
+          f"include launch gaps, ms):")
+    for stage in sorted(per_rep[0], key=lambda k: -per_rep[0][k]):
+        vals = [r[stage] for r in per_rep]
+        print(f"[profile]   {stage:42s} {statistics.median(vals):9.3f}")
+
+    # ---- 2. one forward under the profiler -------------------------------
+    from torch.profiler import ProfilerActivity, profile, record_function
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("sar_forward"):
+            t = time.perf_counter()
+            forward()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+    # device events, less the annotation's own mirror on the device
+    kernels = [ev for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA
+               and ev.name != "sar_forward"]
+    spans = sorted((ev.time_range.start, ev.time_range.end)
+                   for ev in kernels)
+    fwd = next((ev.time_range for ev in prof.events()
+                if ev.name == "sar_forward"
+                and ev.device_type == torch.autograd.DeviceType.CPU), None)
+    table = prof.key_averages().table(sort_by="cuda_time_total",
+                                      row_limit=60)
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "torch_sar_profile.txt").write_text(table)
+    if not spans or fwd is None:
+        print("[profile] the profiler recorded no device time: busy share "
+              "not measured")
+        return 0
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    span_us = max(fwd.end, spans[-1][1]) - min(fwd.start, spans[0][0])
+    print(f"[profile] profiled forward: wall {wall_ms:.3f} ms, device busy "
+          f"{busy / 1e3:.3f} ms of {span_us / 1e3:.3f} ms "
+          f"({100 * busy / span_us:.1f} %), {len(spans)} device events")
+    print(f"[profile] device busy over the unprofiled median forward: "
+          f"{busy / 1e3:.3f} / {wall_med:.3f} ms "
+          f"({100 * busy / 1e3 / wall_med:.1f} %)")
+    groups = defaultdict(float)
+    for ev in kernels:
+        n = ev.name
+        group = ("port kernels (csrc/*.cu)" if any(
+                     f"(anonymous namespace)::{k}" in n for k in PORT_KERNELS)
+                 else "cuDNN convolutions" if "xmma" in n or "convolve" in n
+                 else "other PyTorch ops")
+        groups[group] += ev.time_range.elapsed_us() / 1e3
+    for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"[profile]   device time, {group:28s} {ms:8.3f} ms")
+    by_name = defaultdict(lambda: [0.0, 0])
+    for ev in kernels:
+        by_name[ev.name][0] += ev.time_range.elapsed_us()
+        by_name[ev.name][1] += 1
+    print("[profile] device time by kernel (top 25, ms, count):")
+    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[
+            :25]:
+        print(f"[profile]   {us / 1e3:8.3f} {n:5d}  {name[:100]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
