@@ -10,13 +10,18 @@ Phases (any failure exits non-zero):
 1. device: requires a CUDA card; prints its name and power limit;
 2. build: compiles the CUDA kernels from ``sm3det_tpu_torch/ops/cuda/csrc``
    and prints the nvcc time and each kernel's registers and shared memory;
-3. kernels: holds every kernel of the SAR path against its plain PyTorch
-   version on the card, at the slice's shapes (8 images of 800^2), in fp32
-   and bf16, and times kernel, plain version and a PyTorch library call;
-4. end to end: one 800^2 image in fp32 on the card against the same model
-   on the host (features, head outputs, and detections from the same head
-   outputs); then the full-width 8 x 800^2 bf16 ``simple_test(imgs, "sar")``
-   with the launch counts of every kernel, images/s and peak memory.
+3. kernels: holds every kernel against its plain PyTorch version on the
+   card, at the main path's shapes (8 images of 800^2; 2000 proposals an
+   image), in fp32 and bf16, and times kernel, plain version and, where
+   there is one, a PyTorch library call;
+4. end to end: (a) one 800^2 image in fp32 on the card against the same
+   model on the host, stage by stage, for the SAR branch and for the RGB
+   Oriented R-CNN branch; (b) the full-width 8 x 800^2 bf16
+   ``simple_test(imgs, "sar")``; (c) the full-width joint forward
+   ``simple_test_joint`` over [8 SAR : 4 RGB : 4 infrared] images of 800^2
+   in bf16, with the launch counts of every kernel, images/s, peak memory
+   and the stage times, and a one-image ``aug_test("rgb")`` that runs the
+   un-banded rotated IoU kernel.
 
 It imports nothing of JAX. The second line from the end is the per-kernel
 JSON record, the last line ``{"ok": true, "device": {...}}``.
@@ -34,6 +39,11 @@ H100_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # dense, SXM
 IMG = 800
 N_IMGS = 8
+JOINT = (8, 4, 4)          # SAR, RGB, infrared images of the joint forward
+N_PROPOSALS = 2000         # rpn_max = rcnn pre_nms of DEFAULT_MODEL_CFG
+# fp32 operations of one rotated-IoU pair: 32 edge-against-edge clips of
+# ~17 operations (3 of them divisions) and 8 clipped-edge cross products
+ROT_IOU_FLOPS = 650
 # stage geometry of ConvNeXt-T at 800^2: (H = W, C, dense blocks, MoE
 # blocks, LayerNorms: stem, downsample into the next stage, output)
 STAGES = [(200, 96, 3, 0, 3), (100, 192, 3, 0, 2), (50, 384, 4, 5, 2),
@@ -58,6 +68,7 @@ def nvidia_smi_line():
 
 
 def cuda_ms(torch, fn, iters=10, warmup=2):
+    """Mean CUDA-event time of ``iters`` calls after ``warmup`` calls."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -86,7 +97,9 @@ def max_err(got, ref):
 
 class KernelRecord:
     """Per-forward totals of one kernel: times and bounds summed over the
-    shapes the SAR forward gives it, weighted by its launches there."""
+    shapes phase 3 runs it at (for the backbone's kernels the 8-image SAR
+    forward's; for the others the joint forward's), weighted by its
+    launches there."""
 
     def __init__(self, name, source, replaces, library, sources=None):
         self.name, self.source, self.replaces = name, source, replaces
@@ -135,6 +148,12 @@ def main():
     from sm3det_tpu_torch.ops.cuda import convnext_block_kernel as cbk
     from sm3det_tpu_torch.ops.cuda import hbb_iou_kernel as hik
     from sm3det_tpu_torch.ops.cuda import moe_groupgemm_kernel as mgk
+    from sm3det_tpu_torch.ops.cuda import roi_align_kernel as rak
+    from sm3det_tpu_torch.ops.cuda import rotated_iou_kernel as rik
+    from sm3det_tpu_torch.ops import nms as nms_mod
+    from sm3det_tpu_torch.ops.roi_align_rotated import (
+        roi_align_rotated_pyramid, route_levels)
+    from sm3det_tpu_torch.ops.rotated_iou import obb_corners
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -186,6 +205,17 @@ def main():
             "fused_layernorm", "sm3det_tpu_torch/ops/cuda/csrc/layernorm.cu",
             "sm3det_tpu/ops/pallas/convnext_block_kernel.py:66",
             "F.layer_norm"),
+        "rotated_iou": KernelRecord(
+            "rotated_iou", "sm3det_tpu_torch/ops/cuda/csrc/rotated_iou.cu",
+            "sm3det_tpu/ops/pallas/rotated_iou_kernel.py:102", None),
+        "rotated_iou_banded": KernelRecord(
+            "rotated_iou_banded",
+            "sm3det_tpu_torch/ops/cuda/csrc/rotated_iou.cu",
+            "sm3det_tpu/ops/pallas/rotated_iou_kernel.py:118", None),
+        "roi_align_rotated": KernelRecord(
+            "roi_align_rotated",
+            "sm3det_tpu_torch/ops/cuda/csrc/roi_align_rotated.cu",
+            "sm3det_tpu/ops/pallas/roi_align_kernel.py:189", None),
     }
     failures = []
 
@@ -338,6 +368,156 @@ def main():
     recs["hbb_iou"].add(1, ms, pms, b, k, 0.0)
     log(f"[time]   hbb_iou ({N_IMGS}, {nb}, {nb}) triu: kernel {ms:.4f} ms, "
         f"plain {pms:.4f} ms, bound {b:.4f} ms ({k})")
+    # the RPN's proposal NMS of the joint forward: 8 images x 5 levels
+    rb = (JOINT[1] + JOINT[2]) * 5
+    xy = torch.rand(rb, nb, 2, generator=gen, device=dev) * 760
+    wh = 4 + torch.rand(rb, nb, 2, generator=gen, device=dev) * 120
+    rboxes = torch.cat([xy, xy + wh], -1)
+    check("hbb_iou", torch.float32, (rb, nb, nb, "triu=True"),
+          hik.hbb_iou(rboxes, rboxes, triu=True),
+          hik.hbb_iou_ref(rboxes, rboxes, triu=True), 1e-6, main_path=True)
+    ms = cuda_ms(torch, lambda: hik.hbb_iou(rboxes, rboxes, triu=True),
+                 iters=5)
+    pms = cuda_ms(torch, lambda: hik.hbb_iou_ref(rboxes, rboxes, triu=True),
+                  iters=2, warmup=1)
+    b, k = bound_ms(rb * (2 * nb * 16 + nb * nb * 4),
+                    [(rb * nb * nb * 12, "float32")])
+    recs["hbb_iou"].add(1, ms, pms, b, k, 0.0)
+    log(f"[time]   hbb_iou ({rb}, {nb}, {nb}) triu: kernel {ms:.4f} ms, "
+        f"plain {pms:.4f} ms, bound {b:.4f} ms ({k})")
+    del rboxes
+
+    # ---- rotated IoU: plain + triu, and group-banded + triu --------------
+    def rotated_boxes(bsz, n):
+        """Boxes that really overlap: clustered centres, mixed aspect
+        ratios and angles, exact duplicates, a few of no size."""
+        centres = torch.rand(bsz, 24, 2, generator=gen, device=dev) * 700 + 50
+        pick = torch.randint(0, 24, (bsz, n), generator=gen, device=dev)
+        ctr = torch.gather(centres, 1, pick[..., None].expand(-1, -1, 2)) \
+            + torch.randn(bsz, n, 2, generator=gen, device=dev) * 25
+        side = 8 * 2 ** (torch.rand(bsz, n, generator=gen, device=dev) * 4.5)
+        asp = 2 ** ((torch.rand(bsz, n, generator=gen, device=dev) - .5) * 4)
+        ang = (torch.rand(bsz, n, generator=gen, device=dev) - 0.5) * 3.14
+        boxes = torch.stack([ctr[..., 0], ctr[..., 1], side * asp,
+                             side / asp, ang], -1)
+        boxes[:, 1::9] = boxes[:, 0::9][:, :boxes[:, 1::9].shape[1]]
+        boxes[:, -5:] = 0.0
+        return boxes
+
+    def defined_pairs(boxes):
+        """A box of no size against a real one is rounding noise over a
+        union near 0 (finite; no caller reads it): left out."""
+        real = (boxes[..., 2] * boxes[..., 3]) > 0
+        return real[..., :, None] == real[..., None, :]
+
+    iou_tol = 1e-5      # absolute, on an IoU in [0, 1]
+    # the third case shifts each class by the multi-class NMS's offset
+    # (coordinates to 1e5 px, where fp32 steps by 0.01 px): the kernel must
+    # still equal the plain version, and cross-class pairs must be 0
+    cases = (("rotated_iou", rotated_boxes(1, 2 * N_PROPOSALS)[0], None, 0),
+             ("rotated_iou_banded", rotated_boxes(N_IMGS, N_PROPOSALS), 26,
+              0),
+             ("rotated_iou_banded", rotated_boxes(2, N_PROPOSALS), 26, 4000))
+    for name, boxes, n_cls, class_offset in cases:
+        n = boxes.shape[-2]
+        groups = None
+        mask = defined_pairs(boxes)
+        if n_cls:
+            groups = torch.sort(torch.randint(
+                0, n_cls, boxes.shape[:-1], generator=gen, device=dev),
+                dim=-1).values.int()
+            boxes[..., :2] += (groups * class_offset)[..., None]
+            cross = groups[..., :, None] != groups[..., None, :]
+            groups[..., -n // 8:] = rik.INERT_GROUP
+            mask &= (groups[..., :, None] == groups[..., None, :]) & \
+                (groups[..., :, None] < rik.INERT_GROUP)
+        kw = dict(triu=True, groups1=groups, groups2=groups)
+        got = rik.rotated_iou(boxes, boxes, **kw)
+        ref = rik.rotated_iou_ref(boxes, boxes, **kw)
+        torch.cuda.synchronize()
+        need = rik.tile_need(n, n, True, groups, groups, device=dev)
+        skipped = ~need.repeat_interleave(rik.TILE, -2) \
+            .repeat_interleave(rik.TILE, -1)[..., :n, :n]
+        diff = (got - ref).abs() * mask
+        err = diff.max().item()
+        exact = int((diff == 0).sum()) == diff.numel()
+        zeros_ok = float((got.abs() * skipped).max()) == 0.0
+        if class_offset:
+            zeros_ok = zeros_ok and float((got.abs() * cross).max()) == 0.0
+        ok = bool(torch.isfinite(got).all()) and err <= iou_tol and zeros_ok
+        pairs = int(need.sum()) * rik.TILE ** 2
+        log(f"[kernel] {name:22s} float32   {tuple(boxes.shape)} triu"
+            f"{', class offset ' + str(class_offset) if class_offset else ''}"
+            f": max "
+            f"abs err {err:.3e} on {int(mask.sum())} defined pairs (bit-"
+            f"equal: {exact}), {int((ref * mask > 0.1).sum())} pairs over "
+            f"IoU 0.1, skipped tiles exactly zero: {zeros_ok}, computed "
+            f"pairs {pairs} of {got.numel()}; tol {iou_tol} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(name)
+        recs[name].err = max(recs[name].err, err)
+        del ref, diff, skipped, mask
+        if class_offset:
+            continue
+        ms = cuda_ms(torch, lambda: rik.rotated_iou(boxes, boxes, **kw),
+                     iters=5)
+        pms = cuda_ms(torch, lambda: rik.rotated_iou_ref(boxes, boxes, **kw),
+                      iters=2, warmup=1)
+        b, k = bound_ms(2 * boxes.numel() * 4 + got.numel() * 4,
+                        [(pairs * ROT_IOU_FLOPS, "float32")])
+        recs[name].add(1, ms, pms, b, k, 0.0)
+        log(f"[time]   {name} {tuple(boxes.shape)} triu: kernel {ms:.4f} ms, "
+            f"plain {pms:.4f} ms, bound {b:.4f} ms ({k})")
+        del got
+
+    # ---- pyramid rotated RoI align at the joint forward's shapes ----------
+    n_rois = (JOINT[1] + JOINT[2]) * N_PROPOSALS
+
+    def some_rois(bsz, n):
+        """RoIs over all four levels, rotated, some across the border, some
+        far outside, some of no size (padded proposals)."""
+        def u(*shape):
+            return torch.rand(*shape, generator=gen, device=dev)
+        side = 8 * 2 ** (u(n) * 6.5)
+        asp = 2 ** ((u(n) - 0.5) * 3)
+        rois = torch.stack([
+            torch.randint(0, bsz, (n,), generator=gen, device=dev).float(),
+            (u(n) * 1.2 - 0.1) * IMG, (u(n) * 1.2 - 0.1) * IMG, side * asp,
+            side / asp, (u(n) - 0.5) * 3.14], -1)
+        rois[::11, 1:] = 0.0
+        rois[5::50, 1:3] = -3.0 * IMG
+        return rois
+
+    rois = some_rois(N_IMGS, n_rois)
+    lvls = route_levels(rois)
+    log(f"[kernel] roi_align_rotated: {n_rois} RoIs, per level "
+        f"{torch.bincount(lvls, minlength=4).tolist()}")
+    for dtype in (torch.float32, torch.bfloat16):
+        isz = torch.tensor([], dtype=dtype).element_size()
+        feats = [rnd(N_IMGS, IMG // st, IMG // st, 256, dtype=dtype)
+                 for st in (4, 8, 16, 32, 64)]
+        got = rak.roi_align_rotated_pyramid_fused(feats, rois)
+        ref = roi_align_rotated_pyramid(feats, rois, lvls, 7)
+        check("roi_align_rotated", dtype, (n_rois, 7, 7, 256), got, ref,
+              tol[dtype], main_path=dtype == torch.bfloat16)
+        if float(got[5::50].abs().max()) != 0.0:
+            failures.append("roi_align_rotated: RoIs outside are not zero")
+        del ref
+        if dtype == torch.bfloat16:
+            ms = cuda_ms(torch, lambda: rak.roi_align_rotated_pyramid_fused(
+                feats, rois), iters=5)
+            pms = cuda_ms(torch, lambda: roi_align_rotated_pyramid(
+                feats, rois, lvls, 7), iters=2, warmup=1)
+            b, k = bound_ms(
+                sum(f.numel() for f in feats[:4]) * isz + rois.numel() * 4
+                + got.numel() * isz,
+                [(n_rois * 49 * 16 * 256 * 2, "float32")])
+            recs["roi_align_rotated"].add(1, ms, pms, b, k, 0.0)
+            log(f"[time]   roi_align_rotated ({n_rois}, 7, 7, 256) bf16: "
+                f"kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {b:.4f} ms "
+                f"({k})")
+        del got, feats
     if failures:
         fail(f"kernels disagree with their plain versions: {failures}")
 
@@ -384,7 +564,146 @@ def main():
         f"(tol 1e-4) {'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append("e2e detections")
-    del model, host, feats_d, feats_h, cls_d, reg_d, cls_h, reg_h
+    del cls_d, reg_d, cls_h, reg_h
+
+    # ---- 4a, RGB branch: the same image through the Oriented R-CNN -------
+    def spread_class_scores(head, roi_feats):
+        """Random weights leave the 27-way softmax near 1/27, under
+        rcnn_score_thr, and the NMS would see no candidate: scale fc_cls
+        so that the logits' spread is 3."""
+        logits, _ = head(roi_feats)
+        head.fc_cls.weight.mul_(3.0 / logits.float().std().item())
+
+    def stage(name, a, b):
+        err, scale = max_err(a.cpu(), b.cpu())
+        ok = bool(torch.isfinite(a.float()).all()) and a.shape == b.shape \
+            and err <= e2e_tol * max(scale, 1.0)
+        log(f"[e2e fp32] rgb {name} {tuple(a.shape)}: max abs err {err:.3e} "
+            f"(max |ref| {scale:.3e}) tol {e2e_tol} x scale "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"e2e rgb {name}")
+
+    def same_rectangles(a, b, what, scores=None):
+        """Fieldwise within 1e-4 of the image size, or the same rectangle
+        in its other description (a tie of w and h swaps them and turns the
+        angle by 90 degrees; a tie at the le90 wrap turns it by 180): the
+        corners agree up to a cyclic shift, within 1e-4 of the box's
+        coordinates. With ``scores`` (card, host), boxes whose scores are
+        within 1e-6 may also have changed places: the two devices' sigmoid
+        differs in the last bit, and the merge orders by score."""
+        a, b = a.reshape(-1, 5).cpu(), b.reshape(-1, 5).cpu()
+        far = (a - b).abs().amax(-1) > 1e-4 * IMG
+        n_far = int(far.sum())
+        ok, worst = True, 0.0
+        if n_far:
+            ca, cb = obb_corners(a[far]), obb_corners(b[far])
+            lim = 1e-4 * torch.clamp(ca.abs().amax((1, 2)), min=IMG)
+            if scores is None:
+                dist = torch.stack([
+                    (ca - torch.roll(cb, k, dims=1)).abs().amax((1, 2))
+                    for k in range(4)]).amin(0) / lim
+            else:
+                sa, sb = (t.reshape(-1).cpu()[far] for t in scores)
+                dist = torch.stack([
+                    (ca[:, None] - torch.roll(cb, k, dims=1)[None]).abs()
+                    .amax((2, 3)) for k in range(4)]).amin(0) / lim[:, None]
+                dist = dist + 1e9 * ((sa[:, None] - sb[None]).abs() > 1e-6)
+                dist = torch.maximum(dist.amin(1), dist.amin(0))
+            ok, worst = bool((dist <= 1).all()), dist.max().item()
+            if not ok:
+                log(f"[e2e fp32] rgb {what}: differing boxes (card, host): "
+                    f"{a[far][dist > 1][:4].tolist()} "
+                    f"{b[far][dist > 1][:4].tolist()}")
+        log(f"[e2e fp32] rgb {what}: {a.shape[0] - n_far} boxes equal "
+            f"fieldwise (1e-4 x {IMG}), {n_far} equal as rectangles"
+            f"{' or swapped at tied scores' if scores else ''} only (worst "
+            f"corner distance {worst:.2f} of its limit) "
+            f"{'ok' if ok else 'FAIL'}")
+        return ok
+
+    with torch.no_grad():
+        x_d = model.neck_rcnn(feats_d)
+        x_h = host.neck_rcnn(feats_h)
+        rpn_d = model.head_rpn(x_d, "rgb")
+        rpn_h = host.head_rpn(x_h, "rgb")
+        for lvl in range(5):
+            stage(f"neck[{lvl}]", x_d[lvl], x_h[lvl])
+            stage(f"rpn_cls[{lvl}]", rpn_d[0][lvl], rpn_h[0][lvl])
+            stage(f"rpn_reg[{lvl}]", rpn_d[1][lvl], rpn_h[1][lvl])
+        # proposals from the same RPN outputs
+        prop_d, psc_d, pval_d = model.get_proposals(*rpn_d, shape)
+        prop_h, psc_h, pval_h = host.get_proposals(
+            [t.cpu() for t in rpn_d[0]], [t.cpu() for t in rpn_d[1]], shape)
+        ok = torch.equal(pval_d.cpu(), pval_h) and \
+            (psc_d.cpu() - psc_h).abs().max().item() <= 1e-6 and \
+            same_rectangles(prop_d, prop_h, "proposals", (psc_d, psc_h))
+        log(f"[e2e fp32] rgb proposals from the same RPN outputs: "
+            f"{int(pval_h.sum())} valid of {pval_h.numel()}, valid equal "
+            f"{torch.equal(pval_d.cpu(), pval_h)} {'ok' if ok else 'FAIL'}")
+        if not ok or int(pval_h.sum()) == 0:
+            failures.append("e2e rgb proposals")
+        # RoI features from the same proposals: the kernel against the
+        # host's plain version. The two devices' sinf/cosf differ in the
+        # last bit, so a sample within rounding of a level's border may be
+        # inside on one and outside on the other: a few bins may differ
+        rf_d = model.roi_feats(x_d, prop_d)
+        rf_h = host.roi_feats([t.cpu() for t in x_d], prop_d.cpu())
+        bin_err = (rf_d.cpu() - rf_h).abs().amax(-1)
+        scale = rf_h.abs().max().item()
+        n_bad = int((bin_err > e2e_tol * max(scale, 1.0)).sum())
+        ok = bool(torch.isfinite(rf_d).all()) and n_bad <= 8
+        log(f"[e2e fp32] rgb roi_feats {tuple(rf_d.shape)}: {n_bad} of "
+            f"{bin_err.numel()} bins beyond {e2e_tol} x scale (allowed 8: "
+            f"border samples), median bin err {bin_err.median().item():.3e}"
+            f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append("e2e rgb roi_feats")
+        spread_class_scores(model.rgb_roi_head, rf_d)
+        host.rgb_roi_head.load_state_dict(
+            {k: v.cpu() for k, v in model.rgb_roi_head.state_dict().items()})
+        logit_d, delta_d = model.rgb_roi_head(rf_d)
+        logit_h, delta_h = host.rgb_roi_head(rf_d.cpu())
+        stage("cls_logits", logit_d, logit_h)
+        stage("bbox_deltas", delta_d, delta_h)
+        # detections from the same logits
+        args = (logit_d[None], delta_d[None], prop_d, pval_d)
+        det_d = model.get_bboxes_rcnn(*args, shape)
+        det_h = host.get_bboxes_rcnn(*[t.cpu() for t in args], shape)
+        same_valid = torch.equal(det_d[2].cpu(), det_h[2]) and \
+            torch.equal(det_d[1].cpu(), det_h[1])
+        n_valid = int(det_h[2].sum())
+        if same_valid:
+            sc_err = (det_d[0][..., 5].cpu() - det_h[0][..., 5]).abs() \
+                .max().item()
+            ok = n_valid > 0 and sc_err <= 1e-4 and same_rectangles(
+                det_d[0][..., :5], det_h[0][..., :5], "detections")
+            log(f"[e2e fp32] rgb detections from the same logits: {n_valid} "
+                f"valid, {len(set(det_h[1][det_h[2]].tolist()))} classes, "
+                f"labels/valid equal True, max score err {sc_err:.3e} (tol "
+                f"1e-4) {'ok' if ok else 'FAIL'}")
+        else:
+            # the NMS compares IoU > 0.1 and the host's IoU differs from
+            # the card's in the last bits (sinf/cosf): a candidate pair
+            # within 1e-5 of the threshold may decide either way. Then the
+            # kernel must still agree with its plain version run on the
+            # card, where both see the same sinf/cosf
+            kernel_iou = nms_mod.rotated_iou
+            nms_mod.rotated_iou = rik.rotated_iou_ref
+            try:
+                det_p = model.get_bboxes_rcnn(*args, shape)
+            finally:
+                nms_mod.rotated_iou = kernel_iou
+            ok = n_valid > 0 and all(
+                torch.equal(a, b) for a, b in zip(det_d, det_p))
+            log(f"[e2e fp32] rgb detections from the same logits: card and "
+                f"host differ ({int(det_d[2].sum())} against {n_valid} "
+                f"valid): a near-tie at the IoU threshold between the "
+                f"devices; the kernel against the plain IoU on the card: "
+                f"equal {ok} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append("e2e rgb detections")
+    del model, host, feats_d, feats_h, x_d, x_h, rpn_d, rpn_h, rf_d, rf_h
     if failures:
         fail(f"end-to-end checks failed: {failures}")
 
@@ -401,47 +720,165 @@ def main():
     build.reset_launches()
     dets, labels, valid = model.simple_test(imgs, "sar")
     torch.cuda.synchronize()
-    launches = dict(build.LAUNCHES)
+    sar_launches = dict(build.LAUNCHES)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"[e2e bf16] launches in one forward: {launches}")
+    log(f"[e2e bf16] sar: launches in one forward: {sar_launches}")
     want = {"fused_convnext_block": 11, "dwconv_ln": 18,
-            "moe_ffn_grouped": 7, "fused_layernorm": 8}
-    for k, v in launches.items():
-        if v <= 0 or (k in want and v != want[k]):
-            failures.append(f"launches {k}={v}")
+            "moe_ffn_grouped": 7, "fused_layernorm": 8, "hbb_iou": 1,
+            "rotated_iou": 0, "rotated_iou_banded": 0,
+            "roi_align_rotated": 0}
+    for k, v in sar_launches.items():
+        if v != want[k]:
+            failures.append(f"sar launches {k}={v}")
     ok_out = dets.shape == (N_IMGS, 100, 5) and \
         bool(torch.isfinite(dets).all()) and int(valid.sum()) > 0
-    log(f"[e2e bf16] dets {tuple(dets.shape)}, {int(valid.sum())} valid, "
-        f"finite {bool(torch.isfinite(dets).all())}")
+    log(f"[e2e bf16] sar: dets {tuple(dets.shape)}, {int(valid.sum())} "
+        f"valid, finite {bool(torch.isfinite(dets).all())}")
     if not ok_out:
-        failures.append("bf16 outputs")
-    # each forward timed on its own (host clock, ended by a synchronize):
-    # the host's clock varies more than the device's, so the median and
-    # the quartiles are reported
-    walls = []
-    for _ in range(10):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        model.simple_test(imgs, "sar")
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    q1, dt, q3 = statistics.quantiles(walls, n=4)
+        failures.append("bf16 sar outputs")
+
+    def timed_forwards(fn, n=10):
+        """Each forward timed on its own (host clock, ended by a
+        synchronize): the host's clock varies more than the device's, so
+        the median and the quartiles are reported."""
+        walls = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        q1, med, q3 = statistics.quantiles(walls, n=4)
+        return walls, q1, med, q3
+
+    walls, q1, dt, q3 = timed_forwards(lambda: model.simple_test(imgs, "sar"))
     head_ms = cuda_ms(torch, lambda: model.head_sar(imgs), iters=3)
     cls_o, reg_o = model.head_sar(imgs)
     post_ms = cuda_ms(torch, lambda: model.get_bboxes_sar(cls_o, reg_o),
                       iters=3)
-    log(f"[e2e bf16] forward wall times (ms): "
+    sar_ips = N_IMGS / dt
+    log(f"[e2e bf16] sar: forward wall times (ms): "
         f"{' '.join(f'{w * 1e3:.2f}' for w in walls)}")
-    log(f"[e2e bf16] {N_IMGS} x {IMG}^2: median {dt * 1e3:.2f} ms per batch "
-        f"(quartiles {q1 * 1e3:.2f}-{q3 * 1e3:.2f}), {N_IMGS / dt:.2f} "
+    log(f"[e2e bf16] sar: {N_IMGS} x {IMG}^2: median {dt * 1e3:.2f} ms per "
+        f"batch (quartiles {q1 * 1e3:.2f}-{q3 * 1e3:.2f}), {sar_ips:.2f} "
         f"images/s, peak memory {peak_gib:.2f} GiB; backbone+neck+head "
         f"{head_ms:.2f} ms, decode+NMS {post_ms:.2f} ms (CUDA events); card "
         f"{smi}")
+    del cls_o, reg_o, dets, labels, valid
     if failures:
-        fail(f"full-width run failed: {failures}")
+        fail(f"full-width SAR run failed: {failures}")
 
-    log(json.dumps({"kernels": [recs[k].json(launches[k]) for k in recs],
-                    "images_per_s": N_IMGS / dt, "peak_gib": peak_gib}))
+    # ---- 4c. full width, joint [8 : 4 : 4] x 800^2, bf16 -------------------
+    n_sar, n_rgb, n_ifr = JOINT
+    n_joint = sum(JOINT)
+    sar_i = imgs[:n_sar]
+    rgb_i = torch.rand(n_rgb, IMG, IMG, 3, generator=gen, device=dev)
+    ifr_i = torch.rand(n_ifr, IMG, IMG, 3, generator=gen, device=dev)
+    with torch.no_grad():
+        _, x, rpn = model.head_joint(sar_i, rgb_i, ifr_i)
+        props, _, _ = model.get_proposals(*rpn)
+        rf = model.roi_feats(x, props)
+        spread_class_scores(model.rgb_roi_head, rf[:n_rgb * N_PROPOSALS])
+        spread_class_scores(model.ifr_roi_head, rf[n_rgb * N_PROPOSALS:])
+    del x, rpn, props, rf
+
+    def joint():
+        return model.simple_test_joint(sar_i, rgb_i, ifr_i)
+
+    for _ in range(2):
+        joint()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    sar_o, rgb_o, ifr_o = joint()
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    joint_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[joint bf16] launches in one forward: {launches}")
+    # hbb_iou: the SAR NMS, and the RPN NMS of 8 images x 5 levels in one
+    want = {"fused_convnext_block": 11, "dwconv_ln": 18,
+            "moe_ffn_grouped": 7, "fused_layernorm": 8, "hbb_iou": 2,
+            "rotated_iou": 0, "rotated_iou_banded": 1,
+            "roi_align_rotated": 1}
+    for k, v in launches.items():
+        if v != want[k]:
+            log(f"[joint bf16] launches of {k}: {v}, expected {want[k]}")
+        if want[k] and v <= 0:
+            failures.append(f"joint launches {k}={v}")
+    ok_out = sar_o[0].shape == (n_sar, 100, 5)
+    for name, (d, lab, val), n in (("sar", sar_o, n_sar), ("rgb", rgb_o, n_rgb),
+                                   ("ifr", ifr_o, n_ifr)):
+        fin = bool(torch.isfinite(d).all())
+        log(f"[joint bf16] {name}: dets {tuple(d.shape)}, {int(val.sum())} "
+            f"valid, {len(set(lab[val].tolist()))} classes, finite {fin}")
+        ok_out = ok_out and fin and int(val.sum()) > 0 and d.shape[0] == n
+        if name != "sar":
+            ok_out = ok_out and d.shape == (n, N_PROPOSALS, 6)
+    if not ok_out:
+        failures.append("bf16 joint outputs")
+
+    walls, q1, dt, q3 = timed_forwards(joint)
+    joint_ips = n_joint / dt
+    with torch.no_grad():
+        (s_cls, s_reg), x, rpn = model.head_joint(sar_i, rgb_i, ifr_i)
+        props, _, pval = model.get_proposals(*rpn)
+        rf = model.roi_feats(x, props)
+        logits, deltas = model.roi_logits_joint(rf, n_rgb, n_ifr)
+        stages = {
+            "backbone + necks + GFL and RPN heads": cuda_ms(
+                torch, lambda: model.head_joint(sar_i, rgb_i, ifr_i),
+                iters=3),
+            "SAR decode + NMS": cuda_ms(
+                torch, lambda: model.get_bboxes_sar(s_cls, s_reg), iters=3),
+            "proposal decode + NMS": cuda_ms(
+                torch, lambda: model.get_proposals(*rpn), iters=3),
+            "RoI align": cuda_ms(
+                torch, lambda: model.roi_feats(x, props), iters=3),
+            "RoI heads": cuda_ms(
+                torch, lambda: model.roi_logits_joint(rf, n_rgb, n_ifr),
+                iters=3),
+            "R-CNN decode + NMS": cuda_ms(
+                torch, lambda: model.get_bboxes_rcnn(logits, deltas, props,
+                                                     pval), iters=3),
+        }
+    log(f"[joint bf16] forward wall times (ms): "
+        f"{' '.join(f'{w * 1e3:.2f}' for w in walls)}")
+    log(f"[joint bf16] [{n_sar}:{n_rgb}:{n_ifr}] x {IMG}^2: median "
+        f"{dt * 1e3:.2f} ms per batch (quartiles {q1 * 1e3:.2f}-"
+        f"{q3 * 1e3:.2f}), {joint_ips:.2f} images/s, peak memory "
+        f"{joint_peak_gib:.2f} GiB; card {smi}")
+    log("[joint bf16] stages (CUDA events, mean of 3, ms): " + "; ".join(
+        f"{k} {v:.2f}" for k, v in stages.items()))
+    del x, rpn, props, rf, logits, deltas, s_cls, s_reg
+
+    # test-time augmentation on one RGB image: the merge of the two
+    # variants' detections runs the un-banded rotated IoU kernel
+    model.aug_test(rgb_i[:1], "rgb")
+    torch.cuda.synchronize()
+    build.reset_launches()
+    a_dets, a_labels, a_valid = model.aug_test(rgb_i[:1], "rgb")
+    torch.cuda.synchronize()
+    aug_launches = dict(build.LAUNCHES)
+    ok = a_dets.shape == (1, N_PROPOSALS, 6) and \
+        bool(torch.isfinite(a_dets).all()) and int(a_valid.sum()) > 0 and \
+        aug_launches["rotated_iou"] >= 1
+    log(f"[aug bf16] aug_test('rgb'), 1 image, 2 flips: dets "
+        f"{tuple(a_dets.shape)}, {int(a_valid.sum())} valid; launches "
+        f"{aug_launches} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("aug_test")
+    launches["rotated_iou"] = aug_launches["rotated_iou"]
+    if failures:
+        fail(f"full-width joint run failed: {failures}")
+
+    log(json.dumps({
+        "kernels": [recs[k].json(launches[k]) for k in recs],
+        "launches_from": "simple_test_joint [8:4:4]; rotated_iou from "
+                         "aug_test('rgb') on 1 image",
+        "joint_images_per_s": joint_ips, "joint_ms": dt * 1e3,
+        "joint_peak_gib": joint_peak_gib, "joint_stage_ms": stages,
+        "sar_images_per_s": sar_ips, "sar_peak_gib": peak_gib,
+        "card": smi}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -2,15 +2,19 @@
 
 ``from_flax(params)`` takes the flax ``params`` tree (nested dicts of numpy
 arrays) of a ``TriSourceDetector`` and converts every leaf under
-``backbone``, ``neck`` and ``sar_bbox_head``, the subtrees of the SAR
-slice; it raises on a leaf of those subtrees that no rule consumes. Module
-names follow the flax keys (``backbone.stage2_block0.ffn.experts.w1``,
-``neck.lateral1.weight``, ``sar_bbox_head.cls_gn0.weight``, ...):
+``backbone``, ``neck``, ``sar_bbox_head`` and the four RGB / infrared heads
+(``{rgb,ifr}_rpn_head``, ``{rgb,ifr}_roi_head``); it raises on a leaf that
+no rule consumes and on a top-level entry it does not know. The one entry
+it knows and skips is ``mtl_sigma``, the uncertainty-reweighting sigmas of
+the training loss, which inference does not read. Module names follow the
+flax keys (``backbone.stage2_block0.ffn.experts.w1``,
+``neck.lateral1.weight``, ``sar_bbox_head.cls_gn0.weight``,
+``rgb_roi_head.shared_fc0.weight``, ...):
 
 - conv kernels HWIO -> OIHW, the depthwise (7, 7, 1, C) -> (C, 1, 7, 7);
 - the ConvNeXt pointwise Dense kernels keep the (in, out) layout that the
-  GEMM kernel reads; the gate's ``cosine_projector`` becomes a Linear
-  (out, in);
+  GEMM kernel reads; the gate's ``cosine_projector`` and the RoI heads'
+  Dense layers become Linear weights (out, in);
 - MoE stacks ``w1 (E, d, h)``, ``b1``, ``w2 (E, h, d)``, ``b2`` stay
   stacked, as do ``w_gate/{temperature, sim_matrix}`` and ``w_noise``;
 - LayerNorm/GroupNorm ``scale``/``bias`` -> ``weight``/``bias``; the
@@ -25,7 +29,11 @@ from typing import Dict, Iterator, Tuple
 import numpy as np
 import torch
 
-SUBTREES = ("backbone", "neck", "sar_bbox_head")
+SUBTREES = ("backbone", "neck", "sar_bbox_head", "rgb_rpn_head",
+            "ifr_rpn_head", "rgb_roi_head", "ifr_roi_head")
+# top-level entries of the training path that inference does not read
+SKIPPED = ("mtl_sigma",)
+_LINEAR = {"cosine_projector", "shared_fc0", "shared_fc1", "fc_cls", "fc_reg"}
 _KEPT = {"gamma", "temperature", "sim_matrix", "w_noise", "w1", "b1", "w2",
          "b2"}
 _NORM = re.compile(r".*norm\d*|(cls|reg)_gn\d+")
@@ -47,7 +55,7 @@ def _convert(path: tuple, v: np.ndarray) -> Tuple[str, np.ndarray]:
         name, arr = "weight", v.transpose(3, 2, 0, 1)
     elif leaf == "kernel" and v.ndim == 2 and parent.startswith("pwconv"):
         name = "kernel"
-    elif leaf == "kernel" and v.ndim == 2 and parent == "cosine_projector":
+    elif leaf == "kernel" and v.ndim == 2 and parent in _LINEAR:
         name, arr = "weight", v.T
     elif leaf == "bias":
         name = "bias"
@@ -82,6 +90,9 @@ def from_flax(params: Dict) -> Dict[str, torch.Tensor]:
     missing = [s for s in SUBTREES if s not in params]
     if missing:
         raise KeyError(f"from_flax: no {missing} in the params tree")
+    unknown = [k for k in params if k not in SUBTREES + SKIPPED]
+    if unknown:
+        raise KeyError(f"from_flax: no rule for the subtrees {unknown}")
     out = {}
     for sub in SUBTREES:
         out.update(convert_tree(params[sub], (sub,)))

@@ -29,6 +29,7 @@ class AnchorGenerator:
         self.base_sizes = list(base_sizes) if base_sizes is not None \
             else list(strides)
         self.center_offset = center_offset
+        self._grids = {}    # (featmap sizes, device) -> anchors per level
 
     def base_anchors(self, level: int) -> np.ndarray:
         """(A, 4) xyxy base anchors for one level, centered per offset."""
@@ -61,5 +62,10 @@ class AnchorGenerator:
         return out
 
     def grid_anchors(self, featmap_sizes, device=None):
-        return [torch.from_numpy(a).to(device)
-                for a in self.grid_anchors_np(featmap_sizes)]
+        """As ``grid_anchors_np``, as tensors on ``device``; a generator
+        keeps the grids it has made."""
+        key = (tuple(tuple(s) for s in featmap_sizes), str(device))
+        if key not in self._grids:
+            self._grids[key] = [torch.from_numpy(a).to(device)
+                                for a in self.grid_anchors_np(featmap_sizes)]
+        return self._grids[key]

@@ -1,29 +1,46 @@
-"""TriSource detector, SAR inference slice.
+"""TriSource detector, inference.
 
 Port of ``sm3det_tpu/models/detectors/trisource.py::TriSourceDetector``:
-the shared ConvNeXt-MoE backbone, the MultitaskFPN and the SAR GFL head,
-with ``simple_test_sar`` / ``simple_test(imgs, "sar")``. The compute-dtype
-policy is that of ``_cast_in``: with ``compute_dtype="bfloat16"`` the
-parameters and images are bf16 (convs and products in bf16, norm
-statistics in fp32) and the head outputs are cast to fp32 before decode
-and NMS. The RGB/IR Oriented R-CNN branches and joint inference come in a
-later slice of the port.
+the shared ConvNeXt-MoE backbone, the MultitaskFPN, the SAR GFL head and
+the RGB and infrared Oriented R-CNN branches (oriented RPN, pyramid rotated
+RoI align, shared-2fc head), with ``simple_test_sar/rgb/ifr``,
+``simple_test_joint`` (one backbone pass over the three modalities, one
+proposal NMS, one align and one R-CNN NMS over rgb + infrared) and
+``aug_test``. The compute-dtype policy is that of ``_cast_in``: with
+``compute_dtype="bfloat16"`` the parameters and images are bf16 (convs and
+products in bf16, norm statistics in fp32) and the head outputs are cast to
+fp32 before decode and NMS. The training forward comes in a later slice of
+the port.
+
+Each entry point is split into ``head_*`` (the network) and
+``get_*``/``get_bboxes_*`` (decode and NMS), so that a caller can feed the
+same network outputs to two devices.
 """
 
 from __future__ import annotations
 
 import copy
+import math
 from typing import Any, Dict
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ...core.anchor import AnchorGenerator
+from ...core.bbox.coders import DeltaXYWHAOBBoxCoder, MidpointOffsetCoder
 from ...device import resolve_device
+from ...ops.box_convert import norm_angle
+from ...ops.nms import aug_multiclass_nms_rotated
 from ..backbones.convnext import ConvNeXtMoE
 from ..dense_heads.gfl_head import GFLHead, gfl_get_bboxes
+from ..dense_heads.oriented_rpn_head import (OrientedRPNHead,
+                                             rpn_get_proposals)
 from ..necks.fpn import MultitaskFPN
+from ..roi_heads.oriented_roi_head import (RotatedShared2FCBBoxHead,
+                                           extract_rotated_roi_feats,
+                                           roi_head_get_bboxes)
 
 DEFAULT_MODEL_CFG: Dict[str, Any] = dict(
     num_classes=26,
@@ -47,9 +64,6 @@ DEFAULT_MODEL_CFG: Dict[str, Any] = dict(
              rcnn_score_thr=0.05, rcnn_nms_iou=0.1, rcnn_max=2000),
 )
 
-_LATER = ("the RGB/IR Oriented R-CNN branch and joint inference are the "
-          "next slice of the port")
-
 
 def make_sar_anchor_generator(strides=(8, 16, 32, 64, 128)):
     """GFL: single anchor per cell, octave base 8."""
@@ -57,8 +71,26 @@ def make_sar_anchor_generator(strides=(8, 16, 32, 64, 128)):
                            octave_base_scale=8, scales_per_octave=1)
 
 
+def make_rpn_anchor_generator(strides=(4, 8, 16, 32, 64)):
+    """Oriented RPN: scales [8] x ratios [.5, 1, 2]."""
+    return AnchorGenerator(strides=strides, ratios=[0.5, 1.0, 2.0],
+                           scales=[8])
+
+
+def make_rpn_coder(version="le90"):
+    return MidpointOffsetCoder(
+        angle_range=version, target_means=(0.,) * 6,
+        target_stds=(1., 1., 1., 1., 0.5, 0.5))
+
+
+def make_rcnn_coder(version="le90"):
+    return DeltaXYWHAOBBoxCoder(
+        angle_range=version, target_means=(0.,) * 5,
+        target_stds=(0.1, 0.1, 0.2, 0.2, 0.1), edge_swap=True, proj_xy=True)
+
+
 class TriSourceDetector(nn.Module):
-    """SM3Det detector, SAR slice. ``cfg`` follows DEFAULT_MODEL_CFG.
+    """SM3Det detector, inference. ``cfg`` follows DEFAULT_MODEL_CFG.
 
     Parameters are made from ``seed`` with a ``torch.Generator`` and live on
     ``device``: the CUDA card by default, the host only for
@@ -92,6 +124,18 @@ class TriSourceDetector(nn.Module):
             num_classes=c["num_classes"], in_channels=n["out_channels"],
             strides=tuple(c["sar"]["strides"]),
             reg_max=c["sar"]["reg_max"], gen=gen)
+        # the order of construction is the order the seed's generator is
+        # drawn in
+        ch = n["out_channels"]
+        self.rgb_rpn_head = OrientedRPNHead(in_channels=ch, gen=gen)
+        self.ifr_rpn_head = OrientedRPNHead(in_channels=ch, gen=gen)
+        self.rgb_roi_head = RotatedShared2FCBBoxHead(
+            num_classes=c["num_classes"], in_channels=ch, gen=gen)
+        self.ifr_roi_head = RotatedShared2FCBBoxHead(
+            num_classes=c["num_classes"], in_channels=ch, gen=gen)
+        self._sar_gen = make_sar_anchor_generator(tuple(c["sar"]["strides"]))
+        self._rpn_gen = make_rpn_anchor_generator(
+            tuple(c["rgb"]["rpn_strides"]))
         dt = c.get("compute_dtype")
         self.compute_dtype = getattr(torch, dt) if dt else torch.float32
         self.to(device=dev, dtype=self.compute_dtype)
@@ -128,7 +172,7 @@ class TriSourceDetector(nn.Module):
         s = c["sar"]
         return gfl_get_bboxes(
             [x.float() for x in cls_scores], [p.float() for p in bbox_preds],
-            make_sar_anchor_generator(tuple(s["strides"])), c["num_classes"],
+            self._sar_gen, c["num_classes"],
             img_shape, reg_max=s["reg_max"], strides=tuple(s["strides"]),
             nms_pre=s["nms_pre"], score_thr=s["score_thr"],
             iou_thr=s["nms_iou"], max_per_img=s["max_per_img"])
@@ -139,13 +183,202 @@ class TriSourceDetector(nn.Module):
         cls_scores, bbox_preds = self.head_sar(imgs)
         return self.get_bboxes_sar(cls_scores, bbox_preds, img_shape)
 
-    def simple_test(self, imgs, subdataset: str, img_shape=(800, 800)):
-        if subdataset == "sar":
-            return self.simple_test_sar(imgs, img_shape)
-        if subdataset in ("rgb", "ifr"):
-            raise NotImplementedError(f"simple_test({subdataset!r}): {_LATER}")
+    # ---- RGB / infrared: Oriented R-CNN ---------------------------------
+
+    def _heads(self, subdataset: str):
+        if subdataset == "rgb":
+            return self.rgb_rpn_head, self.rgb_roi_head
+        if subdataset == "ifr":
+            return self.ifr_rpn_head, self.ifr_roi_head
         raise ValueError(subdataset)
 
+    def neck_rcnn(self, feats):
+        """Neck of the R-CNN branches (start_level=0, extra conv on the
+        output): five levels, strides 4 to 64."""
+        return self.neck(list(feats), start_level=0,
+                         add_extra_convs="on_output")
+
+    def head_rpn(self, x, subdataset: str):
+        """RPN head of one modality on the neck's levels; outputs in the
+        compute dtype."""
+        return self._heads(subdataset)[0](x)
+
+    def get_proposals(self, rpn_cls, rpn_reg, img_shape=(800, 800)):
+        """Proposal decode, top-k and per-level NMS in fp32: (proposals
+        (B, rpn_max, 5), scores, valid)."""
+        r = self.cfg["rgb"]
+        return rpn_get_proposals(
+            [s.float() for s in rpn_cls], [p.float() for p in rpn_reg],
+            self._rpn_gen, make_rpn_coder(self.cfg["angle_version"]),
+            img_shape=img_shape, nms_pre=r["rpn_nms_pre"],
+            max_per_img=r["rpn_max"], iou_thr=r["rpn_nms_iou"])
+
+    def roi_feats(self, x, proposals):
+        """One rotated RoI align of all images' proposals (B, S, 5) on the
+        neck's levels x -> (B * S, 7, 7, C)."""
+        bsz, s = proposals.shape[:2]
+        batch_idx = torch.arange(bsz, dtype=proposals.dtype,
+                                 device=proposals.device) \
+            .repeat_interleave(s)[:, None]
+        rois6 = torch.cat([batch_idx, proposals.reshape(-1, 5)], dim=-1)
+        return extract_rotated_roi_feats(x, rois6)
+
+    def get_bboxes_rcnn(self, cls_logits, reg_pred, proposals, p_valid,
+                        img_shape=(800, 800), max_per_img=None):
+        """R-CNN decode and multi-class rotated NMS in fp32, batched over
+        images: (dets (B, rcnn_max, 6), labels, valid)."""
+        c = self.cfg
+        r = c["rgb"]
+        return roi_head_get_bboxes(
+            cls_logits.float(), reg_pred.float(), proposals, p_valid,
+            make_rcnn_coder(c["angle_version"]), c["num_classes"],
+            img_shape=img_shape, score_thr=r["rcnn_score_thr"],
+            iou_thr=r["rcnn_nms_iou"],
+            max_per_img=max_per_img or r["rcnn_max"])
+
+    def _simple_test_rcnn(self, imgs, subdataset, img_shape,
+                          max_per_img=None):
+        x = self.neck_rcnn(self.extract_feat(imgs))
+        rpn_cls, rpn_reg = self.head_rpn(x, subdataset)
+        proposals, _, p_valid = self.get_proposals(rpn_cls, rpn_reg,
+                                                   img_shape)
+        bsz, s = proposals.shape[:2]
+        cls_logits, reg_pred = self._heads(subdataset)[1](
+            self.roi_feats(x, proposals))
+        return self.get_bboxes_rcnn(
+            cls_logits.reshape(bsz, s, -1), reg_pred.reshape(bsz, s, -1),
+            proposals, p_valid, img_shape, max_per_img)
+
+    @torch.no_grad()
+    def simple_test_rgb(self, imgs, img_shape=(800, 800)):
+        """Returns per-image (dets (B, rcnn_max, 6), labels, valid)."""
+        return self._simple_test_rcnn(imgs, "rgb", img_shape)
+
+    @torch.no_grad()
+    def simple_test_ifr(self, imgs, img_shape=(800, 800)):
+        return self._simple_test_rcnn(imgs, "ifr", img_shape)
+
+    def simple_test(self, imgs, subdataset: str, img_shape=(800, 800)):
+        """Route on the subdataset: "sar", "rgb" or "ifr"."""
+        if subdataset == "sar":
+            return self.simple_test_sar(imgs, img_shape)
+        if subdataset == "rgb":
+            return self.simple_test_rgb(imgs, img_shape)
+        if subdataset == "ifr":
+            return self.simple_test_ifr(imgs, img_shape)
+        raise ValueError(subdataset)
+
+    # ---- joint inference ------------------------------------------------
+
+    def head_joint(self, sar_imgs, rgb_imgs, ifr_imgs):
+        """One backbone pass over the concatenated batch, the neck per
+        branch, the GFL head and the two RPN heads. Returns ((sar_cls,
+        sar_reg), x, (rpn_cls, rpn_reg)): x is the R-CNN neck's levels over
+        the rgb + infrared images, the RPN outputs are concatenated over
+        them in that order."""
+        n_sar, n_rgb = sar_imgs.shape[0], rgb_imgs.shape[0]
+        imgs = torch.cat([self._cast_in(sar_imgs), self._cast_in(rgb_imgs),
+                          self._cast_in(ifr_imgs)], dim=0)
+        feats = self.backbone(imgs)
+        sar_out = self.head_sar_from_feats([f[:n_sar] for f in feats])
+        x = self.neck_rcnn([f[n_sar:] for f in feats])
+        rgb_cls, rgb_reg = self.rgb_rpn_head([f[:n_rgb] for f in x])
+        ifr_cls, ifr_reg = self.ifr_rpn_head([f[n_rgb:] for f in x])
+        rpn_cls = [torch.cat([a, b], 0) for a, b in zip(rgb_cls, ifr_cls)]
+        rpn_reg = [torch.cat([a, b], 0) for a, b in zip(rgb_reg, ifr_reg)]
+        return sar_out, x, (rpn_cls, rpn_reg)
+
+    def roi_logits_joint(self, roi_feats, n_rgb: int, n_ifr: int):
+        """The two RoI heads on their images' RoI features ((n_rgb +
+        n_ifr) * S, 7, 7, C) -> (cls_logits (B, S, C+1), reg (B, S, 5))."""
+        s = roi_feats.shape[0] // (n_rgb + n_ifr)
+        rgb_logits, rgb_rp = self.rgb_roi_head(roi_feats[:n_rgb * s])
+        ifr_logits, ifr_rp = self.ifr_roi_head(roi_feats[n_rgb * s:])
+        cls_logits = torch.cat([rgb_logits.reshape(n_rgb, s, -1),
+                                ifr_logits.reshape(n_ifr, s, -1)], 0)
+        reg_pred = torch.cat([rgb_rp.reshape(n_rgb, s, -1),
+                              ifr_rp.reshape(n_ifr, s, -1)], 0)
+        return cls_logits, reg_pred
+
+    @torch.no_grad()
     def simple_test_joint(self, sar_imgs, rgb_imgs, ifr_imgs,
                           img_shape=(800, 800)):
-        raise NotImplementedError(f"simple_test_joint: {_LATER}")
+        """Mixed-batch joint inference: one backbone pass over the three
+        modalities; the proposal NMS, the RoI align and the R-CNN NMS each
+        run once over rgb + infrared. Returns ``(sar, rgb, ifr)`` triples of
+        (dets, labels, valid), equal to the per-modality
+        ``simple_test_*``."""
+        n_rgb, n_ifr = rgb_imgs.shape[0], ifr_imgs.shape[0]
+        (sar_cls, sar_reg), x, (rpn_cls, rpn_reg) = self.head_joint(
+            sar_imgs, rgb_imgs, ifr_imgs)
+        sar_out = self.get_bboxes_sar(sar_cls, sar_reg, img_shape)
+        proposals, _, p_valid = self.get_proposals(rpn_cls, rpn_reg,
+                                                   img_shape)
+        cls_logits, reg_pred = self.roi_logits_joint(
+            self.roi_feats(x, proposals), n_rgb, n_ifr)
+        dets, labels, valid = self.get_bboxes_rcnn(
+            cls_logits, reg_pred, proposals, p_valid, img_shape)
+        return (sar_out, (dets[:n_rgb], labels[:n_rgb], valid[:n_rgb]),
+                (dets[n_rgb:], labels[n_rgb:], valid[n_rgb:]))
+
+    # ---- test-time augmentation ------------------------------------------
+
+    @torch.no_grad()
+    def aug_test(self, imgs, subdataset: str, img_shape=(800, 800),
+                 scales=(1.0,), flip_directions=(None, "horizontal")):
+        """Test-time augmentation: every (scale, flip direction) variant
+        runs ``simple_test``; its detections are mapped back to the
+        original frame (mmrotate ``bbox_flip``: the centre is reflected and
+        the angle becomes pi - a for rotated boxes; mmdet's for xyxy) and
+        unscaled, then all variants merge through one joint class-offset
+        NMS. ``flip_directions`` entries: None, "horizontal", "vertical",
+        "diagonal"."""
+        version = self.cfg["angle_version"]
+        hgt, wid = img_shape
+        imgs = self._cast_in(imgs)
+
+        def flip_img(x, direction):
+            dims = [d for d, on in ((2, ("horizontal", "diagonal")),
+                                    (1, ("vertical", "diagonal")))
+                    if direction in on]
+            return torch.flip(x, dims) if dims else x
+
+        def map_back(d, direction, shape_s, s):
+            h, w = shape_s
+            if subdataset == "sar":
+                x1, y1, x2, y2, sc = d.unbind(-1)
+                if direction in ("horizontal", "diagonal"):
+                    x1, x2 = w - x2, w - x1
+                if direction in ("vertical", "diagonal"):
+                    y1, y2 = h - y2, h - y1
+                return torch.stack([x1 / s, y1 / s, x2 / s, y2 / s, sc], -1)
+            cx, cy, bw, bh, a, sc = d.unbind(-1)
+            if direction is not None:
+                # pixel-centre convention, hence the -1
+                if direction in ("horizontal", "diagonal"):
+                    cx = w - cx - 1
+                if direction in ("vertical", "diagonal"):
+                    cy = h - cy - 1
+                a = norm_angle(math.pi - a, version)
+            return torch.stack([cx / s, cy / s, bw / s, bh / s, a, sc], -1)
+
+        all_d, all_l, all_v = [], [], []
+        for s in scales:
+            if s == 1.0:
+                im_s, shape_s = imgs, (hgt, wid)
+            else:
+                shape_s = (int(round(hgt * s)), int(round(wid * s)))
+                im_s = F.interpolate(
+                    imgs.permute(0, 3, 1, 2).float(), size=shape_s,
+                    mode="bilinear", align_corners=False,
+                    antialias=True).permute(0, 2, 3, 1).to(imgs.dtype)
+            for direction in flip_directions:
+                d, lab, val = self.simple_test(
+                    flip_img(im_s, direction), subdataset, shape_s)
+                all_d.append(map_back(d, direction, shape_s, s))
+                all_l.append(lab)
+                all_v.append(val)
+        return aug_multiclass_nms_rotated(
+            all_d, all_l, all_v, 0.5 if subdataset == "sar" else 0.1,
+            max_out=all_d[0].shape[1],
+            box_dim=4 if subdataset == "sar" else 5)

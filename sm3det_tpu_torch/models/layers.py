@@ -66,6 +66,20 @@ class Conv2d(nn.Module):
         return y.permute(0, 2, 3, 1)
 
 
+class Dense(nn.Module):
+    """flax ``nn.Dense``: weight (out, in), lecun-normal init, zero bias."""
+
+    def __init__(self, cin: int, cout: int,
+                 gen: torch.Generator | None = None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(cout, cin))
+        trunc_normal_(self.weight, 1.0 / math.sqrt(cin), gen)
+        self.bias = nn.Parameter(torch.zeros(cout))
+
+    def forward(self, x):
+        return F.linear(x, self.weight, self.bias)
+
+
 class GroupNorm(nn.Module):
     """flax ``nn.GroupNorm``: fp32 statistics with the fast variance
     ``max(E[x^2] - mean^2, 0)``, eps 1e-6, output in the promoted dtype."""

@@ -34,7 +34,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # launches per kernel wrapper; reset with reset_launches()
 LAUNCHES = {"dwconv_ln": 0, "fused_convnext_block": 0,
-            "moe_ffn_grouped": 0, "hbb_iou": 0, "fused_layernorm": 0}
+            "moe_ffn_grouped": 0, "hbb_iou": 0, "fused_layernorm": 0,
+            "rotated_iou": 0, "rotated_iou_banded": 0,
+            "roi_align_rotated": 0}
 
 _lib = None
 
@@ -55,6 +57,13 @@ _SIGNATURES = {
     # x, scale, bias, out, rows, C, in_bf16, out_bf16, eps, stream
     "sm3det_layernorm": [_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _F,
                          _P],
+    # boxes1, boxes2, groups1, groups2 (both null: not banded), out, B, N,
+    # M, triu, stream
+    "sm3det_rotated_iou": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # 4 level pointers, 4 heights, 4 widths, 4 x 1/stride, rois, lvls, out,
+    # B, C, N, out_size, sample_num, bf16, stream
+    "sm3det_roi_align_rotated": [_P] * 4 + [_I] * 8 + [_F] * 4
+    + [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

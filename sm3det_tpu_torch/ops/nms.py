@@ -1,15 +1,16 @@
-"""Static-shape horizontal NMS.
+"""Static-shape NMS, horizontal and rotated.
 
-Port of the horizontal half of ``sm3det_tpu/ops/nms.py``: every function
+Port of ``sm3det_tpu/ops/nms.py`` (all but ``soft_nms``): every function
 returns fixed-size outputs with a validity mask. Each function takes one
-image (``(N, 4)`` boxes) or a batch (``(B, N, 4)``); a batch is one
-suppression-matrix launch and one greedy pass for all its images.
+image (``(N, 4)`` or ``(N, 5)`` boxes) or a batch (``(B, N, ...)``); a batch
+is one suppression-matrix launch and one greedy pass for all its images.
 
-The suppression matrix comes from ``ops/cuda/hbb_iou_kernel.hbb_iou`` with
-``triu=True``: the kernel on a CUDA tensor, its plain version on a CPU
-tensor. Greedy keep decisions come from the blocked-exact algorithm
-(``greedy_keep``), equal to sequential greedy NMS. Ties in score keep the
-lower index first, as JAX's stable sorts do.
+The suppression matrix comes from ``ops/cuda/hbb_iou_kernel.hbb_iou`` or
+``ops/cuda/rotated_iou_kernel.rotated_iou`` with ``triu=True``: the kernel
+on a CUDA tensor, its plain version on a CPU tensor. Greedy keep decisions
+come from the blocked-exact algorithm (``greedy_keep``), equal to
+sequential greedy NMS. Ties in score keep the lower index first, as JAX's
+stable sorts do.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from .cuda.hbb_iou_kernel import hbb_iou
+from .cuda.rotated_iou_kernel import INERT_GROUP, rotated_iou
 
 NEG_INF = -1e10
 
@@ -141,6 +143,8 @@ def _batched(fn):
     def wrapper(boxes, scores, *args, **kwargs):
         if boxes.dim() == 2:
             args = [a[None] if torch.is_tensor(a) else a for a in args]
+            kwargs = {k: a[None] if torch.is_tensor(a) else a
+                      for k, a in kwargs.items()}
             return tuple(o[0] for o in fn(boxes[None], scores[None], *args,
                                           **kwargs))
         return fn(boxes, scores, *args, **kwargs)
@@ -217,3 +221,129 @@ def multiclass_nms(multi_bboxes, multi_scores, score_thr: float,
     labels = torch.where(ov, torch.gather(cls_idx, 1, safe),
                          torch.full_like(safe, -1))
     return dets, labels, ov
+
+
+def _take(x, idx):
+    """Gather rows of (B, N, D) or entries of (B, N) by idx (B, K)."""
+    if x.dim() == 3:
+        return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+    return torch.gather(x, 1, idx)
+
+
+@_batched
+def nms_rotated(boxes, scores, iou_threshold: float, max_out: int,
+                score_thr: float = float("-inf"), groups=None):
+    """Rotated greedy NMS with static output size.
+
+    boxes (N, 5) ``(cx, cy, w, h, theta)``. ``groups`` (optional, int (N,)
+    in [0, 2**15)): boxes of different groups never suppress each other.
+    The candidates are then reordered group-major (score order inside a
+    group: the same greedy result, since suppression is inside a group
+    only), so the suppression matrix is block-diagonal and the banded IoU
+    kernel skips the cross-group tiles; entries the NMS may not keep go to
+    an inert band at the end. Returns (dets (max_out, 6) with the score
+    last, idx (max_out,) into the input or -1, valid (max_out,)), equal to
+    the ungrouped result on class-offset boxes.
+    """
+    order = torch.sort(-scores, dim=-1, stable=True).indices
+    boxes_s = _take(boxes, order)
+    scores_s = _take(scores, order)
+    eligible = scores_s > score_thr
+    if groups is None:
+        iou = rotated_iou(boxes_s, boxes_s, triu=True)
+        keep = greedy_keep(iou > iou_threshold, eligible)
+    else:
+        n = boxes.shape[1]
+        groups_s = _take(groups, order).long()
+        g_eff = torch.where(eligible, groups_s,
+                            torch.full_like(groups_s, INERT_GROUP))
+        # group-major permutation; the index keeps score order in a group
+        g_key = torch.where(eligible, groups_s,
+                            torch.full_like(groups_s, 1 << 15))
+        perm = torch.sort(
+            g_key * n + torch.arange(n, device=boxes.device), dim=-1).indices
+        boxes_p = _take(boxes_s, perm)
+        g_p = _take(g_eff, perm).int()
+        iou = rotated_iou(boxes_p, boxes_p, triu=True, groups1=g_p,
+                          groups2=g_p)
+        keep_g = greedy_keep(iou > iou_threshold, _take(eligible, perm))
+        keep = torch.zeros_like(keep_g).scatter_(1, perm, keep_g)
+    ob, os_, oi, ov = _finalize(boxes_s, scores_s, order, keep, max_out)
+    return torch.cat([ob, os_[..., None]], dim=-1), oi, ov
+
+
+@_batched
+def multiclass_nms_rotated(multi_bboxes, multi_scores, score_thr: float,
+                           iou_thr: float, max_num: int,
+                           pre_nms: int = 2000):
+    """Multi-class rotated NMS (mmrotate ``multiclass_nms_rotated``).
+
+    multi_bboxes (N, 5) or (N, C*5); multi_scores (N, C+1), the last column
+    background. The top ``pre_nms`` (box, class) pairs by score are the
+    candidates; their centres are shifted by a per-class offset so that
+    classes never overlap, and the class ids are the groups of the banded
+    NMS. Returns (dets (max_num, 6), labels (max_num,) or -1, valid).
+    """
+    num_classes = multi_scores.shape[-1] - 1
+    b, n = multi_scores.shape[:2]
+    scores = multi_scores[..., :-1]
+    k = min(pre_nms, n * num_classes)
+    top_scores, top_idx = _topk_scores(scores.reshape(b, -1), k)
+    box_idx = top_idx // num_classes
+    cls_idx = top_idx % num_classes
+    if multi_bboxes.shape[-1] > 5:
+        cand_boxes = _take(multi_bboxes.reshape(b, n * num_classes, 5),
+                           top_idx)
+    else:
+        cand_boxes = _take(multi_bboxes, box_idx)
+    cand_scores = torch.where(top_scores > score_thr, top_scores,
+                              torch.full((), NEG_INF, device=scores.device))
+    max_coord = cand_boxes[..., :2].abs().amax(dim=(-2, -1)) + \
+        cand_boxes[..., 2:4].amax(dim=(-2, -1)) + 1.0            # (B,)
+    offset = cls_idx.to(cand_boxes.dtype) * (2.0 * max_coord[:, None])
+    shifted = torch.cat([cand_boxes[..., :2] + offset[..., None],
+                         cand_boxes[..., 2:]], dim=-1)
+    dets, oi, ov = nms_rotated(shifted, cand_scores, iou_thr, max_num,
+                               score_thr=score_thr, groups=cls_idx)
+    safe = torch.where(oi >= 0, oi, torch.zeros_like(oi))
+    out_boxes = torch.where(ov[..., None], _take(cand_boxes, safe),
+                            torch.zeros((), device=scores.device))
+    labels = torch.where(ov, _take(cls_idx, safe), torch.full_like(safe, -1))
+    return torch.cat([out_boxes, dets[..., 5:6]], dim=-1), labels, ov
+
+
+def aug_multiclass_nms_rotated(dets_list, labels_list, valid_list,
+                               iou_thr: float, max_out: int,
+                               box_dim: int = 5):
+    """Merge the detection sets of several test-time augmentations through
+    one joint class-offset NMS (mmrotate ``aug_multiclass_nms_rotated``).
+
+    Per augmentation: dets ``(N_i, box_dim + 1)`` with the score last,
+    labels ``(N_i,)``, valid ``(N_i,)``, already in the original image's
+    frame; or all with a leading batch dimension. ``box_dim=4`` is the
+    horizontal variant. Returns (dets (max_out, box_dim + 1), labels,
+    valid).
+    """
+    neg = torch.full((), NEG_INF, device=dets_list[0].device)
+    boxes = torch.cat([d[..., :box_dim] for d in dets_list], dim=-2)
+    scores = torch.cat([torch.where(v, d[..., box_dim], neg)
+                        for d, v in zip(dets_list, valid_list)], dim=-1)
+    labels = torch.cat(list(labels_list), dim=-1)
+    off = labels.to(boxes.dtype) * 2e4
+    shifted = torch.cat([boxes[..., :1] + off[..., None], boxes[..., 1:]],
+                        dim=-1)
+    if box_dim == 4:
+        dets, idx, valid = nms(shifted, scores, iou_thr, max_out)
+    else:
+        dets, idx, valid = nms_rotated(shifted, scores, iou_thr, max_out)
+    # masked-out inputs carry NEG_INF scores: never valid outputs
+    valid = valid & (dets[..., box_dim] > NEG_INF / 2)
+    safe = torch.where(idx >= 0, idx, torch.zeros_like(idx))
+    out_b = torch.where(
+        valid[..., None],
+        torch.gather(boxes, -2, safe[..., None].expand(
+            safe.shape + (box_dim,))), torch.zeros((), device=boxes.device))
+    out_l = torch.where(valid, torch.gather(labels, -1, safe),
+                        torch.full_like(safe, -1))
+    return torch.cat([out_b, dets[..., box_dim:box_dim + 1]], dim=-1), \
+        out_l, valid

@@ -27,6 +27,10 @@ from sm3det_tpu_torch.ops.cuda import build
 from sm3det_tpu_torch.ops.cuda import convnext_block_kernel as cbk
 from sm3det_tpu_torch.ops.cuda import hbb_iou_kernel as hik
 from sm3det_tpu_torch.ops.cuda import moe_groupgemm_kernel as mgk
+from sm3det_tpu_torch.ops.cuda import roi_align_kernel as rak
+from sm3det_tpu_torch.ops.cuda import rotated_iou_kernel as rik
+from sm3det_tpu_torch.ops.roi_align_rotated import (
+    roi_align_rotated_pyramid, route_levels)
 
 pytestmark = pytest.mark.gpu
 
@@ -142,12 +146,125 @@ def test_hbb_iou_kernel(cuda, n, triu):
     assert (got - ref).abs().max().item() <= 1e-6
 
 
+def _rboxes(gen, b, n, device, span=300.0):
+    """Clustered rotated boxes that really overlap, with exact duplicates
+    and a few zero-size entries."""
+    ctr = torch.rand(b, n, 2, generator=gen, device=device) * span
+    wh = 4 + torch.rand(b, n, 2, generator=gen, device=device) * 90
+    ang = (torch.rand(b, n, 1, generator=gen, device=device) - 0.5) * 3.1
+    boxes = torch.cat([ctr, wh, ang], -1)
+    boxes[:, 1::7] = boxes[:, 0::7][:, :boxes[:, 1::7].shape[1]]
+    boxes[:, -3:] = 0.0
+    return boxes
+
+
+def _both_real_or_both_empty(boxes):
+    """Pairs whose IoU is defined: a box of no area against a real one is
+    rounding noise over a union near 0, in the kernel and the plain version
+    alike, and no caller reads it."""
+    real = (boxes[..., 2] * boxes[..., 3]) > 0
+    return real[..., :, None] == real[..., None, :]
+
+
+# the IoU is a quotient of sums of ~1e4-sized cross products; the kernel
+# repeats the plain version's operations one by one, so 1e-5 absolute is
+# generous
+IOU_TOL = 1e-5
+
+
+@pytest.mark.parametrize("b,n", [(1, 70), (3, 333), (2, 2000)])
+@pytest.mark.parametrize("triu", [False, True])
+def test_rotated_iou_kernel(cuda, b, n, triu):
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    boxes = _rboxes(gen, b, n, cuda)
+    build.reset_launches()
+    got = rik.rotated_iou(boxes, boxes, triu=triu)
+    assert build.LAUNCHES["rotated_iou"] == 1
+    assert build.LAUNCHES["rotated_iou_banded"] == 0
+    ref = rik.rotated_iou_ref(boxes, boxes, triu=triu)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == (b, n, n)
+    assert bool(torch.isfinite(got).all())
+    ok = _both_real_or_both_empty(boxes)
+    assert ((got - ref).abs() * ok).max().item() <= IOU_TOL
+    assert float(ref.max()) > 0.99          # duplicates: IoU 1
+    one = rik.rotated_iou(boxes[0], boxes[0, :n // 2], triu=triu)
+    assert one.shape == (n, n // 2)
+    assert torch.equal(one, got[0, :, :n // 2])
+
+
+@pytest.mark.parametrize("b,n,classes", [(1, 100, 3), (3, 333, 5),
+                                         (2, 2000, 26)])
+@pytest.mark.parametrize("triu", [False, True])
+def test_rotated_iou_banded_kernel(cuda, b, n, classes, triu):
+    gen = torch.Generator(device=cuda).manual_seed(n + 1)
+    boxes = _rboxes(gen, b, n, cuda)
+    groups = torch.sort(torch.randint(0, classes, (b, n), generator=gen,
+                                      device=cuda), dim=-1).values.int()
+    groups[:, -n // 10:] = rik.INERT_GROUP
+    build.reset_launches()
+    got = rik.rotated_iou(boxes, boxes, triu=triu, groups1=groups,
+                          groups2=groups)
+    assert build.LAUNCHES["rotated_iou_banded"] == 1
+    assert build.LAUNCHES["rotated_iou"] == 0
+    ref = rik.rotated_iou_ref(boxes, boxes, triu=triu, groups1=groups,
+                              groups2=groups)
+    torch.cuda.synchronize()
+    same = (groups[:, :, None] == groups[:, None, :]) & \
+        (groups[:, :, None] < rik.INERT_GROUP)
+    ok = same & _both_real_or_both_empty(boxes)
+    assert ((got - ref).abs() * ok).max().item() <= IOU_TOL
+    need = rik.tile_need(n, n, triu, groups, groups)
+    assert 0 < int(need.sum()) < need.numel()
+    skipped = ~need.repeat_interleave(rik.TILE, -2) \
+        .repeat_interleave(rik.TILE, -1)[:, :n, :n]
+    assert float((got.abs() * skipped).max()) == 0.0
+
+
+def _pyramid(gen, b, size, c, dtype, device):
+    return [_rand(gen, b, size // s, size // s, c, dtype=dtype,
+                  device=device) for s in (4, 8, 16, 32, 64)]
+
+
+def _rois(gen, b, n, size, device):
+    """RoIs over all four levels, rotated, some crossing the border, some
+    far outside, some of no size."""
+    u = lambda *s: torch.rand(*s, generator=gen, device=device)  # noqa: E731
+    side = 8 * 2 ** (u(n) * 6.5)                     # 8 .. ~720 px
+    aspect = 2 ** ((u(n) - 0.5) * 3)
+    rois = torch.stack([
+        torch.randint(0, b, (n,), generator=gen, device=device).float(),
+        (u(n) * 1.2 - 0.1) * size, (u(n) * 1.2 - 0.1) * size,
+        side * aspect, side / aspect, (u(n) - 0.5) * 3.1], -1)
+    rois[::11, 1:] = 0.0
+    rois[5::50, 1:3] = -3.0 * size
+    return rois
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,size,c", [(1, 50, 128, 32), (3, 777, 320, 64),
+                                        (8, 4000, 800, 256)])
+def test_roi_align_rotated_kernel(cuda, dtype, b, n, size, c):
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    feats = _pyramid(gen, b, size, c, dtype, cuda)
+    rois = _rois(gen, b, n, size, cuda)
+    lvls = route_levels(rois)
+    assert set(lvls.tolist()) == {0, 1, 2, 3}
+    build.reset_launches()
+    got = rak.roi_align_rotated_pyramid_fused(feats, rois)
+    assert build.LAUNCHES["roi_align_rotated"] == 1
+    ref = roi_align_rotated_pyramid(feats, rois, lvls, 7)
+    _check(got, ref, dtype)
+    assert float(got[5::50].abs().max()) == 0.0      # far outside: zeros
+
+
 def _small_cfg(dtype=None):
     cfg = copy.deepcopy(DEFAULT_MODEL_CFG)
     cfg["backbone"].update(arch="atto", moe_block_inds=((), (), (0,), ()),
                            num_experts=4, top_k=2)
     cfg["neck"].update(in_channels=(40, 80, 160, 320), out_channels=32)
     cfg["sar"].update(nms_pre=50, max_per_img=10)
+    cfg["rgb"].update(rpn_nms_pre=50, rpn_max=40, rcnn_max=10)
     if dtype:
         cfg["compute_dtype"] = dtype
     return cfg
@@ -185,6 +302,69 @@ def test_sar_slice_bf16_goes_through_every_kernel(cuda):
     # output LayerNorms
     assert build.LAUNCHES == {"dwconv_ln": 12, "fused_convnext_block": 11,
                               "moe_ffn_grouped": 1, "hbb_iou": 1,
-                              "fused_layernorm": 8}
+                              "fused_layernorm": 8, "rotated_iou": 0,
+                              "rotated_iou_banded": 0,
+                              "roi_align_rotated": 0}
     assert dets.shape == (2, 10, 5) and bool(torch.isfinite(dets).all())
     assert int(valid.sum()) > 0
+
+
+def _spread_class_scores(model, imgs):
+    """Random weights leave the softmax near 1/27, under the score
+    threshold: scale fc_cls so that the R-CNN NMS has candidates."""
+    x = model.neck_rcnn(model.extract_feat(imgs))
+    props, _, _ = model.get_proposals(*model.head_rpn(x, "rgb"), (64, 64))
+    feats = model.roi_feats(x, props)
+    for head in (model.rgb_roi_head, model.ifr_roi_head):
+        logits, _ = head(feats)
+        head.fc_cls.weight.mul_(3.0 / logits.float().std().item())
+
+
+def test_joint_slice_bf16_goes_through_every_kernel(cuda):
+    model = TriSourceDetector(_small_cfg("bfloat16"), seed=0)
+    model.sar_bbox_head.gfl_cls.bias.fill_(0.5)
+    sar, rgb, ifr = (torch.rand(n, 64, 64, 3, device=cuda)
+                     for n in (2, 2, 1))
+    with torch.no_grad():
+        _spread_class_scores(model, rgb)
+    build.reset_launches()
+    out = model.simple_test_joint(sar, rgb, ifr, img_shape=(64, 64))
+    torch.cuda.synchronize()
+    # one backbone pass; the SAR NMS and the RPN NMS of 3 images x 5 levels
+    assert build.LAUNCHES == {"dwconv_ln": 12, "fused_convnext_block": 11,
+                              "moe_ffn_grouped": 1, "hbb_iou": 2,
+                              "fused_layernorm": 8, "rotated_iou": 0,
+                              "rotated_iou_banded": 1,
+                              "roi_align_rotated": 1}
+    for (dets, labels, valid), shape in zip(out, ((2, 10, 5), (2, 10, 6),
+                                                  (1, 10, 6))):
+        assert dets.shape == shape and bool(torch.isfinite(dets).all())
+        assert int(valid.sum()) > 0
+    build.reset_launches()
+    dets, _, valid = model.aug_test(rgb, "rgb", img_shape=(64, 64))
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["rotated_iou"] == 1          # the merge
+    assert dets.shape == (2, 10, 6) and int(valid.sum()) > 0
+
+
+def test_rcnn_detections_card_matches_host(cuda):
+    """fp32: detections from the same logits, the banded IoU kernel on the
+    card against the plain version on the host."""
+    card = TriSourceDetector(_small_cfg(), seed=0)
+    host = TriSourceDetector(_small_cfg(), device="cpu", seed=0)
+    rng = np.random.RandomState(3)
+    n = 300
+    rois = np.stack([rng.uniform(5, 59, n), rng.uniform(5, 59, n),
+                     rng.uniform(6, 30, n), rng.uniform(6, 30, n),
+                     rng.uniform(-1.5, 1.5, n)], -1).astype(np.float32)
+    args = [torch.from_numpy(a)[None] for a in (
+        rng.normal(0, 2.5, (n, 27)).astype(np.float32),
+        rng.normal(0, 0.5, (n, 5)).astype(np.float32), rois,
+        rng.rand(n) > 0.15)]
+    det_h = host.get_bboxes_rcnn(*args, (64, 64), max_per_img=2000)
+    det_d = card.get_bboxes_rcnn(*[a.cuda() for a in args], (64, 64),
+                                 max_per_img=2000)
+    assert 20 < int(det_h[2].sum()) < 2000
+    assert torch.equal(det_d[2].cpu(), det_h[2])
+    assert torch.equal(det_d[1].cpu(), det_h[1])
+    assert (det_d[0].cpu() - det_h[0]).abs().max().item() <= 1e-4

@@ -43,9 +43,15 @@ def _jax_feats(m, imgs):
 
 def _jax_init_sar(m, imgs):
     # train=True so that the MoE's noisy-gate weight w_noise exists, as in
-    # a training checkpoint
+    # a training checkpoint; the RGB / infrared heads are touched so that
+    # the tree is the whole detector's, as from_flax expects
     ids = jnp.zeros((imgs.shape[0],), jnp.int32)
     feats, _ = m.backbone(imgs, train=True, dataset_ids=ids)
+    x = m._neck_rcnn(list(feats))
+    for rpn, roi in ((m.rgb_rpn_head, m.rgb_roi_head),
+                     (m.ifr_rpn_head, m.ifr_roi_head)):
+        rpn(x)
+        roi(jnp.zeros((1, 7, 7, x[0].shape[-1]), x[0].dtype))
     return m.sar_bbox_head(m._neck_sar(list(feats)))
 
 
@@ -151,9 +157,20 @@ def test_default_device_raises_without_card():
 
 
 def test_later_slices_raise(pair):
+    """What the port does not serve yet raises, and says so."""
     _, _, port, imgs = pair
-    for sub in ("rgb", "ifr"):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            port.simple_test(imgs, sub)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        port.simple_test_joint(imgs, imgs, imgs)
+    with pytest.raises(ValueError):
+        port.simple_test(imgs, "optical")
+    cfg = _small(DEFAULT_MODEL_CFG)
+    cfg["backbone"]["use_da"] = True
+    with pytest.raises(NotImplementedError, match="domain attention"):
+        TriSourceDetector(cfg, device="cpu")
+    cfg = _small(DEFAULT_MODEL_CFG)
+    cfg["backbone"]["type"] = "LSKNet"
+    with pytest.raises(NotImplementedError, match="LSKNet"):
+        TriSourceDetector(cfg, device="cpu")
+    from sm3det_tpu_torch.models.detectors.trisource import (make_rcnn_coder,
+                                                              make_rpn_coder)
+    for coder in (make_rpn_coder(), make_rcnn_coder()):
+        with pytest.raises(NotImplementedError, match="training slice"):
+            coder.encode(torch.zeros(1, 5), torch.zeros(1, 5))

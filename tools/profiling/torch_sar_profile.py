@@ -1,24 +1,29 @@
 #!/usr/bin/env python3
-"""Where the time of the PyTorch port's SAR forward goes, on one CUDA card.
+"""Where the time of the PyTorch port's forward goes, on one CUDA card.
 
 Run from the root of the repository on a machine with a card:
 
-    python3 tools/profiling/torch_sar_profile.py [--batch 8] [--size 800]
+    python3 tools/profiling/torch_sar_profile.py [--path sar|joint]
+        [--batch 8] [--size 800]
 
 It builds the full-width ``TriSourceDetector`` (``DEFAULT_MODEL_CFG``,
-bf16, random weights from ``--seed``, the ``gfl_cls`` bias raised to 0 so
-that the NMS sees real candidates), warms ``simple_test(imgs, "sar")`` up
-and then reports:
+bf16, random weights from ``--seed``, the ``gfl_cls`` bias raised to 0 and
+the ``fc_cls`` weights scaled up so that every NMS sees real candidates),
+warms the forward up and then reports on it. ``--path sar`` (the default)
+is ``simple_test(imgs, "sar")`` on ``--batch`` images; ``--path joint`` is
+``simple_test_joint`` on ``--batch`` SAR images and half as many RGB and
+infrared images each ([8:4:4] by default).
 
 1. CUDA-event times of the stages of one forward (stem and norms, dense
    blocks, MoE blocks split into dwconv_ln, gate, dispatch + FFN +
-   combine, neck, head, decode + NMS), the median of ``--reps`` forwards;
+   combine, neck, heads, and each decode + NMS), the median of ``--reps``
+   forwards;
 2. one forward under ``torch.profiler``: device time by kernel name, and
    the device's busy share of the forward's wall time (the union of the
    kernels' intervals over the span of the forward).
 
-The kernel table goes to ``chiprun_out/torch_sar_profile.txt``; the
-summary is printed. It imports nothing of JAX.
+The kernel table goes to ``torch_<path>_profile.txt`` in the repository's
+output directory; the summary is printed. It imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -35,7 +40,8 @@ sys.path.insert(0, str(ROOT))
 
 # the __global__ functions of sm3det_tpu_torch/ops/cuda/csrc/*.cu
 PORT_KERNELS = ("dwconv_ln_kernel", "gemm_bf16_kernel", "gemm_f32_kernel",
-                "hbb_iou_kernel", "layernorm_kernel")
+                "hbb_iou_kernel", "layernorm_kernel", "rotated_iou_kernel",
+                "roi_align_rotated_kernel")
 
 
 def stage_of(name, module):
@@ -49,13 +55,15 @@ def stage_of(name, module):
         return "moe dispatch + ffn + combine (with gate)"
     if name.startswith("backbone.") and name.count(".") == 1:
         return "stem, downsample, out norms"
-    if name in ("neck", "sar_bbox_head"):
+    if name in ("neck", "sar_bbox_head", "rgb_rpn_head", "ifr_rpn_head",
+                "rgb_roi_head", "ifr_roi_head"):
         return name
     return None
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--path", choices=("sar", "joint"), default="sar")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--size", type=int, default=800)
     ap.add_argument("--seed", type=int, default=0)
@@ -76,8 +84,27 @@ def main():
     imgs = torch.rand(args.batch, args.size, args.size, 3, generator=gen,
                       device="cuda")
     shape = (args.size, args.size)
+    joint = args.path == "joint"
+    if joint:
+        n_half = max(args.batch // 2, 1)
+        rgb, ifr = (torch.rand(n_half, args.size, args.size, 3,
+                               generator=gen, device="cuda")
+                    for _ in range(2))
+        with torch.no_grad():
+            _, x, rpn = model.head_joint(imgs, rgb, ifr)
+            props, _, _ = model.get_proposals(*rpn, shape)
+            rf = model.roi_feats(x, props)
+            # random weights leave the softmax near 1/27, under the score
+            # threshold: spread the logits so the R-CNN NMS has candidates
+            for head, part in ((model.rgb_roi_head, rf[:rf.shape[0] // 2]),
+                               (model.ifr_roi_head, rf[rf.shape[0] // 2:])):
+                logits, _ = head(part)
+                head.fc_cls.weight.mul_(3.0 / logits.float().std().item())
+        del x, rpn, props, rf
 
     def forward():
+        if joint:
+            return model.simple_test_joint(imgs, rgb, ifr, img_shape=shape)
         return model.simple_test(imgs, "sar", img_shape=shape)
 
     for _ in range(2):
@@ -133,19 +160,39 @@ def main():
     for _ in range(args.reps):
         marks.clear()
         dw_marks.clear()
-        t0, t1, t2 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
-        t0.record()
-        cls_s, reg_s = model.head_sar(imgs)
-        t1.record()
-        model.get_bboxes_sar(cls_s, reg_s, shape)
-        t2.record()
+        ts = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+        names = ["backbone+neck+head", "decode + NMS"]
+        ts[0].record()
+        if joint:
+            names = ["backbone + necks + GFL and RPN heads",
+                     "SAR decode + NMS", "proposal decode + NMS",
+                     "RoI align", "RoI heads", "R-CNN decode + NMS"]
+            with torch.no_grad():
+                (cls_s, reg_s), x, rpn = model.head_joint(imgs, rgb, ifr)
+                ts[1].record()
+                model.get_bboxes_sar(cls_s, reg_s, shape)
+                ts[2].record()
+                props, _, pval = model.get_proposals(*rpn, shape)
+                ts[3].record()
+                rf = model.roi_feats(x, props)
+                ts[4].record()
+                logits, deltas = model.roi_logits_joint(
+                    rf, rgb.shape[0], ifr.shape[0])
+                ts[5].record()
+                model.get_bboxes_rcnn(logits, deltas, props, pval, shape)
+                ts[6].record()
+        else:
+            cls_s, reg_s = model.head_sar(imgs)
+            ts[1].record()
+            model.get_bboxes_sar(cls_s, reg_s, shape)
+            ts[2].record()
         torch.cuda.synchronize()
         sums = defaultdict(float)
         for stage, s, e in marks:
             sums[stage] += s.elapsed_time(e)
         sums["moe dwconv_ln"] = sum(s.elapsed_time(e) for s, e in dw_marks)
-        sums["backbone+neck+head"] = t0.elapsed_time(t1)
-        sums["decode + NMS"] = t1.elapsed_time(t2)
+        for i, name in enumerate(names):
+            sums[name] = ts[i].elapsed_time(ts[i + 1])
         per_rep.append(sums)
     for h in handles:
         h.remove()
@@ -161,7 +208,9 @@ def main():
     except (OSError, subprocess.SubprocessError):
         pass
     print(f"[profile] card {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
-    print(f"[profile] {args.batch} x {args.size}^2 bf16: median forward "
+    n_imgs = args.batch + (2 * rgb.shape[0] if joint else 0)
+    print(f"[profile] path {args.path}: {n_imgs} x {args.size}^2 bf16: "
+          f"median forward "
           f"{wall_med:.3f} ms (host clock, no hooks, {args.reps} forwards)")
     print(f"[profile] stages, median of {args.reps} forwards (CUDA events "
           f"around each module; the hooks add host time, so the stages "
@@ -174,7 +223,7 @@ def main():
     from torch.profiler import ProfilerActivity, profile, record_function
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        with record_function("sar_forward"):
+        with record_function("port_forward"):
             t = time.perf_counter()
             forward()
             torch.cuda.synchronize()
@@ -182,17 +231,17 @@ def main():
     # device events, less the annotation's own mirror on the device
     kernels = [ev for ev in prof.events()
                if ev.device_type == torch.autograd.DeviceType.CUDA
-               and ev.name != "sar_forward"]
+               and ev.name != "port_forward"]
     spans = sorted((ev.time_range.start, ev.time_range.end)
                    for ev in kernels)
     fwd = next((ev.time_range for ev in prof.events()
-                if ev.name == "sar_forward"
+                if ev.name == "port_forward"
                 and ev.device_type == torch.autograd.DeviceType.CPU), None)
     table = prof.key_averages().table(sort_by="cuda_time_total",
                                       row_limit=60)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "torch_sar_profile.txt").write_text(table)
+    (out / f"torch_{args.path}_profile.txt").write_text(table)
     if not spans or fwd is None:
         print("[profile] the profiler recorded no device time: busy share "
               "not measured")
