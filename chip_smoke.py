@@ -21,7 +21,21 @@ Phases (any failure exits non-zero):
    ``simple_test_joint`` over [8 SAR : 4 RGB : 4 infrared] images of 800^2
    in bf16, with the launch counts of every kernel, images/s, peak memory
    and the stage times, and a one-image ``aug_test("rgb")`` that runs the
-   un-banded rotated IoU kernel.
+   un-banded rotated IoU kernel;
+5. training: (a) one fp32 forward + backward of the full-width train step
+   over [1 SAR : 1 RGB : 1 infrared] images of 512^2 on the card against
+   the same model on the host, with the same host-made draws and the same
+   proposals: every loss within 1e-3 relative, the gradient norm of each
+   top-level subtree within 1e-2; (b) the full-width flagship train step
+   (``DEFAULT_MODEL_CFG``, [4:2:2] x 800^2, bf16 policy, DLA switching on
+   after two warmup steps, AdamW), warmed up, then 10 timed steps: images/s
+   (median and quartiles), peak memory, every loss and the launches of
+   every kernel in one step.
+
+Phase 3 also holds the two training kernels against their plain versions:
+the pyramid RoI align's feature gradient (``roi_align_rotated_bwd.cu``) and
+the trainable dw7x7 + LN (``fused_dwconv_ln_train``, forward and the five
+gradients).
 
 It imports nothing of JAX. The second line from the end is the per-kernel
 JSON record, the last line ``{"ok": true, "device": {...}}``.
@@ -48,6 +62,11 @@ ROT_IOU_FLOPS = 650
 # blocks, LayerNorms: stem, downsample into the next stage, output)
 STAGES = [(200, 96, 3, 0, 3), (100, 192, 3, 0, 2), (50, 384, 4, 5, 2),
           (25, 768, 1, 2, 1)]
+TRAIN = (4, 2, 2)          # SAR, RGB, infrared images of the train step
+TRAIN_GTS = 16             # gts an image, as bench.py --train
+TRAIN_STEPS = 10
+DLA_WARMUP = 2             # DLA switches on after two steps
+HOST_IMG = 512             # card-against-host train check, [1:1:1]
 
 
 def log(*a):
@@ -128,6 +147,42 @@ class KernelRecord:
                 "library_ms": self.library_ms, "library": self.library}
 
 
+def make_train_batch(rng, comp, img, g):
+    """A train batch of numpy arrays as ``bench.py --train`` makes it: SAR
+    xyxy gts, RGB / infrared OBB gts, ``g`` of each an image."""
+    import numpy as np
+
+    def mk(n, obb):
+        out = {"img": rng.rand(n, img, img, 3).astype(np.float32),
+               "gt_labels": rng.randint(0, 26, (n, g)).astype(np.int32),
+               "gt_mask": np.ones((n, g), bool)}
+        if obb:
+            out["gt_obbs"] = np.stack([
+                rng.uniform(25, img - 25, (n, g)),
+                rng.uniform(25, img - 25, (n, g)),
+                rng.uniform(10, 60, (n, g)), rng.uniform(6, 30, (n, g)),
+                rng.uniform(-1.2, 1.2, (n, g))], -1).astype(np.float32)
+        else:
+            cx, cy = rng.uniform(20, img - 20, (2, n, g))
+            w, h = rng.uniform(8, 60, (2, n, g))
+            out["gt_bboxes"] = np.stack(
+                [cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2],
+                -1).astype(np.float32)
+        return out
+
+    return {"sar": mk(comp[0], False), "rgb": mk(comp[1], True),
+            "ifr": mk(comp[2], True)}
+
+
+def subtree_norms(torch, names, grads):
+    """Gradient norm of each top-level subtree (backbone, neck, heads)."""
+    sq = {}
+    for n, g in zip(names, grads):
+        top = n.split(".")[0]
+        sq[top] = sq.get(top, 0.0) + float(g.double().pow(2).sum())
+    return {k: v ** 0.5 for k, v in sq.items()}
+
+
 def main():
     try:
         import torch
@@ -141,8 +196,15 @@ def main():
         fail(f"the port is not importable ({exc}); run from the repo root")
     import torch.nn.functional as F
 
+    import numpy as np
+
+    from sm3det_tpu_torch.models.detectors import trisource as tri_mod
     from sm3det_tpu_torch.models.detectors.trisource import (
         DEFAULT_MODEL_CFG, TriSourceDetector)
+    from sm3det_tpu_torch.train.dla import dla_multipliers, make_dla_config
+    from sm3det_tpu_torch.train.optim import make_optimizer
+    from sm3det_tpu_torch.train.train_state import (
+        batch_to, build_train_step, init_train_state, trainable_params)
     from sm3det_tpu_torch.models.moe import MoELayer, group_aligned_dispatch
     from sm3det_tpu_torch.models.moe import stable_topk
     from sm3det_tpu_torch.ops.cuda import convnext_block_kernel as cbk
@@ -216,6 +278,17 @@ def main():
             "roi_align_rotated",
             "sm3det_tpu_torch/ops/cuda/csrc/roi_align_rotated.cu",
             "sm3det_tpu/ops/pallas/roi_align_kernel.py:189", None),
+        "roi_align_rotated_bwd": KernelRecord(
+            "roi_align_rotated_bwd",
+            "sm3det_tpu_torch/ops/cuda/csrc/roi_align_rotated_bwd.cu",
+            "sm3det_tpu/ops/pallas/roi_align_kernel.py:562", None),
+        "fused_dwconv_ln_train": KernelRecord(
+            "fused_dwconv_ln_train",
+            "sm3det_tpu_torch/ops/cuda/csrc/dwconv_ln.cu",
+            "sm3det_tpu/ops/pallas/convnext_block_kernel.py:345",
+            "F.conv2d(groups=C) + F.layer_norm, forward and backward",
+            sources=["sm3det_tpu_torch/ops/cuda/csrc/dwconv_ln.cu",
+                     "sm3det_tpu_torch/ops/cuda/convnext_block_kernel.py"]),
     }
     failures = []
 
@@ -518,6 +591,112 @@ def main():
                 f"kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {b:.4f} ms "
                 f"({k})")
         del got, feats
+    # ---- the train step's kernels ----------------------------------------
+    # row 8: the align's feature gradient at the train step's shapes (2
+    # images of a modality, 4 levels, 2 x rcnn_sample = 1024 RoIs), and the
+    # adversarial case of every RoI on one centre (every sample's taps
+    # collide in the atomics)
+    n_train_rois = 2 * DEFAULT_MODEL_CFG["rgb"]["rcnn_sample"]
+    rois_t = some_rois(2, n_train_rois)
+    crowd = rois_t.clone()
+    crowd[:, 0] = 0.0
+    crowd[:, 1:3] = 400.0
+    crowd[:, 3:5] = 24 + torch.rand(n_train_rois, 2, generator=gen,
+                                    device=dev) * 36
+    strides4 = (4, 8, 16, 32)
+    shapes4 = [(2, IMG // st, IMG // st, 256) for st in strides4]
+    bwd_steps = 2                      # one align backward per R-CNN branch
+    for case, rr in (("random", rois_t), ("all on one centre", crowd)):
+        lv = route_levels(rr)
+        for dtype in (torch.float32, torch.bfloat16):
+            isz = torch.tensor([], dtype=dtype).element_size()
+            g_out = rnd(n_train_rois, 7, 7, 256, dtype=dtype)
+            got = rak.roi_align_rotated_pyramid_bwd(g_out, rr, lv, shapes4,
+                                                    dtype, strides4)
+            ref = rak.roi_align_rotated_pyramid_bwd_ref(g_out, rr, lv,
+                                                         shapes4, dtype,
+                                                         strides4)
+            # fp32: atomics add in another order (1e-4 of the scale); bf16:
+            # both round the fp32 sum once (2^-6, as the other bf16 rows)
+            for lvl, (a, b) in enumerate(zip(got, ref)):
+                check("roi_align_rotated_bwd", dtype,
+                      (case, f"level {lvl}", tuple(a.shape)), a, b,
+                      tol[dtype], main_path=dtype == torch.bfloat16)
+            del ref
+            if dtype != torch.bfloat16 or case != "random":
+                continue
+            ms = cuda_ms(torch, lambda: rak.roi_align_rotated_pyramid_bwd(
+                g_out, rr, lv, shapes4, dtype, strides4), iters=5)
+            pms = cuda_ms(torch, lambda: rak.roi_align_rotated_pyramid_bwd_ref(
+                g_out, rr, lv, shapes4, dtype, strides4), iters=2, warmup=1)
+            grad_bytes = sum(a * b * c * d for a, b, c, d in shapes4) * isz
+            b, k = bound_ms(g_out.numel() * isz + rr.numel() * 4 + grad_bytes,
+                            [(n_train_rois * 49 * 16 * 256 * 2, "float32")])
+            recs["roi_align_rotated_bwd"].add(bwd_steps, ms, pms, b, k, 0.0)
+            log(f"[time]   roi_align_rotated_bwd ({n_train_rois}, 7, 7, 256)"
+                f" bf16 -> 4 levels of 2 images: kernel {ms:.4f} ms (zeroed "
+                f"fp32 buffers and the bf16 rounding included), plain "
+                f"{pms:.4f} ms, bound {b:.4f} ms ({k})")
+    del g_out, got
+
+    # row 10: the trainable dw7x7 + LN, forward and the five gradients,
+    # against the plain fp32 formulation and its autograd, at the train
+    # step's backbone shapes ([4:2:2] = 8 images of 800^2)
+    n_tr = sum(TRAIN)
+    for hw, c, n_dense, n_moe, _ in STAGES:
+        for dtype in ((torch.float32, torch.bfloat16) if hw == 25
+                      else (torch.bfloat16,)):
+            isz = torch.tensor([], dtype=dtype).element_size()
+            shape = (n_tr, hw, hw, c)
+            ins = [rnd(*shape, dtype=dtype),
+                   rnd(c, 1, 7, 7, scale=0.15).to(dtype),
+                   rnd(c, scale=0.1).to(dtype),
+                   (1 + rnd(c, scale=0.1)).to(dtype),
+                   rnd(c, scale=0.1).to(dtype)]
+            ins = [t.requires_grad_(True) for t in ins]
+            g_out = rnd(*shape, dtype=dtype)
+
+            def kernel_fb():
+                out = cbk.fused_dwconv_ln_train(*ins)
+                return (out,) + torch.autograd.grad(out, ins, g_out)
+
+            def plain_fb():
+                out = cbk.dwconv_ln_ref(*ins)
+                return (out,) + torch.autograd.grad(out, ins, g_out)
+
+            got, ref = kernel_fb(), plain_fb()
+            for what, a, b in zip(("out", "dx", "ddwk", "ddwb", "dlns",
+                                   "dlnb"), got, ref):
+                check("fused_dwconv_ln_train", dtype, (shape, what), a, b,
+                      tol[dtype])
+            del got, ref
+            if dtype != torch.bfloat16:
+                continue
+            xl = ins[0].permute(0, 3, 1, 2)
+
+            def library_fb():
+                y = torch.nn.functional.conv2d(xl, ins[1], ins[2], padding=3,
+                                               groups=c)
+                out = F.layer_norm(y.permute(0, 2, 3, 1), (c,), ins[3],
+                                   ins[4], 1e-6)
+                return torch.autograd.grad(out, ins, g_out)
+
+            ms = cuda_ms(torch, kernel_fb, iters=5)
+            pms = cuda_ms(torch, plain_fb, iters=5)
+            lms = cuda_ms(torch, library_fb, iters=5)
+            n_pix = n_tr * hw * hw
+            # each input and output once: x, g in; out, dx out (+ weights);
+            # forward 106 fp32 operations a value, backward two 7x7 passes
+            # and the LN's (~220)
+            b, k = bound_ms(4 * n_pix * c * isz + 2 * 52 * c * 4,
+                            [(n_pix * c * 326, "float32")])
+            recs["fused_dwconv_ln_train"].add(n_dense + n_moe, ms, pms, b, k,
+                                              lms)
+            log(f"[time]   fused_dwconv_ln_train {shape} bf16 forward + "
+                f"backward: {ms:.4f} ms, plain {pms:.4f} ms, library "
+                f"{lms:.4f} ms, bound {b:.4f} ms ({k})")
+            del ins, g_out
+
     if failures:
         fail(f"kernels disagree with their plain versions: {failures}")
 
@@ -726,7 +905,8 @@ def main():
     want = {"fused_convnext_block": 11, "dwconv_ln": 18,
             "moe_ffn_grouped": 7, "fused_layernorm": 8, "hbb_iou": 1,
             "rotated_iou": 0, "rotated_iou_banded": 0,
-            "roi_align_rotated": 0}
+            "roi_align_rotated": 0, "roi_align_rotated_bwd": 0,
+            "fused_dwconv_ln_train": 0}
     for k, v in sar_launches.items():
         if v != want[k]:
             failures.append(f"sar launches {k}={v}")
@@ -799,7 +979,8 @@ def main():
     want = {"fused_convnext_block": 11, "dwconv_ln": 18,
             "moe_ffn_grouped": 7, "fused_layernorm": 8, "hbb_iou": 2,
             "rotated_iou": 0, "rotated_iou_banded": 1,
-            "roi_align_rotated": 1}
+            "roi_align_rotated": 1, "roi_align_rotated_bwd": 0,
+            "fused_dwconv_ln_train": 0}
     for k, v in launches.items():
         if v != want[k]:
             log(f"[joint bf16] launches of {k}: {v}, expected {want[k]}")
@@ -871,10 +1052,156 @@ def main():
     if failures:
         fail(f"full-width joint run failed: {failures}")
 
+    # ---- 5a. the train step, fp32, card against host ---------------------
+    del model, imgs, sar_i, rgb_i, ifr_i, sar_o, rgb_o, ifr_o
+    torch.cuda.empty_cache()
+    cfg_t = json.loads(json.dumps(DEFAULT_MODEL_CFG))
+    card = TriSourceDetector(cfg_t, device="cuda", seed=0, trainable=True)
+    host = TriSourceDetector(cfg_t, device="cpu", seed=0, trainable=True)
+    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    tbatch = make_train_batch(np.random.RandomState(1), (1, 1, 1), HOST_IMG,
+                              TRAIN_GTS)
+    # the proposal NMS is a discrete function of float noise (scores tied
+    # to 1e-6 swap, IoU near the threshold decides either way), so the host
+    # samples its RoIs from the card's proposals; how far its own differ is
+    # logged
+    recorded, host_own = [], []
+    real_proposals = tri_mod.rpn_get_proposals
+
+    def record(*a, **kw):
+        out = real_proposals(*a, **kw)
+        recorded.append(out)
+        return out
+
+    def replay(*a, **kw):
+        host_own.append(real_proposals(*a, **kw))
+        return tuple(t.cpu() for t in recorded[len(host_own) - 1])
+
+    runs = {}
+    t0 = time.perf_counter()
+    for name, m, dv, fn in (("card", card, dev, record),
+                            ("host", host, torch.device("cpu"), replay)):
+        tri_mod.rpn_get_proposals = fn
+        try:
+            params = trainable_params(m)
+            losses = m(batch_to(tbatch, dv),
+                       gen=torch.Generator().manual_seed(5))
+            grads = torch.autograd.grad(sum(losses.values()),
+                                        list(params.values()))
+        finally:
+            tri_mod.rpn_get_proposals = real_proposals
+        runs[name] = ({k: float(v.detach()) for k, v in losses.items()},
+                      subtree_norms(torch, list(params), grads))
+        del losses, grads
+    log(f"[train fp32] card and host forward + backward, [1:1:1] x "
+        f"{HOST_IMG}^2, full width: {time.perf_counter() - t0:.1f} s")
+    for (pd, _, vd), (ph, _, vh) in zip(recorded, host_own):
+        same = torch.equal(vd.cpu(), vh) and bool(
+            ((pd.cpu() - ph).abs().amax(-1) <= 1e-4 * HOST_IMG)[vh].all())
+        log(f"[train fp32] host's own proposals equal the card's "
+            f"(fieldwise, 1e-4 x {HOST_IMG}): {same}")
+    (ld, nd), (lh, nh) = runs["card"], runs["host"]
+    for k in lh:
+        ok = np.isfinite(ld[k]) and abs(ld[k] - lh[k]) <= \
+            1e-3 * abs(lh[k]) + 1e-7
+        log(f"[train fp32] {k}: card {ld[k]:.6e} host {lh[k]:.6e} (1e-3 "
+            f"relative) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"train card/host {k}")
+    for k in nh:
+        ok = np.isfinite(nd[k]) and abs(nd[k] - nh[k]) <= 1e-2 * nh[k]
+        log(f"[train fp32] |grad {k}|: card {nd[k]:.6e} host {nh[k]:.6e} "
+            f"(1e-2 relative) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"train card/host grad {k}")
+    del card, host, recorded, host_own
+    torch.cuda.empty_cache()
+    if failures:
+        fail(f"card-against-host train check failed: {failures}")
+
+    # ---- 5b. the flagship train step, full width, bf16 -------------------
+    cfg_f = json.loads(json.dumps(DEFAULT_MODEL_CFG))
+    cfg_f["compute_dtype"] = "bfloat16"
+    model = TriSourceDetector(cfg_f, seed=0, trainable=True)   # the card
+    names = list(trainable_params(model))
+    dla_cfg = make_dla_config(warmup_iters=DLA_WARMUP)
+    init_fn, update_fn, _ = make_optimizer(
+        names, base_lr=1e-4, step_iters=(80000,), warmup_iters=DLA_WARMUP,
+        dla_cfg=dla_cfg)
+    state = init_train_state(model, init_fn, seed=1)
+    train_step = build_train_step(model, update_fn)
+    fbatch = batch_to(make_train_batch(np.random.RandomState(0), TRAIN, IMG,
+                                       TRAIN_GTS), dev)
+    n_train = sum(TRAIN)
+    p0 = [p.detach().clone() for p in state.params.values()]
+    mult_log = []
+
+    def one_step():
+        nonlocal state
+        dla_before = state.opt.dla
+        state, met = train_step(state, fbatch)
+        mults, _ = dla_multipliers(dla_before, met, dla_cfg)
+        mult_log.append((dla_before.steps, mults))
+        return met
+
+    t0 = time.perf_counter()
+    for _ in range(DLA_WARMUP):                  # warm-up and DLA warm-up
+        one_step()
+    torch.cuda.synchronize()
+    log(f"[train bf16] {DLA_WARMUP} warm-up steps {time.perf_counter() - t0:.1f}"
+        f" s")
+    build.reset_launches()
+    metrics = one_step()
+    torch.cuda.synchronize()
+    train_launches = dict(build.LAUNCHES)
+    log(f"[train bf16] launches in one step: {train_launches}")
+    torch.cuda.reset_peak_memory_stats()
+    walls, q1, dt, q3 = timed_forwards(one_step, n=TRAIN_STEPS)
+    train_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    metrics = {k: float(v) for k, v in one_step().items()}
+    train_ips = n_train / dt
+    moved = max(float((p.detach() - q).abs().max())
+                for p, q in zip(state.params.values(), p0))
+    warm_ones = all(abs(v - 1.0) == 0.0 for st, mm in mult_log
+                    if st < DLA_WARMUP for v in mm.values())
+    on_later = all(any(abs(v - 1.0) > 1e-6 for v in mm.values())
+                   for st, mm in mult_log if st >= DLA_WARMUP)
+    log(f"[train bf16] step wall times (ms): "
+        f"{' '.join(f'{w * 1e3:.2f}' for w in walls)}")
+    log(f"[train bf16] [{TRAIN[0]}:{TRAIN[1]}:{TRAIN[2]}] x {IMG}^2, "
+        f"full width, DLA + AdamW: median {dt * 1e3:.2f} ms a step "
+        f"(quartiles {q1 * 1e3:.2f}-{q3 * 1e3:.2f}), {train_ips:.2f} "
+        f"images/s, peak memory {train_peak_gib:.2f} GiB; card {smi}")
+    log("[train bf16] losses of the last step: " + ", ".join(
+        f"{k} {v:.5f}" for k, v in metrics.items()))
+    log(f"[train bf16] DLA multipliers: step {mult_log[0][0]} "
+        f"{mult_log[0][1]}; step {mult_log[-1][0]} {mult_log[-1][1]}")
+    log(f"[train bf16] parameters moved by up to {moved:.3e}; multipliers "
+        f"1 in warm-up {warm_ones}, other than 1 after it {on_later}")
+    if not all(np.isfinite(v) for v in metrics.values()):
+        failures.append("train losses not finite")
+    if not moved > 0:
+        failures.append("train parameters did not move")
+    if not (warm_ones and on_later):
+        failures.append("DLA multipliers")
+    for k in ("hbb_iou", "rotated_iou", "roi_align_rotated",
+              "roi_align_rotated_bwd", "fused_dwconv_ln_train"):
+        if train_launches[k] <= 0:
+            failures.append(f"train launches {k}={train_launches[k]}")
+    if failures:
+        fail(f"flagship train step failed: {failures}")
+    launches["roi_align_rotated_bwd"] = train_launches["roi_align_rotated_bwd"]
+    launches["fused_dwconv_ln_train"] = train_launches["fused_dwconv_ln_train"]
+
     log(json.dumps({
         "kernels": [recs[k].json(launches[k]) for k in recs],
         "launches_from": "simple_test_joint [8:4:4]; rotated_iou from "
-                         "aug_test('rgb') on 1 image",
+                         "aug_test('rgb') on 1 image; roi_align_rotated_bwd "
+                         "and fused_dwconv_ln_train from one flagship train "
+                         "step",
+        "train_step_launches": train_launches,
+        "train_images_per_s": train_ips, "train_step_ms": dt * 1e3,
+        "train_peak_gib": train_peak_gib, "train_losses": metrics,
         "joint_images_per_s": joint_ips, "joint_ms": dt * 1e3,
         "joint_peak_gib": joint_peak_gib, "joint_stage_ms": stages,
         "sar_images_per_s": sar_ips, "sar_peak_gib": peak_gib,

@@ -19,6 +19,10 @@ flax keys (``backbone.stage2_block0.ffn.experts.w1``,
   stacked, as do ``w_gate/{temperature, sim_matrix}`` and ``w_noise``;
 - LayerNorm/GroupNorm ``scale``/``bias`` -> ``weight``/``bias``; the
   ``gamma`` vectors and the scalar ``Scale``s keep their names.
+
+``to_flax(tensors, template)`` is the reverse map, for the port's
+gradients or parameters: it lays them out as the flax tree ``template``
+(the params they were converted from), leaf for leaf.
 """
 
 from __future__ import annotations
@@ -47,16 +51,22 @@ def _leaves(tree, path=()) -> Iterator[Tuple[tuple, np.ndarray]]:
         yield path, np.asarray(tree)
 
 
-def _convert(path: tuple, v: np.ndarray) -> Tuple[str, np.ndarray]:
+# the layout change of each rule and its inverse
+_HWIO_TO_OIHW = ((3, 2, 0, 1), (2, 3, 1, 0))
+_TRANSPOSE = ((1, 0), (1, 0))
+
+
+def _rule(path: tuple, v: np.ndarray):
+    """(port name, permutation pair or None) of one flax leaf."""
     *mods, leaf = path
     parent = mods[-1] if mods else ""
-    name, arr = None, v
+    name, perm = None, None
     if leaf == "kernel" and v.ndim == 4:
-        name, arr = "weight", v.transpose(3, 2, 0, 1)
+        name, perm = "weight", _HWIO_TO_OIHW
     elif leaf == "kernel" and v.ndim == 2 and parent.startswith("pwconv"):
         name = "kernel"
     elif leaf == "kernel" and v.ndim == 2 and parent in _LINEAR:
-        name, arr = "weight", v.T
+        name, perm = "weight", _TRANSPOSE
     elif leaf == "bias":
         name = "bias"
     elif leaf == "scale" and re.fullmatch(r"scale\d+", parent) \
@@ -69,7 +79,12 @@ def _convert(path: tuple, v: np.ndarray) -> Tuple[str, np.ndarray]:
     if name is None:
         raise KeyError(f"from_flax: no rule for {'/'.join(path)} "
                        f"{tuple(v.shape)}")
-    return ".".join([*mods, name]), arr
+    return ".".join([*mods, name]), perm
+
+
+def _convert(path: tuple, v: np.ndarray) -> Tuple[str, np.ndarray]:
+    name, perm = _rule(path, v)
+    return name, v if perm is None else v.transpose(perm[0])
 
 
 def convert_tree(tree: Dict, prefix: Tuple[str, ...] = ()
@@ -96,4 +111,25 @@ def from_flax(params: Dict) -> Dict[str, torch.Tensor]:
     out = {}
     for sub in SUBTREES:
         out.update(convert_tree(params[sub], (sub,)))
+    return out
+
+
+def to_flax(tensors: Dict[str, torch.Tensor], template: Dict) -> Dict:
+    """The port's tensors (by state_dict name, e.g. gradients) laid out as
+    the flax tree ``template`` (nested dicts, the params ``from_flax``
+    converted): one numpy fp32 array per template leaf, in flax's layout.
+    Raises if a template leaf has no tensor."""
+    if "params" in template and len(template) == 1:
+        template = template["params"]
+    out: Dict = {}
+    for sub in SUBTREES:
+        for path, v in _leaves(template[sub], (sub,)):
+            name, perm = _rule(path, v)
+            arr = tensors[name].detach().float().cpu().numpy()
+            if perm is not None:
+                arr = arr.transpose(perm[1])
+            node = out
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = np.ascontiguousarray(arr)
     return out

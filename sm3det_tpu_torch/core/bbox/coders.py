@@ -1,8 +1,7 @@
 """Box coders. Port of ``sm3det_tpu/core/bbox/coders.py``:
-``DistancePointBBoxCoder`` (GFL / FCOS) in full, and the ``decode`` halves
-of ``MidpointOffsetCoder`` (Oriented RPN) and ``DeltaXYWHAOBBoxCoder``
-(Oriented R-CNN). The ``encode`` halves of the last two are training code
-and raise until the training slice."""
+``DistancePointBBoxCoder`` (GFL / FCOS), ``MidpointOffsetCoder`` (Oriented
+RPN) and ``DeltaXYWHAOBBoxCoder`` (Oriented R-CNN), each with its
+``encode`` (training targets) and ``decode``."""
 
 from __future__ import annotations
 
@@ -10,9 +9,15 @@ import math
 
 import torch
 
-from ...ops.box_convert import norm_angle, poly2obb
+from ...ops.box_convert import norm_angle, obb2poly, obb2xyxy, poly2obb
 
 PI = math.pi
+
+
+def _normalize(deltas, means, stds):
+    means = torch.as_tensor(means, dtype=deltas.dtype, device=deltas.device)
+    stds = torch.as_tensor(stds, dtype=deltas.dtype, device=deltas.device)
+    return (deltas - means) / stds
 
 
 def _denormalize(deltas, means, stds):
@@ -36,8 +41,32 @@ class DeltaXYWHAOBBoxCoder:
         self.proj_xy = proj_xy
 
     def encode(self, bboxes, gt_bboxes):
-        raise NotImplementedError(
-            "DeltaXYWHAOBBoxCoder.encode: training slice of the port")
+        """Deltas of ``gt_bboxes`` against ``bboxes``, both (..., 5)."""
+        px, py, pw, ph, pa = (bboxes[..., i] for i in range(5))
+        gx, gy, gw, gh, ga = (gt_bboxes[..., i] for i in range(5))
+        pw = torch.clamp(pw, min=1e-6)
+        ph = torch.clamp(ph, min=1e-6)
+        if self.proj_xy:
+            cos_a, sin_a = torch.cos(pa), torch.sin(pa)
+            dx = (cos_a * (gx - px) + sin_a * (gy - py)) / pw
+            dy = (-sin_a * (gx - px) + cos_a * (gy - py)) / ph
+        else:
+            dx = (gx - px) / pw
+            dy = (gy - py) / ph
+        if self.edge_swap:
+            dtheta1 = norm_angle(ga - pa, self.version)
+            dtheta2 = norm_angle(ga - pa + PI / 2, self.version)
+            swap = dtheta1.abs() >= dtheta2.abs()
+            gw, gh = torch.where(swap, gh, gw), torch.where(swap, gw, gh)
+            da = torch.where(swap, dtheta2, dtheta1)
+        else:
+            da = norm_angle(ga - pa, self.version)
+        dw = torch.log(torch.clamp(gw, min=1e-6) / pw)
+        dh = torch.log(torch.clamp(gh, min=1e-6) / ph)
+        if self.norm_factor:
+            da = da / (self.norm_factor * PI)
+        return _normalize(torch.stack([dx, dy, dw, dh, da], dim=-1),
+                          self.means, self.stds)
 
     def decode(self, rois, deltas, max_shape=None, wh_ratio_clip=16 / 1000):
         d = _denormalize(deltas, self.means, self.stds)
@@ -86,8 +115,30 @@ class MidpointOffsetCoder:
         self.stds = target_stds
 
     def encode(self, bboxes, gt_bboxes):
-        raise NotImplementedError(
-            "MidpointOffsetCoder.encode: training slice of the port")
+        """Deltas of OBBs ``gt_bboxes`` (..., 5) against horizontal
+        ``bboxes`` (..., 4): the enclosing box's (dx, dy, dw, dh), then the
+        x of the topmost vertex and the y of the rightmost one, relative to
+        the enclosing box."""
+        px = (bboxes[..., 0] + bboxes[..., 2]) * 0.5
+        py = (bboxes[..., 1] + bboxes[..., 3]) * 0.5
+        pw = torch.clamp(bboxes[..., 2] - bboxes[..., 0], min=1e-6)
+        ph = torch.clamp(bboxes[..., 3] - bboxes[..., 1], min=1e-6)
+        hbb = obb2xyxy(gt_bboxes, self.version)
+        poly = obb2poly(gt_bboxes, self.version)
+        gx = (hbb[..., 0] + hbb[..., 2]) * 0.5
+        gy = (hbb[..., 1] + hbb[..., 3]) * 0.5
+        gw = torch.clamp(hbb[..., 2] - hbb[..., 0], min=1e-6)
+        gh = torch.clamp(hbb[..., 3] - hbb[..., 1], min=1e-6)
+        x_coor, y_coor = poly[..., 0::2], poly[..., 1::2]
+        y_min = y_coor.amin(dim=-1, keepdim=True)
+        x_max = x_coor.amax(dim=-1, keepdim=True)
+        far = torch.full_like(x_coor, -1000.0)
+        ga = torch.where((y_coor - y_min).abs() > 0.1, far, x_coor).amax(-1)
+        gb = torch.where((x_coor - x_max).abs() > 0.1, far, y_coor).amax(-1)
+        deltas = torch.stack([(gx - px) / pw, (gy - py) / ph,
+                              torch.log(gw / pw), torch.log(gh / ph),
+                              (ga - gx) / gw, (gb - gy) / gh], dim=-1)
+        return _normalize(deltas, self.means, self.stds)
 
     def decode(self, rois, deltas, max_shape=None, wh_ratio_clip=16 / 1000):
         """``max_shape`` is accepted and unused, as in the reference."""

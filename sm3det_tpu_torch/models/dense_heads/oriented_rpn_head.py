@@ -1,11 +1,12 @@
-"""Oriented RPN head (midpoint-offset regression), inference, NHWC.
+"""Oriented RPN head (midpoint-offset regression), NHWC.
 
 Port of ``sm3det_tpu/models/dense_heads/oriented_rpn_head.py``:
 ``OrientedRPNHead`` (3x3 conv + ReLU, then 1x1 objectness and 1x1
-six-parameter midpoint-offset regression per anchor) and
+six-parameter midpoint-offset regression per anchor),
 ``rpn_get_proposals`` (per-level top-k, decode, horizontal NMS of the
 proposals' enclosing boxes per level, merge by score), batched over images
-instead of ``vmap``. ``rpn_loss`` belongs to the training slice.
+instead of ``vmap``, and ``rpn_loss`` (MaxIoU on the gts' enclosing boxes,
+random sampling, BCE + Smooth L1).
 """
 
 from __future__ import annotations
@@ -16,10 +17,13 @@ import torch
 from torch import nn
 
 from ...core.anchor import AnchorGenerator
+from ...core.bbox.assigners import max_iou_assign
 from ...core.bbox.coders import MidpointOffsetCoder
+from ...core.bbox.samplers import random_sample
 from ...ops.box_convert import obb2xyxy
-from ...ops.nms import _take, _topk_scores, nms
+from ...ops.nms import _take, _topk_scores, bbox_overlaps, nms
 from ..layers import Conv2d
+from ..losses import sigmoid_cross_entropy, smooth_l1_loss
 
 
 class OrientedRPNHead(nn.Module):
@@ -40,6 +44,51 @@ class OrientedRPNHead(nn.Module):
             cls_out.append(self.rpn_cls(t))
             reg_out.append(self.rpn_reg(t))
         return cls_out, reg_out
+
+
+def rpn_loss(sample_keys, cls_scores, bbox_preds, gt_obbs, gt_mask,
+             anchor_generator: AnchorGenerator, coder: MidpointOffsetCoder,
+             version: str = "le90", num_sample: int = 256,
+             pos_fraction: float = 0.5, pos_iou_thr: float = 0.7,
+             neg_iou_thr: float = 0.3, min_pos_iou: float = 0.3,
+             beta: float = 1.0 / 9.0):
+    """Oriented RPN loss over a batch: per-level outputs in fp32, gts
+    (B, G, 5) OBBs with mask (B, G). ``sample_keys``: (key_pos, key_neg),
+    each (B, A) uniform keys of the sampler (``samplers.draw_sample_keys``).
+    Returns dict(loss_rpn_cls, loss_rpn_bbox)."""
+    dev = cls_scores[0].device
+    featmap_sizes = [tuple(s.shape[1:3]) for s in cls_scores]
+    anchors = torch.cat(anchor_generator.grid_anchors(featmap_sizes,
+                                                      device=dev), dim=0)
+    b = cls_scores[0].shape[0]
+    flat_cls = torch.cat([s.reshape(b, -1) for s in cls_scores], dim=1)
+    flat_reg = torch.cat([p.reshape(b, -1, 6) for p in bbox_preds], dim=1)
+    key_pos, key_neg = sample_keys
+    l_cls = l_reg = 0.0
+    n_valid = 0
+    for i in range(b):
+        gts, mask = gt_obbs[i], gt_mask[i]
+        ious = bbox_overlaps(anchors, obb2xyxy(gts, version))
+        ious = torch.where(mask[None, :], ious, torch.full_like(ious, -1.0))
+        assigned = max_iou_assign(
+            ious, mask, pos_iou_thr=pos_iou_thr, neg_iou_thr=neg_iou_thr,
+            min_pos_iou=min_pos_iou, match_low_quality=True)
+        sample = random_sample(key_pos[i], key_neg[i], assigned, num_sample,
+                               pos_fraction)
+        inds, pos_m = sample["inds"], sample["pos_mask"]
+        valid = pos_m | sample["neg_mask"]
+        gt_idx = torch.clamp(assigned[inds].long() - 1, min=0)
+        targets = coder.encode(anchors[inds], gts[gt_idx])
+        l_cls = l_cls + sigmoid_cross_entropy(
+            flat_cls[i][inds], pos_m.float(), weight=valid.float(),
+            avg_factor=1.0)
+        l_reg = l_reg + smooth_l1_loss(
+            flat_reg[i][inds], targets, beta=beta,
+            weight=pos_m[:, None].float(), avg_factor=1.0)
+        n_valid = n_valid + valid.sum()
+    total = torch.clamp(torch.as_tensor(n_valid, device=dev).float(),
+                        min=1.0)
+    return {"loss_rpn_cls": l_cls / total, "loss_rpn_bbox": l_reg / total}
 
 
 def rpn_get_proposals(cls_scores, bbox_preds,

@@ -1,20 +1,28 @@
-"""TriSource detector, inference.
+"""TriSource detector.
 
 Port of ``sm3det_tpu/models/detectors/trisource.py::TriSourceDetector``:
 the shared ConvNeXt-MoE backbone, the MultitaskFPN, the SAR GFL head and
 the RGB and infrared Oriented R-CNN branches (oriented RPN, pyramid rotated
-RoI align, shared-2fc head), with ``simple_test_sar/rgb/ifr``,
-``simple_test_joint`` (one backbone pass over the three modalities, one
-proposal NMS, one align and one R-CNN NMS over rgb + infrared) and
-``aug_test``. The compute-dtype policy is that of ``_cast_in``: with
-``compute_dtype="bfloat16"`` the parameters and images are bf16 (convs and
-products in bf16, norm statistics in fp32) and the head outputs are cast to
-fp32 before decode and NMS. The training forward comes in a later slice of
-the port.
+RoI align, shared-2fc head).
 
-Each entry point is split into ``head_*`` (the network) and
-``get_*``/``get_bboxes_*`` (decode and NMS), so that a caller can feed the
-same network outputs to two devices.
+- Inference: ``simple_test_sar/rgb/ifr``, ``simple_test_joint`` (one
+  backbone pass over the three modalities, one proposal NMS, one align and
+  one R-CNN NMS over rgb + infrared) and ``aug_test``. Each entry point is
+  split into ``head_*`` (the network) and ``get_*``/``get_bboxes_*``
+  (decode and NMS), so that a caller can feed the same network outputs to
+  two devices.
+- Training: ``forward(batch, gen)`` returns the loss dict of the JAX
+  ``__call__`` (GFL losses of the SAR images, RPN and R-CNN losses of the
+  RGB and infrared images, the MoE gate loss); the random draws come from
+  ``gen``. The uncertainty reweighting (``mtl_sigma``) is not ported.
+
+The compute-dtype policy is that of ``_cast_in``: with
+``compute_dtype="bfloat16"`` the images are bf16 and so are the parameters
+the forward sees (convs and products in bf16, norm statistics in fp32);
+head outputs are cast to fp32 before decode, NMS and the losses. An
+inference model holds its parameters in the compute dtype, frozen; a
+``trainable=True`` model holds fp32 masters, and the train step hands the
+forward a bf16 copy (``train/train_state.py``).
 """
 
 from __future__ import annotations
@@ -30,17 +38,20 @@ from torch import nn
 
 from ...core.anchor import AnchorGenerator
 from ...core.bbox.coders import DeltaXYWHAOBBoxCoder, MidpointOffsetCoder
+from ...core.bbox.samplers import draw_sample_keys
 from ...device import resolve_device
 from ...ops.box_convert import norm_angle
 from ...ops.nms import aug_multiclass_nms_rotated
 from ..backbones.convnext import ConvNeXtMoE
-from ..dense_heads.gfl_head import GFLHead, gfl_get_bboxes
+from ..dense_heads.gfl_head import GFLHead, gfl_get_bboxes, gfl_loss
 from ..dense_heads.oriented_rpn_head import (OrientedRPNHead,
-                                             rpn_get_proposals)
+                                             rpn_get_proposals, rpn_loss)
 from ..necks.fpn import MultitaskFPN
 from ..roi_heads.oriented_roi_head import (RotatedShared2FCBBoxHead,
+                                           bbox_head_loss,
                                            extract_rotated_roi_feats,
-                                           roi_head_get_bboxes)
+                                           roi_head_get_bboxes,
+                                           sample_rois_for_training)
 
 DEFAULT_MODEL_CFG: Dict[str, Any] = dict(
     num_classes=26,
@@ -90,15 +101,17 @@ def make_rcnn_coder(version="le90"):
 
 
 class TriSourceDetector(nn.Module):
-    """SM3Det detector, inference. ``cfg`` follows DEFAULT_MODEL_CFG.
+    """SM3Det detector. ``cfg`` follows DEFAULT_MODEL_CFG.
 
     Parameters are made from ``seed`` with a ``torch.Generator`` and live on
     ``device``: the CUDA card by default, the host only for
-    ``device="cpu"``.
+    ``device="cpu"``. ``trainable=False`` (inference) casts them to the
+    compute dtype and freezes them in eval mode; ``trainable=True`` keeps
+    fp32 parameters that require grad, in train mode.
     """
 
     def __init__(self, cfg: Dict[str, Any] | None = None, device=None,
-                 seed: int = 0):
+                 seed: int = 0, trainable: bool = False):
         super().__init__()
         self.cfg = c = copy.deepcopy(cfg or DEFAULT_MODEL_CFG)
         dev = resolve_device(device)
@@ -114,6 +127,8 @@ class TriSourceDetector(nn.Module):
             num_experts=b.get("num_experts", 2), top_k=b.get("top_k", 2),
             gate=b.get("gate", "cosine"),
             noisy_gating=b.get("noisy_gating", True),
+            capacity_factor=b.get("capacity_factor", 1.5),
+            drop_path_rate=b.get("drop_path_rate", 0.0),
             use_da=b.get("use_da", False), gen=gen)
         n = c["neck"]
         self.neck = MultitaskFPN(
@@ -136,11 +151,14 @@ class TriSourceDetector(nn.Module):
         self._sar_gen = make_sar_anchor_generator(tuple(c["sar"]["strides"]))
         self._rpn_gen = make_rpn_anchor_generator(
             tuple(c["rgb"]["rpn_strides"]))
+        if trainable and c.get("multi_tasks_reweight"):
+            raise NotImplementedError("multi_tasks_reweight is not ported")
         dt = c.get("compute_dtype")
         self.compute_dtype = getattr(torch, dt) if dt else torch.float32
-        self.to(device=dev, dtype=self.compute_dtype)
-        self.eval()
-        self.requires_grad_(False)
+        self.to(device=dev,
+                dtype=torch.float32 if trainable else self.compute_dtype)
+        self.train(trainable)
+        self.requires_grad_(trainable)
 
     @property
     def device(self) -> torch.device:
@@ -160,11 +178,14 @@ class TriSourceDetector(nn.Module):
         """Backbone, neck and GFL head; outputs in the compute dtype."""
         return self.head_sar_from_feats(self.extract_feat(imgs))
 
+    def neck_sar(self, feats):
+        """Neck of the SAR branch (start_level=1, extra convs on output)."""
+        return self.neck(list(feats), start_level=1,
+                         add_extra_convs="on_output")
+
     def head_sar_from_feats(self, feats):
-        """Neck (start_level=1, extra convs on output) and GFL head."""
-        sar_x = self.neck(list(feats), start_level=1,
-                          add_extra_convs="on_output")
-        return self.sar_bbox_head(sar_x)
+        """Neck and GFL head."""
+        return self.sar_bbox_head(self.neck_sar(feats))
 
     def get_bboxes_sar(self, cls_scores, bbox_preds, img_shape=(800, 800)):
         """Decode, top-k and NMS in fp32."""
@@ -382,3 +403,95 @@ class TriSourceDetector(nn.Module):
             all_d, all_l, all_v, 0.5 if subdataset == "sar" else 0.1,
             max_out=all_d[0].shape[1],
             box_dim=4 if subdataset == "sar" else 5)
+
+    # ---- training --------------------------------------------------------
+
+    def extract_feat_train(self, batch, gen: torch.Generator | None = None):
+        """Backbone (training forward) on the concatenated SAR + RGB +
+        infrared images, the neck per modality. Returns ((sar_x, rgb_x,
+        ifr_x), gate_loss)."""
+        imgs = [self._cast_in(batch[k]["img"]) for k in ("sar", "rgb", "ifr")]
+        n_sar, n_rgb = imgs[0].shape[0], imgs[1].shape[0]
+        feats, gate_loss = self.backbone.forward_train(torch.cat(imgs, 0),
+                                                       gen)
+        sar_x = self.neck_sar([f[:n_sar] for f in feats])
+        rgb_x = self.neck_rcnn([f[n_sar:n_sar + n_rgb] for f in feats])
+        ifr_x = self.neck_rcnn([f[n_sar + n_rgb:] for f in feats])
+        return (sar_x, rgb_x, ifr_x), gate_loss
+
+    def forward(self, batch, gen: torch.Generator | None = None):
+        """Training forward: the loss dict of the JAX ``__call__``.
+
+        ``batch``: {"sar": {img (B, H, W, 3), gt_bboxes (B, G, 4), gt_labels,
+        gt_mask}, "rgb" / "ifr": {img, gt_obbs (B, G, 5), gt_labels,
+        gt_mask}}, tensors on the model's device. ``gen`` draws, in order,
+        the backbone's stochastic-depth masks and gate noise, then per R-CNN
+        branch the RPN sampler's keys and the RoI sampler's keys.
+        """
+        c = self.cfg
+        r = c["rgb"]
+        version = c["angle_version"]
+        (sar_x, rgb_x, ifr_x), gate_loss = self.extract_feat_train(batch,
+                                                                  gen)
+        losses: Dict[str, torch.Tensor] = {}
+        if gate_loss is not None:
+            losses["gate_loss"] = gate_loss
+
+        cls_scores, bbox_preds = self.sar_bbox_head(sar_x)
+        sar = batch["sar"]
+        sar_losses = gfl_loss(
+            [s.float() for s in cls_scores], [p.float() for p in bbox_preds],
+            sar["gt_bboxes"], sar["gt_labels"], sar["gt_mask"],
+            self._sar_gen, c["num_classes"], reg_max=c["sar"]["reg_max"],
+            strides=tuple(c["sar"]["strides"]))
+        losses.update({f"sar_{k}": v for k, v in sar_losses.items()})
+
+        rpn_coder = make_rpn_coder(version)
+        rcnn_coder = make_rcnn_coder(version)
+        for key, feats_m in (("rgb", rgb_x), ("ifr", ifr_x)):
+            data = batch[key]
+            rpn_head, roi_head = self._heads(key)
+            rpn_cls, rpn_reg = rpn_head(feats_m)
+            rpn_cls = [s.float() for s in rpn_cls]
+            rpn_reg = [p.float() for p in rpn_reg]
+            bsz = rpn_cls[0].shape[0]
+            n_anchors = sum(s[0].numel() for s in rpn_cls)
+            keys = draw_sample_keys(n_anchors, gen, (bsz,),
+                                    rpn_cls[0].device)
+            r_losses = rpn_loss(
+                keys, rpn_cls, rpn_reg, data["gt_obbs"], data["gt_mask"],
+                self._rpn_gen, rpn_coder, version=version,
+                num_sample=r["rpn_sample"])
+            losses.update({f"{key}_{k}": v for k, v in r_losses.items()})
+
+            with torch.no_grad():
+                proposals, _, p_valid = rpn_get_proposals(
+                    [s.detach() for s in rpn_cls],
+                    [p.detach() for p in rpn_reg], self._rpn_gen, rpn_coder,
+                    img_shape=None, nms_pre=r["rpn_nms_pre"],
+                    max_per_img=r["rpn_max"], iou_thr=r["rpn_nms_iou"])
+                n_cand = data["gt_obbs"].shape[1] + proposals.shape[1]
+                rkeys = draw_sample_keys(n_cand, gen, (bsz,),
+                                         proposals.device)
+                sampled = [sample_rois_for_training(
+                    (rkeys[0][i], rkeys[1][i]), proposals[i], p_valid[i],
+                    data["gt_obbs"][i], data["gt_labels"][i],
+                    data["gt_mask"][i], num=r["rcnn_sample"])
+                    for i in range(bsz)]
+                rois = torch.stack([sm["rois"] for sm in sampled])
+            s = rois.shape[1]
+            cls_logits, reg_pred = roi_head(self.roi_feats(feats_m, rois))
+            cls_logits = cls_logits.reshape(bsz, s, -1).float()
+            reg_pred = reg_pred.reshape(bsz, s, -1).float()
+            l_cls = l_reg = 0.0
+            n_valid = 0
+            for i in range(bsz):
+                lc, lr, nv, _ = bbox_head_loss(
+                    cls_logits[i], reg_pred[i], sampled[i],
+                    data["gt_obbs"][i], data["gt_labels"][i], rcnn_coder,
+                    c["num_classes"])
+                l_cls, l_reg, n_valid = l_cls + lc, l_reg + lr, n_valid + nv
+            total = torch.clamp(n_valid.float(), min=1.0)
+            losses[f"{key}_loss_cls"] = l_cls / total
+            losses[f"{key}_loss_bbox"] = l_reg / total
+        return losses

@@ -1,7 +1,8 @@
 """Common building blocks, NHWC at every public function.
 
-Port of ``sm3det_tpu/models/layers.py`` (GELU policy, ``Scale``) plus the
-NHWC convolution and flax-style GroupNorm the neck and head use.
+Port of ``sm3det_tpu/models/layers.py`` (GELU policy, ``Scale``,
+``DropPath``) plus the NHWC convolution and flax-style GroupNorm the neck
+and head use.
 """
 
 from __future__ import annotations
@@ -20,6 +21,25 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     """
     approx = "tanh" if x.dtype == torch.bfloat16 else "none"
     return F.gelu(x.float(), approximate=approx).to(x.dtype)
+
+
+def drop_path_mask(batch: int, rate: float, gen: torch.Generator | None):
+    """Per-sample keep mask of stochastic depth, (batch,) bool, True with
+    probability ``1 - rate``; drawn on ``gen``'s device."""
+    dev = gen.device if gen is not None else None
+    return torch.rand(batch, generator=gen, device=dev) < 1.0 - rate
+
+
+def drop_path(x: torch.Tensor, rate: float, keep_mask=None) -> torch.Tensor:
+    """Stochastic depth per sample (timm semantics, ``DropPath``): a kept
+    sample is scaled by ``1 / (1 - rate)``, a dropped one is 0. Identity
+    for ``rate == 0`` or without a mask (inference)."""
+    if rate == 0.0 or keep_mask is None:
+        return x
+    keep = 1.0 - rate
+    mask = keep_mask.to(x.device).reshape((-1,) + (1,) * (x.dim() - 1))
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
 
 
 class Scale(nn.Module):

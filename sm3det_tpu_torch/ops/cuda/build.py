@@ -36,7 +36,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"dwconv_ln": 0, "fused_convnext_block": 0,
             "moe_ffn_grouped": 0, "hbb_iou": 0, "fused_layernorm": 0,
             "rotated_iou": 0, "rotated_iou_banded": 0,
-            "roi_align_rotated": 0}
+            "roi_align_rotated": 0, "roi_align_rotated_bwd": 0,
+            "fused_dwconv_ln_train": 0}
 
 _lib = None
 
@@ -63,6 +64,10 @@ _SIGNATURES = {
     # 4 level pointers, 4 heights, 4 widths, 4 x 1/stride, rois, lvls, out,
     # B, C, N, out_size, sample_num, bf16, stream
     "sm3det_roi_align_rotated": [_P] * 4 + [_I] * 8 + [_F] * 4
+    + [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # 4 fp32 gradient pointers, 4 heights, 4 widths, 4 x 1/stride, rois,
+    # lvls, g, B, C, N, out_size, sample_num, bf16, stream
+    "sm3det_roi_align_rotated_bwd": [_P] * 4 + [_I] * 8 + [_F] * 4
     + [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
@@ -149,6 +154,17 @@ def check(rc: int, name: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a C entry."""
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+def forbid_grad(name: str, *tensors) -> None:
+    """Raise if grad mode is on and an input requires grad: a kernel
+    without a backward would hand back a tensor with no ``grad_fn`` and
+    cut the graph without a word."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the kernel has no backward, and an "
+                           "input requires grad; run it under "
+                           "torch.no_grad() or use the trainable path")
 
 
 def ptr(t: torch.Tensor | None) -> int | None:

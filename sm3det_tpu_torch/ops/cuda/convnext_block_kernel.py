@@ -1,6 +1,10 @@
 """ConvNeXt kernels: ``fused_dwconv_ln``, ``fused_convnext_block`` and
 ``fused_layernorm``, each a CUDA path (``csrc/dwconv_ln.cu``,
-``csrc/grouped_ffn.cu``, ``csrc/layernorm.cu``) and a plain PyTorch version.
+``csrc/grouped_ffn.cu``, ``csrc/layernorm.cu``) and a plain PyTorch version,
+and ``fused_dwconv_ln_train``, the trainable dw7x7 + LN.
+
+The three inference kernels have no backward: on the card their wrappers
+raise when grad mode is on and an input requires grad.
 
 Counterpart of ``sm3det_tpu/ops/pallas/convnext_block_kernel.py``, with the
 contract of its ``_make_block_kernel``:
@@ -58,6 +62,7 @@ def fused_layernorm(x, scale, bias, eps: float = 1e-6):
         return layernorm_math(x, scale, bias, eps)
     if not x.is_cuda:
         raise ValueError(f"fused_layernorm: unsupported device {x.device}")
+    build.forbid_grad("fused_layernorm", x, scale, bias)
     out_dtype = _ln_dtype(x, scale, bias)
     if x.dtype not in _KERNEL_DTYPES or out_dtype not in _KERNEL_DTYPES:
         raise ValueError(f"fused_layernorm: unsupported dtypes {x.dtype} -> "
@@ -84,11 +89,15 @@ def fused_layernorm(x, scale, bias, eps: float = 1e-6):
 
 def dwconv_ln_ref(x, dwk, dwb, lns, lnb, eps: float = 1e-6,
                   out_dtype=None):
-    """Plain version of ``fused_dwconv_ln`` (fp32 conv and statistics)."""
+    """Plain version of ``fused_dwconv_ln`` (fp32 conv and statistics),
+    and the formulation the trainable version differentiates. The conv
+    runs on a contiguous NCHW copy: cuDNN's fp32 depthwise weight gradient
+    on the channels-last view took 3x as long at the train step's shapes
+    (``tools/profiling/dwconv_ln_bwd_ab.py``)."""
     out_dtype = out_dtype or _ln_dtype(x, lns, lnb)
     c = x.shape[-1]
-    acc = F.conv2d(x.float().permute(0, 3, 1, 2), dwk.float(), dwb.float(),
-                   padding=3, groups=c).permute(0, 2, 3, 1)
+    acc = F.conv2d(x.float().permute(0, 3, 1, 2).contiguous(), dwk.float(),
+                   dwb.float(), padding=3, groups=c).permute(0, 2, 3, 1)
     mean = acc.mean(-1, keepdim=True)
     var = torch.clamp((acc * acc).mean(-1, keepdim=True) - mean * mean,
                       min=0.0)
@@ -111,7 +120,8 @@ def convnext_block_ref(x, dwk, dwb, lns, lnb, w1, b1, w2, b2, gamma,
     return y.to(out_dtype)
 
 
-def _dwconv_ln_launch(x, dwk, dwb, lns, lnb, eps, out_dtype):
+def _dwconv_ln_launch(x, dwk, dwb, lns, lnb, eps, out_dtype,
+                      counter="dwconv_ln"):
     build.require_cuda(x, "x")
     if x.dtype not in _KERNEL_DTYPES or out_dtype not in _KERNEL_DTYPES:
         raise ValueError(f"dwconv_ln: unsupported dtypes {x.dtype} -> "
@@ -133,7 +143,7 @@ def _dwconv_ln_launch(x, dwk, dwb, lns, lnb, eps, out_dtype):
         b, h, w, c, int(x.dtype == torch.bfloat16),
         int(out_dtype == torch.bfloat16), eps, build.stream_ptr(x.device))
     build.check(rc, "dwconv_ln")
-    build.LAUNCHES["dwconv_ln"] += 1
+    build.LAUNCHES[counter] += 1
     return out
 
 
@@ -145,10 +155,52 @@ def fused_dwconv_ln(x, dwk, dwb, lns, lnb, eps: float = 1e-6):
     """
     out_dtype = _ln_dtype(x, lns, lnb)
     if x.is_cuda:
+        build.forbid_grad("fused_dwconv_ln", x, dwk, dwb, lns, lnb)
         return _dwconv_ln_launch(x, dwk, dwb, lns, lnb, eps, out_dtype)
     if x.device.type == "cpu":
         return dwconv_ln_ref(x, dwk, dwb, lns, lnb, eps, out_dtype)
     raise ValueError(f"fused_dwconv_ln: unsupported device {x.device}")
+
+
+class _DwconvLnTrain(torch.autograd.Function):
+    """Counterpart of the custom VJP ``fused_dwconv_ln_train``
+    (``sm3det_tpu/ops/pallas/convnext_block_kernel.py:345``). Forward: the
+    ``dwconv_ln.cu`` kernel on the card, :func:`dwconv_ln_ref` on the host;
+    only the inputs are saved. Backward: recompute the dw7x7 and
+    differentiate the fp32 formulation :func:`dwconv_ln_ref`, as the JAX
+    VJP differentiates ``_dwconv_ln_math``; no backward kernel, as in
+    JAX."""
+
+    @staticmethod
+    def forward(ctx, x, dwk, dwb, lns, lnb, eps):
+        ctx.save_for_backward(x, dwk, dwb, lns, lnb)
+        ctx.eps = eps
+        out_dtype = _ln_dtype(x, lns, lnb)
+        if x.is_cuda:
+            return _dwconv_ln_launch(x, dwk, dwb, lns, lnb, eps, out_dtype,
+                                     counter="fused_dwconv_ln_train")
+        return dwconv_ln_ref(x, dwk, dwb, lns, lnb, eps, out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[:5]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
+            out = dwconv_ln_ref(*ins, ctx.eps)
+            wanted = [t for t, n in zip(ins, need) if n]
+            grads = iter(torch.autograd.grad(out, wanted, g.to(out.dtype)))
+        return (*[next(grads) if n else None for n in need], None)
+
+
+def fused_dwconv_ln_train(x, dwk, dwb, lns, lnb, eps: float = 1e-6):
+    """Trainable ``LN(dw7x7(x))``: the ``dwconv_ln.cu`` kernel forward on a
+    CUDA tensor (counted as ``fused_dwconv_ln_train``), the plain version on
+    a CPU tensor, and the recomputing fp32 backward on both."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_dwconv_ln_train: unsupported device "
+                         f"{x.device}")
+    return _DwconvLnTrain.apply(x, dwk, dwb, lns, lnb, eps)
 
 
 def fused_convnext_block(x, dwk, dwb, lns, lnb, w1, b1, w2, b2, gamma,
@@ -166,6 +218,8 @@ def fused_convnext_block(x, dwk, dwb, lns, lnb, w1, b1, w2, b2, gamma,
     if not x.is_cuda:
         raise ValueError(f"fused_convnext_block: unsupported device "
                          f"{x.device}")
+    build.forbid_grad("fused_convnext_block", x, dwk, dwb, lns, lnb, w1, b1,
+                      w2, b2, gamma)
     dt = x.dtype
     out_dtype = torch.promote_types(torch.promote_types(dt, w2.dtype),
                                     gamma.dtype)

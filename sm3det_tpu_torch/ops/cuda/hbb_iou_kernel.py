@@ -73,6 +73,7 @@ def hbb_iou(boxes1: torch.Tensor, boxes2: torch.Tensor, triu: bool = False,
     tensor through :func:`hbb_iou_ref`.
     """
     if boxes1.is_cuda:
+        build.forbid_grad("hbb_iou", boxes1, boxes2)
         return _launch(boxes1, boxes2, triu, eps)
     if boxes1.device.type == "cpu":
         return hbb_iou_ref(boxes1, boxes2, triu, eps)

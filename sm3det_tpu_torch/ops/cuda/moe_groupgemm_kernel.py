@@ -112,6 +112,7 @@ def moe_ffn_grouped(x_slots, tile_expert, w1, b1, w2, b2):
     if not x_slots.is_cuda:
         raise ValueError(f"moe_ffn_grouped: unsupported device "
                          f"{x_slots.device}")
+    build.forbid_grad("moe_ffn_grouped", x_slots, w1, b1, w2, b2)
     s = x_slots.shape[0]
     tile = s // tile_expert.shape[0]
     dt = x_slots.dtype

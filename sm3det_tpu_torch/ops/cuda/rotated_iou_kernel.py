@@ -114,6 +114,7 @@ def rotated_iou(boxes1: torch.Tensor, boxes2: torch.Tensor,
     tensor through :func:`rotated_iou_ref`.
     """
     if boxes1.is_cuda:
+        build.forbid_grad("rotated_iou", boxes1, boxes2)
         return _launch(boxes1, boxes2, triu, groups1, groups2)
     if boxes1.device.type == "cpu":
         return rotated_iou_ref(boxes1, boxes2, triu, groups1, groups2)

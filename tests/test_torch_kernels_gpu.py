@@ -258,6 +258,84 @@ def test_roi_align_rotated_kernel(cuda, dtype, b, n, size, c):
     assert float(got[5::50].abs().max()) == 0.0      # far outside: zeros
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["random", "one_centre"])
+@pytest.mark.parametrize("b,n,size,c", [(1, 50, 128, 32), (2, 1024, 800, 256)])
+def test_roi_align_rotated_bwd_kernel(cuda, dtype, case, b, n, size, c):
+    """Row 8: the scatter kernel against autograd of the plain align. fp32
+    atomics add in no fixed order (1e-4 of the scale); bf16 rounds the fp32
+    sum once (2^-6). ``one_centre``: every RoI on one point, so every
+    sample's taps collide."""
+    gen = torch.Generator(device=cuda).manual_seed(n + 1)
+    rois = _rois(gen, b, n, size, cuda)
+    if case == "one_centre":
+        rois[:, 0] = 0.0
+        rois[:, 1:3] = size / 2
+        rois[:, 3:5] = 24 + torch.rand(n, 2, generator=gen, device=cuda) * 36
+    lvls = route_levels(rois)
+    shapes = [(b, size // s, size // s, c) for s in (4, 8, 16, 32)]
+    g = _rand(gen, n, 7, 7, c, dtype=dtype)
+    build.reset_launches()
+    got = rak.roi_align_rotated_pyramid_bwd(g, rois, lvls, shapes, dtype)
+    assert build.LAUNCHES["roi_align_rotated_bwd"] == 1
+    ref = rak.roi_align_rotated_pyramid_bwd_ref(g, rois, lvls, shapes, dtype)
+    for a, r in zip(got, ref):
+        _check(a, r, dtype)
+
+
+def test_roi_align_autograd_on_the_card(cuda):
+    """The autograd.Function: one forward and one backward launch, and the
+    feature gradient equals the host's autograd of the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    feats = [f.requires_grad_(True)
+             for f in _pyramid(gen, 2, 320, 64, torch.float32, cuda)]
+    rois = _rois(gen, 2, 500, 320, cuda)
+    g = _rand(gen, 500, 7, 7, 64)
+    build.reset_launches()
+    out = rak.roi_align_rotated_pyramid_fused(feats, rois)
+    got = torch.autograd.grad(out, feats[:4], g)
+    assert build.LAUNCHES["roi_align_rotated"] == 1
+    assert build.LAUNCHES["roi_align_rotated_bwd"] == 1
+    host = [f.detach().cpu().requires_grad_(True) for f in feats]
+    ref = torch.autograd.grad(
+        rak.roi_align_rotated_pyramid_fused(host, rois.cpu()), host[:4],
+        g.cpu())
+    for a, r in zip(got, ref):
+        _check(a.cpu(), r, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hw,c", SHAPES)
+def test_dwconv_ln_train(cuda, dtype, b, hw, c):
+    """Row 10: the kernel forward and the recomputing backward against the
+    plain fp32 formulation and its autograd."""
+    gen = torch.Generator(device=cuda).manual_seed(hw * c)
+    a = _block_args(gen, b, hw, c, dtype)
+    ins = [a[k].requires_grad_(True)
+           for k in ("x", "dwk", "dwb", "lns", "lnb")]
+    g = _rand(gen, b, hw, hw, c, dtype=dtype)
+    build.reset_launches()
+    out = cbk.fused_dwconv_ln_train(*ins)
+    got = (out,) + torch.autograd.grad(out, ins, g)
+    assert build.LAUNCHES["fused_dwconv_ln_train"] == 1
+    ref_out = cbk.dwconv_ln_ref(*ins)
+    ref = (ref_out,) + torch.autograd.grad(ref_out, ins, g)
+    for x, r in zip(got, ref):
+        _check(x, r, dtype)
+
+
+def test_forward_only_kernels_refuse_grad_on_the_card(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    a = _block_args(gen, 1, 9, 40, torch.float32)
+    a["w1"].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        cbk.fused_convnext_block(**a)
+    with pytest.raises(RuntimeError, match="no backward"):
+        cbk.fused_layernorm(a["x"], a["lns"], a["lnb"].requires_grad_(True))
+    with torch.no_grad():
+        cbk.fused_convnext_block(**a)
+
+
 def _small_cfg(dtype=None):
     cfg = copy.deepcopy(DEFAULT_MODEL_CFG)
     cfg["backbone"].update(arch="atto", moe_block_inds=((), (), (0,), ()),
@@ -304,7 +382,9 @@ def test_sar_slice_bf16_goes_through_every_kernel(cuda):
                               "moe_ffn_grouped": 1, "hbb_iou": 1,
                               "fused_layernorm": 8, "rotated_iou": 0,
                               "rotated_iou_banded": 0,
-                              "roi_align_rotated": 0}
+                              "roi_align_rotated": 0,
+                              "roi_align_rotated_bwd": 0,
+                              "fused_dwconv_ln_train": 0}
     assert dets.shape == (2, 10, 5) and bool(torch.isfinite(dets).all())
     assert int(valid.sum()) > 0
 
@@ -335,7 +415,9 @@ def test_joint_slice_bf16_goes_through_every_kernel(cuda):
                               "moe_ffn_grouped": 1, "hbb_iou": 2,
                               "fused_layernorm": 8, "rotated_iou": 0,
                               "rotated_iou_banded": 1,
-                              "roi_align_rotated": 1}
+                              "roi_align_rotated": 1,
+                              "roi_align_rotated_bwd": 0,
+                              "fused_dwconv_ln_train": 0}
     for (dets, labels, valid), shape in zip(out, ((2, 10, 5), (2, 10, 6),
                                                   (1, 10, 6))):
         assert dets.shape == shape and bool(torch.isfinite(dets).all())
@@ -368,3 +450,107 @@ def test_rcnn_detections_card_matches_host(cuda):
     assert torch.equal(det_d[2].cpu(), det_h[2])
     assert torch.equal(det_d[1].cpu(), det_h[1])
     assert (det_d[0].cpu() - det_h[0]).abs().max().item() <= 1e-4
+
+
+def _train_batch(seed, comp=(2, 1, 1), img=64, g=4):
+    rng = np.random.RandomState(seed)
+
+    def common(n):
+        return {"img": rng.rand(n, img, img, 3).astype(np.float32),
+                "gt_labels": rng.randint(0, 26, (n, g)).astype(np.int32),
+                "gt_mask": np.ones((n, g), bool)}
+
+    cx, cy = rng.uniform(12, img - 12, (2, comp[0], g))
+    w, h = rng.uniform(6, 20, (2, comp[0], g))
+    sar = dict(common(comp[0]), gt_bboxes=np.stack(
+        [cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1)
+        .astype(np.float32))
+
+    def obbs(n):
+        return np.stack([rng.uniform(12, img - 12, (n, g)),
+                         rng.uniform(12, img - 12, (n, g)),
+                         rng.uniform(8, 20, (n, g)), rng.uniform(5, 9, (n, g)),
+                         rng.uniform(-1.2, 1.2, (n, g))],
+                        -1).astype(np.float32)
+
+    return {"sar": sar, "rgb": dict(common(comp[1]), gt_obbs=obbs(comp[1])),
+            "ifr": dict(common(comp[2]), gt_obbs=obbs(comp[2]))}
+
+
+def test_train_forward_card_matches_host(cuda):
+    """fp32 train forward + backward of a small model, card against host,
+    the same host-made draws and the card's proposals (the proposal NMS is
+    a discrete function of float noise): losses within 1e-3 relative, the
+    gradient norm of every subtree within 1e-2."""
+    from sm3det_tpu_torch.models.detectors import trisource as tri_mod
+    from sm3det_tpu_torch.train.train_state import batch_to, trainable_params
+    card = TriSourceDetector(_small_cfg(), seed=0, trainable=True)
+    host = TriSourceDetector(_small_cfg(), device="cpu", seed=0,
+                             trainable=True)
+    batch = _train_batch(0)
+    real, recorded = tri_mod.rpn_get_proposals, []
+
+    def record(*a, **kw):
+        recorded.append(real(*a, **kw))
+        return recorded[-1]
+
+    def replay(*a, **kw):
+        return tuple(t.cpu() for t in recorded.pop(0))
+
+    out = {}
+    for name, m, dev, fn in (("card", card, cuda, record),
+                             ("host", host, "cpu", replay)):
+        params = trainable_params(m)
+        tri_mod.rpn_get_proposals = fn
+        try:
+            losses = m(batch_to(batch, dev),
+                       gen=torch.Generator().manual_seed(1))
+        finally:
+            tri_mod.rpn_get_proposals = real
+        grads = torch.autograd.grad(sum(losses.values()),
+                                    list(params.values()))
+        norms = {}
+        for n, gr in zip(params, grads):
+            top = n.split(".")[0]
+            norms[top] = norms.get(top, 0.0) + float(gr.double().pow(2).sum())
+        out[name] = ({k: float(v.detach()) for k, v in losses.items()},
+                     norms)
+    for k, v in out["host"][0].items():
+        assert abs(out["card"][0][k] - v) <= 1e-3 * abs(v) + 1e-7, k
+    for k, v in out["host"][1].items():
+        assert abs(out["card"][1][k] ** 0.5 - v ** 0.5) <= 1e-2 * v ** 0.5, k
+
+
+def test_bf16_train_step_goes_through_the_train_kernels(cuda):
+    from sm3det_tpu_torch.train.dla import make_dla_config
+    from sm3det_tpu_torch.train.optim import make_optimizer
+    from sm3det_tpu_torch.train.train_state import (batch_to,
+                                                    build_train_step,
+                                                    init_train_state,
+                                                    trainable_params)
+    model = TriSourceDetector(_small_cfg("bfloat16"), seed=0, trainable=True)
+    init_fn, update_fn, _ = make_optimizer(
+        list(trainable_params(model)), warmup_iters=1,
+        dla_cfg=make_dla_config(warmup_iters=1))
+    state = init_train_state(model, init_fn)
+    step = build_train_step(model, update_fn)
+    batch = batch_to(_train_batch(1), cuda)
+    p0 = [p.detach().clone() for p in state.params.values()]
+    for _ in range(2):
+        build.reset_launches()
+        state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+    assert all(p.dtype == torch.float32 for p in state.params.values())
+    assert max(float((p.detach() - q).abs().max())
+               for p, q in zip(state.params.values(), p0)) > 0
+    # 12 atto blocks; rgb and infrared: one proposal NMS, one align
+    # forward and backward, one rotated IoU an image
+    assert build.LAUNCHES["fused_dwconv_ln_train"] == 12
+    assert build.LAUNCHES["hbb_iou"] == 2
+    assert build.LAUNCHES["rotated_iou"] == 2
+    assert build.LAUNCHES["roi_align_rotated"] == 2
+    assert build.LAUNCHES["roi_align_rotated_bwd"] == 2
+    for k in ("dwconv_ln", "fused_convnext_block", "moe_ffn_grouped",
+              "fused_layernorm"):
+        assert build.LAUNCHES[k] == 0, k

@@ -169,8 +169,8 @@ def test_later_slices_raise(pair):
     cfg["backbone"]["type"] = "LSKNet"
     with pytest.raises(NotImplementedError, match="LSKNet"):
         TriSourceDetector(cfg, device="cpu")
-    from sm3det_tpu_torch.models.detectors.trisource import (make_rcnn_coder,
-                                                              make_rpn_coder)
-    for coder in (make_rpn_coder(), make_rcnn_coder()):
-        with pytest.raises(NotImplementedError, match="training slice"):
-            coder.encode(torch.zeros(1, 5), torch.zeros(1, 5))
+    for mode in ("uncertainty", "dwa"):
+        cfg = _small(DEFAULT_MODEL_CFG)
+        cfg["multi_tasks_reweight"] = mode
+        with pytest.raises(NotImplementedError, match="not ported"):
+            TriSourceDetector(cfg, device="cpu", trainable=True)

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Where the time of the PyTorch port's forward goes, on one CUDA card.
+"""Where the time of the PyTorch port's forward or train step goes, on one
+CUDA card.
 
 Run from the root of the repository on a machine with a card:
 
-    python3 tools/profiling/torch_sar_profile.py [--path sar|joint]
+    python3 tools/profiling/torch_sar_profile.py [--path sar|joint|train]
         [--batch 8] [--size 800]
 
 It builds the full-width ``TriSourceDetector`` (``DEFAULT_MODEL_CFG``,
@@ -12,13 +13,20 @@ the ``fc_cls`` weights scaled up so that every NMS sees real candidates),
 warms the forward up and then reports on it. ``--path sar`` (the default)
 is ``simple_test(imgs, "sar")`` on ``--batch`` images; ``--path joint`` is
 ``simple_test_joint`` on ``--batch`` SAR images and half as many RGB and
-infrared images each ([8:4:4] by default).
+infrared images each ([8:4:4] by default). ``--path train`` is the
+flagship train step (fp32 masters, bf16 forward, DLA switched on after two
+warm-up steps, AdamW) on ``--batch`` images split [2:1:1] ([4:2:2] by
+default), 16 gts an image.
+
+fp32 convolutions and products run in full fp32 (TF32 off), as in
+``chip_smoke.py``.
 
 1. CUDA-event times of the stages of one forward (stem and norms, dense
    blocks, MoE blocks split into dwconv_ln, gate, dispatch + FFN +
    combine, neck, heads, and each decode + NMS), the median of ``--reps``
-   forwards;
-2. one forward under ``torch.profiler``: device time by kernel name, and
+   forwards (for ``train``: forward with the losses, backward, AdamW +
+   DLA, the median of ``--reps`` steps);
+2. one forward (or step) under ``torch.profiler``: device time by kernel name, and
    the device's busy share of the forward's wall time (the union of the
    kernels' intervals over the span of the forward).
 
@@ -41,7 +49,7 @@ sys.path.insert(0, str(ROOT))
 # the __global__ functions of sm3det_tpu_torch/ops/cuda/csrc/*.cu
 PORT_KERNELS = ("dwconv_ln_kernel", "gemm_bf16_kernel", "gemm_f32_kernel",
                 "hbb_iou_kernel", "layernorm_kernel", "rotated_iou_kernel",
-                "roi_align_rotated_kernel")
+                "roi_align_rotated_kernel", "roi_align_rotated_bwd_kernel")
 
 
 def stage_of(name, module):
@@ -63,7 +71,8 @@ def stage_of(name, module):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("sar", "joint"), default="sar")
+    ap.add_argument("--path", choices=("sar", "joint", "train"),
+                    default="sar")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--size", type=int, default=800)
     ap.add_argument("--seed", type=int, default=0)
@@ -73,11 +82,17 @@ def main():
     import torch
     if not torch.cuda.is_available():
         sys.exit("no CUDA device")
+    # as chip_smoke.py: fp32 convolutions and products in full fp32 (the
+    # train step's fp32 backward of the dw7x7 + LN runs through cuDNN)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     from sm3det_tpu_torch.models.detectors.trisource import (
         DEFAULT_MODEL_CFG, TriSourceDetector)
     from sm3det_tpu_torch.ops.cuda import convnext_block_kernel as cbk
 
     cfg = dict(DEFAULT_MODEL_CFG, compute_dtype="bfloat16")
+    if args.path == "train":
+        return profile_train(args, torch, cfg)
     model = TriSourceDetector(cfg, seed=args.seed)
     model.sar_bbox_head.gfl_cls.bias.fill_(0.0)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -198,16 +213,8 @@ def main():
         h.remove()
     convnext.fused_dwconv_ln = dw
 
-    smi = "not read"
-    try:
-        import subprocess
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60).stdout.strip()
-    except (OSError, subprocess.SubprocessError):
-        pass
-    print(f"[profile] card {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
+    print(f"[profile] card {torch.cuda.get_device_name(0)}; nvidia-smi: "
+          f"{nvidia_smi_line()}")
     n_imgs = args.batch + (2 * rgb.shape[0] if joint else 0)
     print(f"[profile] path {args.path}: {n_imgs} x {args.size}^2 bf16: "
           f"median forward "
@@ -220,12 +227,29 @@ def main():
         print(f"[profile]   {stage:42s} {statistics.median(vals):9.3f}")
 
     # ---- 2. one forward under the profiler -------------------------------
+    return report_profile(torch, forward, args.path, wall_med)
+
+
+def nvidia_smi_line():
+    import subprocess
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return "not read"
+
+
+def report_profile(torch, run, path, wall_med):
+    """``run()`` once under ``torch.profiler``: the device's busy share and
+    its time by kernel, against ``wall_med``, the unprofiled median."""
     from torch.profiler import ProfilerActivity, profile, record_function
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         with record_function("port_forward"):
             t = time.perf_counter()
-            forward()
+            run()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t) * 1e3
     # device events, less the annotation's own mirror on the device
@@ -241,7 +265,7 @@ def main():
                                       row_limit=60)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / f"torch_{args.path}_profile.txt").write_text(table)
+    (out / f"torch_{path}_profile.txt").write_text(table)
     if not spans or fwd is None:
         print("[profile] the profiler recorded no device time: busy share "
               "not measured")
@@ -255,10 +279,10 @@ def main():
             cur_e = max(cur_e, e)
     busy += cur_e - cur_s
     span_us = max(fwd.end, spans[-1][1]) - min(fwd.start, spans[0][0])
-    print(f"[profile] profiled forward: wall {wall_ms:.3f} ms, device busy "
+    print(f"[profile] profiled {path}: wall {wall_ms:.3f} ms, device busy "
           f"{busy / 1e3:.3f} ms of {span_us / 1e3:.3f} ms "
           f"({100 * busy / span_us:.1f} %), {len(spans)} device events")
-    print(f"[profile] device busy over the unprofiled median forward: "
+    print(f"[profile] device busy over the unprofiled median: "
           f"{busy / 1e3:.3f} / {wall_med:.3f} ms "
           f"({100 * busy / 1e3 / wall_med:.1f} %)")
     groups = defaultdict(float)
@@ -280,6 +304,72 @@ def main():
             :25]:
         print(f"[profile]   {us / 1e3:8.3f} {n:5d}  {name[:100]}")
     return 0
+
+
+def profile_train(args, torch, cfg):
+    """``--path train``: the flagship train step."""
+    import numpy as np
+
+    from sm3det_tpu_torch.models.detectors.trisource import TriSourceDetector
+    from sm3det_tpu_torch.train.dla import make_dla_config
+    from sm3det_tpu_torch.train.optim import make_optimizer
+    from sm3det_tpu_torch.train.train_state import (
+        batch_to, build_train_step, init_train_state, trainable_params)
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import make_train_batch
+
+    comp = (max(args.batch // 2, 1), max(args.batch // 4, 1),
+            max(args.batch // 4, 1))
+    model = TriSourceDetector(cfg, seed=args.seed, trainable=True)
+    init_fn, update_fn, _ = make_optimizer(
+        list(trainable_params(model)), base_lr=1e-4, step_iters=(80000,),
+        warmup_iters=2, dla_cfg=make_dla_config(warmup_iters=2))
+    state = init_train_state(model, init_fn, seed=args.seed + 1)
+    step = build_train_step(model, update_fn)
+    batch = batch_to(make_train_batch(np.random.RandomState(args.seed), comp,
+                                      args.size, 16), "cuda")
+
+    def run():
+        nonlocal state
+        state, _ = step(state, batch)
+
+    for _ in range(3):                       # past the DLA warm-up
+        run()
+    torch.cuda.synchronize()
+    walls, parts = [], defaultdict(list)
+    for _ in range(args.reps):
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    for _ in range(args.reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        masters = list(state.params.values())
+        ev[0].record()
+        total, losses = step.loss_fn(state.params, batch, state.gen)
+        ev[1].record()
+        grads = torch.autograd.grad(total, masters)
+        ev[2].record()
+        opt = update_fn(grads, state.opt, masters, losses)
+        ev[3].record()
+        torch.cuda.synchronize()
+        state = state._replace(opt=opt)
+        for name, i in (("forward with the losses", 0), ("backward", 1),
+                        ("AdamW + DLA", 2)):
+            parts[name].append(ev[i].elapsed_time(ev[i + 1]))
+        del total, losses, grads
+    wall_med = statistics.median(walls)
+    print(f"[profile] card {torch.cuda.get_device_name(0)}; nvidia-smi: "
+          f"{nvidia_smi_line()}")
+    print(f"[profile] path train: [{comp[0]}:{comp[1]}:{comp[2]}] x "
+          f"{args.size}^2 bf16 policy, DLA + AdamW: median step "
+          f"{wall_med:.3f} ms (host clock, {args.reps} steps), "
+          f"{sum(comp) / wall_med * 1e3:.2f} images/s")
+    print(f"[profile] parts of a step, median of {args.reps} (CUDA events, "
+          f"ms):")
+    for name, vals in parts.items():
+        print(f"[profile]   {name:42s} {statistics.median(vals):9.3f}")
+    return report_profile(torch, run, "train", wall_med)
 
 
 if __name__ == "__main__":
