@@ -201,7 +201,7 @@ def main():
     from sm3det_tpu_torch.models.detectors import trisource as tri_mod
     from sm3det_tpu_torch.models.detectors.trisource import (
         DEFAULT_MODEL_CFG, TriSourceDetector)
-    from sm3det_tpu_torch.train.dla import dla_multipliers, make_dla_config
+    from sm3det_tpu_torch.train.dla import make_dla_config
     from sm3det_tpu_torch.train.optim import make_optimizer
     from sm3det_tpu_torch.train.train_state import (
         batch_to, build_train_step, init_train_state, trainable_params)
@@ -998,8 +998,8 @@ def main():
     if not ok_out:
         failures.append("bf16 joint outputs")
 
-    walls, q1, dt, q3 = timed_forwards(joint)
-    joint_ips = n_joint / dt
+    walls, q1, joint_dt, q3 = timed_forwards(joint)
+    joint_ips = n_joint / joint_dt
     with torch.no_grad():
         (s_cls, s_reg), x, rpn = model.head_joint(sar_i, rgb_i, ifr_i)
         props, _, pval = model.get_proposals(*rpn)
@@ -1025,7 +1025,7 @@ def main():
     log(f"[joint bf16] forward wall times (ms): "
         f"{' '.join(f'{w * 1e3:.2f}' for w in walls)}")
     log(f"[joint bf16] [{n_sar}:{n_rgb}:{n_ifr}] x {IMG}^2: median "
-        f"{dt * 1e3:.2f} ms per batch (quartiles {q1 * 1e3:.2f}-"
+        f"{joint_dt * 1e3:.2f} ms per batch (quartiles {q1 * 1e3:.2f}-"
         f"{q3 * 1e3:.2f}), {joint_ips:.2f} images/s, peak memory "
         f"{joint_peak_gib:.2f} GiB; card {smi}")
     log("[joint bf16] stages (CUDA events, mean of 3, ms): " + "; ".join(
@@ -1138,10 +1138,9 @@ def main():
 
     def one_step():
         nonlocal state
-        dla_before = state.opt.dla
         state, met = train_step(state, fbatch)
-        mults, _ = dla_multipliers(dla_before, met, dla_cfg)
-        mult_log.append((dla_before.steps, mults))
+        # the multipliers the update applied, by the step it ran at
+        mult_log.append((state.opt.step - 1, state.opt.mults))
         return met
 
     t0 = time.perf_counter()
@@ -1156,22 +1155,24 @@ def main():
     train_launches = dict(build.LAUNCHES)
     log(f"[train bf16] launches in one step: {train_launches}")
     torch.cuda.reset_peak_memory_stats()
-    walls, q1, dt, q3 = timed_forwards(one_step, n=TRAIN_STEPS)
+    walls, train_q1, train_dt, train_q3 = timed_forwards(one_step,
+                                                         n=TRAIN_STEPS)
     train_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     metrics = {k: float(v) for k, v in one_step().items()}
-    train_ips = n_train / dt
+    train_ips = n_train / train_dt
     moved = max(float((p.detach() - q).abs().max())
                 for p, q in zip(state.params.values(), p0))
-    warm_ones = all(abs(v - 1.0) == 0.0 for st, mm in mult_log
-                    if st < DLA_WARMUP for v in mm.values())
+    warm_ones = all(mm and all(v == 1.0 for v in mm.values())
+                    for st, mm in mult_log if st < DLA_WARMUP)
     on_later = all(any(abs(v - 1.0) > 1e-6 for v in mm.values())
                    for st, mm in mult_log if st >= DLA_WARMUP)
     log(f"[train bf16] step wall times (ms): "
         f"{' '.join(f'{w * 1e3:.2f}' for w in walls)}")
     log(f"[train bf16] [{TRAIN[0]}:{TRAIN[1]}:{TRAIN[2]}] x {IMG}^2, "
-        f"full width, DLA + AdamW: median {dt * 1e3:.2f} ms a step "
-        f"(quartiles {q1 * 1e3:.2f}-{q3 * 1e3:.2f}), {train_ips:.2f} "
-        f"images/s, peak memory {train_peak_gib:.2f} GiB; card {smi}")
+        f"full width, DLA + AdamW: median {train_dt * 1e3:.2f} ms a step "
+        f"(quartiles {train_q1 * 1e3:.2f}-{train_q3 * 1e3:.2f}), "
+        f"{train_ips:.2f} images/s, peak memory {train_peak_gib:.2f} GiB; "
+        f"card {smi}")
     log("[train bf16] losses of the last step: " + ", ".join(
         f"{k} {v:.5f}" for k, v in metrics.items()))
     log(f"[train bf16] DLA multipliers: step {mult_log[0][0]} "
@@ -1200,9 +1201,9 @@ def main():
                          "and fused_dwconv_ln_train from one flagship train "
                          "step",
         "train_step_launches": train_launches,
-        "train_images_per_s": train_ips, "train_step_ms": dt * 1e3,
+        "train_images_per_s": train_ips, "train_step_ms": train_dt * 1e3,
         "train_peak_gib": train_peak_gib, "train_losses": metrics,
-        "joint_images_per_s": joint_ips, "joint_ms": dt * 1e3,
+        "joint_images_per_s": joint_ips, "joint_ms": joint_dt * 1e3,
         "joint_peak_gib": joint_peak_gib, "joint_stage_ms": stages,
         "sar_images_per_s": sar_ips, "sar_peak_gib": peak_gib,
         "card": smi}))

@@ -93,7 +93,7 @@ def dwconv_ln_ref(x, dwk, dwb, lns, lnb, eps: float = 1e-6,
     and the formulation the trainable version differentiates. The conv
     runs on a contiguous NCHW copy: cuDNN's fp32 depthwise weight gradient
     on the channels-last view took 3x as long at the train step's shapes
-    (``tools/profiling/dwconv_ln_bwd_ab.py``)."""
+    (row 10 of ``chip_smoke.py``, before and after; ``PERF.md``)."""
     out_dtype = out_dtype or _ln_dtype(x, lns, lnb)
     c = x.shape[-1]
     acc = F.conv2d(x.float().permute(0, 3, 1, 2).contiguous(), dwk.float(),

@@ -49,6 +49,7 @@ class TrainOptState(NamedTuple):
     count: int
     dla: DLAState
     step: int
+    mults: Dict[str, float]     # the DLA multipliers the last update applied
 
 
 def make_optimizer(names: Sequence[str], base_lr: float = 1e-4,
@@ -60,7 +61,9 @@ def make_optimizer(names: Sequence[str], base_lr: float = 1e-4,
     """``names``: the parameters' dotted names, in the order of the lists
     the functions take. Returns ``(init_fn(params) -> TrainOptState,
     update_fn(grads, state, params, losses) -> state, schedule)``;
-    ``update_fn`` updates ``params`` in place."""
+    ``update_fn`` updates ``params`` in place and records in the state's
+    ``mults`` the multiplier it applied to each parameter group (1 during
+    warmup; empty without DLA)."""
     schedule = make_lr_schedule(base_lr, step_iters, gamma, warmup_iters,
                                 warmup_ratio)
     b1, b2 = betas
@@ -75,7 +78,7 @@ def make_optimizer(names: Sequence[str], base_lr: float = 1e-4,
         return TrainOptState(
             mu=[torch.zeros_like(p, dtype=torch.float32) for p in params],
             nu=[torch.zeros_like(p, dtype=torch.float32) for p in params],
-            count=0, dla=dla, step=0)
+            count=0, dla=dla, step=0, mults={})
 
     @torch.no_grad()
     def update_fn(grads, state: TrainOptState, params,
@@ -95,18 +98,18 @@ def make_optimizer(names: Sequence[str], base_lr: float = 1e-4,
         if weight_decay:
             torch._foreach_add_(upd, list(params), alpha=weight_decay)
         lr = schedule(state.step)
-        dla_state = state.dla
+        dla_state, applied = state.dla, {}
         if dla_cfg is not None and losses is not None:
             mults, dla_state = dla_multipliers(state.dla, losses, dla_cfg)
             in_warmup = state.step < dla_cfg.warmup_iters
             for lab, idx in groups.items():
-                torch._foreach_mul_(
-                    [upd[i] for i in idx],
-                    -lr * (1.0 if in_warmup else mults[lab]))
+                applied[lab] = 1.0 if in_warmup else mults[lab]
+                torch._foreach_mul_([upd[i] for i in idx],
+                                    -lr * applied[lab])
         else:
             torch._foreach_mul_(upd, -lr)
         torch._foreach_add_(list(params), upd)
         return TrainOptState(mu=mu, nu=nu, count=count, dla=dla_state,
-                             step=state.step + 1)
+                             step=state.step + 1, mults=applied)
 
     return init_fn, update_fn, schedule

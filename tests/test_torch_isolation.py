@@ -10,8 +10,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 BANNED = {"jax", "jaxlib", "flax", "optax", "orbax", "sm3det_tpu"}
 SCRIPTS = [ROOT / "chip_smoke.py",
-           ROOT / "tools" / "profiling" / "torch_sar_profile.py",
-           ROOT / "tools" / "profiling" / "dwconv_ln_bwd_ab.py"]
+           ROOT / "tools" / "profiling" / "torch_sar_profile.py"]
 
 
 def _port_files():

@@ -147,10 +147,12 @@ def test_atss_assign():
     gts = np.concatenate([cxy - wh / 2, cxy + wh / 2], -1).astype(np.float32)
     mask = np.array([1, 1, 1, 1, 0], bool)
     from sm3det_tpu.ops.nms import bbox_overlaps as jax_overlaps
-    ious = np.asarray(jax_overlaps(jnp.asarray(anchors), jnp.asarray(gts)))
-    ref_a, ref_o = jassign.atss_assign(
+    ious = np.asarray(jax.jit(jax_overlaps)(jnp.asarray(anchors),
+                                            jnp.asarray(gts)))
+    ref_a, ref_o = jax.jit(
+        lambda *a: jassign.atss_assign(*a, num, topk=9))(
         jnp.asarray(ious), jnp.asarray(centers), jnp.asarray(gts),
-        jnp.asarray(mask), num, topk=9)
+        jnp.asarray(mask))
     got_a, got_o = assigners.atss_assign(_t(ious), _t(centers), _t(gts),
                                          _t(mask), num, topk=9)
     assert int((got_a > 0).sum()) > 0
@@ -247,9 +249,9 @@ def moe_pair():
     g = rng.randn(n, d).astype(np.float32)
     layer = jmoe.MoELayer(dim=d, hidden=hid, num_experts=e, top_k=k,
                           capacity_factor=cf)
-    params = layer.init({"params": jax.random.PRNGKey(0),
-                         "moe_noise": jax.random.PRNGKey(1)},
-                        jnp.asarray(x), train=True)["params"]
+    params = jax.jit(lambda xx: layer.init(
+        {"params": jax.random.PRNGKey(0), "moe_noise": jax.random.PRNGKey(1)},
+        xx, train=True))(jnp.asarray(x))["params"]
     params = jax.tree.map(
         lambda v: np.asarray(v) + rng.randn(*v.shape).astype(np.float32)
         * 0.05, params)
@@ -268,8 +270,8 @@ def test_capacity_moe_forward_aux_and_grads(moe_pair, monkeypatch):
                              rngs={"moe_noise": jax.random.PRNGKey(2)})
         return jnp.sum(y * g) + aux, (y, aux)
 
-    (_, (y_ref, aux_ref)), (gp_ref, gx_ref) = jax.value_and_grad(
-        f, argnums=(0, 1), has_aux=True)(params, jnp.asarray(x))
+    (_, (y_ref, aux_ref)), (gp_ref, gx_ref) = jax.jit(jax.value_and_grad(
+        f, argnums=(0, 1), has_aux=True))(params, jnp.asarray(x))
     xt = _t(x).requires_grad_(True)
     y, aux = port.forward_train(xt, _t(noise))
     cap = moe.capacity_of(300, 2, 4, 0.6)
@@ -385,11 +387,15 @@ def test_align_feature_gradient(case):
     RoIs' taps in another order)."""
     feats, rois, g, strides = _align_case(case)
     lvls = route_levels(_t(rois)).numpy()
-    _, vjp = jax.vjp(lambda f: jax_align(list(f), jnp.asarray(rois),
-                                         jnp.asarray(lvls), 7,
-                                         featmap_strides=strides),
-                     tuple(jnp.asarray(f) for f in feats))
-    ref = vjp(jnp.asarray(g))[0]
+
+    @jax.jit
+    def feat_grad(fs, gg):
+        _, vjp = jax.vjp(lambda f: jax_align(list(f), jnp.asarray(rois),
+                                             jnp.asarray(lvls), 7,
+                                             featmap_strides=strides), fs)
+        return vjp(gg)[0]
+
+    ref = feat_grad(tuple(jnp.asarray(f) for f in feats), jnp.asarray(g))
     tf = [_t(f).requires_grad_(True) for f in feats]
     out = roi_align_rotated_pyramid_fused(tf, _t(rois), 7, strides)
     assert out.grad_fn is not None

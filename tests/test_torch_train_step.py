@@ -40,12 +40,13 @@ import torch
 
 from sm3det_tpu.models.detectors.trisource import \
     TriSourceDetector as JaxDetector
+from sm3det_tpu.train.dla import dla_multipliers as jax_dla_multipliers
 from sm3det_tpu.train.dla import make_dla_config as jax_dla_config
 from sm3det_tpu.train.optim import make_optimizer as jax_make_optimizer
 from sm3det_tpu.train.train_state import init_trisource
 from sm3det_tpu_torch.convert import from_flax, to_flax
 from sm3det_tpu_torch.models.detectors.trisource import TriSourceDetector
-from sm3det_tpu_torch.train.dla import dla_multipliers, make_dla_config
+from sm3det_tpu_torch.train.dla import make_dla_config
 from sm3det_tpu_torch.train.optim import make_optimizer
 from sm3det_tpu_torch.train.train_state import (batch_to, build_train_step,
                                                 init_train_state,
@@ -185,14 +186,16 @@ def test_from_flax_carries_a_training_init(setup):
 @pytest.fixture(scope="module")
 def first_step(setup):
     """Losses and gradients of both packages on the same params."""
-    (total, losses), grads = setup["vg"](setup["params"], setup["batch"])
+    out = setup["vg"](setup["params"], setup["batch"])
+    (total, losses), grads = out
     port = _port(setup["params"])
     params = trainable_params(port)
     b = batch_to(setup["batch"], "cpu")
     p_losses = port(b, gen=torch.Generator().manual_seed(0))
     p_total = sum(p_losses.values())
     p_grads = torch.autograd.grad(p_total, list(params.values()))
-    return {"losses": {k: float(v) for k, v in losses.items()},
+    return {"jax_out": out,
+            "losses": {k: float(v) for k, v in losses.items()},
             "total": float(total),
             "grads": dict(_flat(jax.tree.map(np.asarray, grads))),
             "p_losses": {k: float(v.detach()) for k, v in p_losses.items()},
@@ -239,18 +242,24 @@ def test_gradients_match_jax(first_step, subtree):
 
 
 @pytest.fixture(scope="module")
-def three_steps(setup):
-    """p3 - p0 of both packages: three steps, DLA warmup of two."""
+def three_steps(setup, first_step):
+    """p3 - p0 of both packages: three steps, DLA warmup of two. JAX's
+    first step reuses ``first_step``'s value_and_grad at p0."""
     batch, params0 = setup["batch"], setup["params"]
     opt_kw = dict(base_lr=LR, step_iters=(100,), warmup_iters=WARMUP)
     j_init, j_update, _ = jax_make_optimizer(
         dla_cfg=jax_dla_config(warmup_iters=WARMUP), **opt_kw)
     j_update = jax.jit(j_update)
-    p, opt = params0, j_init(params0)
-    for _ in range(STEPS):
-        (_, losses), grads = setup["vg"](p, batch)
+    p, opt = params0, jax.jit(j_init)(params0)
+    for i in range(STEPS):
+        (_, losses), grads = first_step["jax_out"] if i == 0 else \
+            setup["vg"](p, batch)
+        if i == STEPS - 1:
+            j_mults, _ = jax_dla_multipliers(
+                opt.dla, losses, jax_dla_config(warmup_iters=WARMUP))
         updates, opt = j_update(grads, opt, p, losses)
-        p = jax.tree.map(lambda a, u: a + u, p, updates)
+        p = jax.tree.map(lambda a, u: np.asarray(a) + np.asarray(u), p,
+                         updates)
     j_delta = dict(_flat(jax.tree.map(
         lambda a, b: np.asarray(a) - np.asarray(b), p, params0)))
 
@@ -262,14 +271,15 @@ def three_steps(setup):
     p0 = {k: v.detach().clone() for k, v in state.params.items()}
     step = build_train_step(port, update_fn)
     b = batch_to(batch, "cpu")
+    applied = []
     for _ in range(STEPS):
-        dla_before = state.opt.dla
         state, metrics = step(state, b)
-    mults, _ = dla_multipliers(dla_before, metrics,
-                               make_dla_config(warmup_iters=WARMUP))
+        applied.append(state.opt.mults)
     p_delta = dict(_flat(to_flax(
         {k: state.params[k] - p0[k] for k in names}, params0)))
-    return {"j": j_delta, "p": p_delta, "metrics": metrics, "mults": mults,
+    return {"j": j_delta, "p": p_delta, "metrics": metrics,
+            "applied": applied,
+            "j_mults": {k: float(v) for k, v in j_mults.items()},
             "dla_ema": state.opt.dla.ema, "steps": state.opt.step,
             "j_dla_ema": np.asarray(opt.dla.ema)}
 
@@ -291,10 +301,18 @@ def test_three_step_updates_match_jax(three_steps, subtree):
 
 
 def test_three_steps_dla_state(three_steps):
-    """The EMAs agree with JAX's, and the last step, past the warmup, ran
-    with multipliers other than 1."""
+    """The EMAs agree with JAX's; the updates applied multipliers of 1
+    during the warmup and, at the last step past it, JAX's multipliers,
+    which are not all 1."""
     assert three_steps["steps"] == STEPS
-    assert any(abs(m - 1.0) > 1e-3 for m in three_steps["mults"].values())
+    applied = three_steps["applied"]
+    for mults in applied[:WARMUP]:
+        assert mults and all(m == 1.0 for m in mults.values())
+    last, ref = applied[-1], three_steps["j_mults"]
+    assert last.keys() <= ref.keys()
+    for k, m in last.items():
+        assert abs(m - ref[k]) <= 1e-4 * abs(ref[k]), (k, m, ref[k])
+    assert any(abs(m - 1.0) > 1e-3 for m in last.values())
     np.testing.assert_allclose(three_steps["dla_ema"].numpy(),
                                three_steps["j_dla_ema"], rtol=1e-4)
     assert all(np.isfinite(float(v)) for v in three_steps["metrics"].values())
