@@ -32,10 +32,12 @@ Phases (any failure exits non-zero):
    (median and quartiles), peak memory, every loss and the launches of
    every kernel in one step.
 
-Phase 3 also holds the two training kernels against their plain versions:
+Phase 3 also holds the training kernels against their plain versions:
 the pyramid RoI align's feature gradient (``roi_align_rotated_bwd.cu``) and
-the trainable dw7x7 + LN (``fused_dwconv_ln_train``, forward and the five
-gradients).
+the trainable dw7x7 + LN (``fused_dwconv_ln_train``: the forward kernel and
+the five gradients of the ``dwconv_ln_bwd.cu`` kernels, against autograd of
+the plain formulation and against the closed-form plain backward, and two
+backward runs for bit-equal gradients).
 
 It imports nothing of JAX. The second line from the end is the per-kernel
 JSON record, the last line ``{"ok": true, "device": {...}}``.
@@ -101,6 +103,24 @@ def cuda_ms(torch, fn, iters=10, warmup=2):
     return s.elapsed_time(e) / iters
 
 
+def device_ms(torch, fn, iters=10, warmup=2):
+    """Mean device time of ``iters`` calls: the summed durations of the
+    CUDA kernels ``torch.profiler`` records, without the host's gaps
+    between them (at the small shapes the host's launches, not the
+    kernels, set the CUDA-event time of a forward + backward)."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(ev.time_range.elapsed_us() for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / iters
+
+
 def bound_ms(nbytes, work):
     """Least time for ``nbytes`` of traffic and ``work``, a list of
     (flops, dtype name of the unit that runs them)."""
@@ -126,6 +146,7 @@ class KernelRecord:
         self.library = library
         self.ms = self.plain_ms = self.bound = 0.0
         self.library_ms = 0.0 if library else None
+        self.device = None      # (kernel, library) device ms, where taken
         self.err = 0.0
         self.bound_kind = {}
 
@@ -137,14 +158,21 @@ class KernelRecord:
         if self.library_ms is not None:
             self.library_ms += n * lib_ms
 
+    def add_device(self, n, ms, lib_ms):
+        k, lib = self.device or (0.0, 0.0)
+        self.device = (k + n * ms, lib + n * lib_ms)
+
     def json(self, launches):
-        return {"name": self.name, "route": "cuda", "source": self.source,
-                "sources": self.sources,
-                "replaces": self.replaces, "launches": launches,
-                "max_abs_err": self.err, "ms": self.ms,
-                "plain_ms": self.plain_ms, "bound_ms": self.bound,
-                "bound_by": max(self.bound_kind, key=self.bound_kind.get),
-                "library_ms": self.library_ms, "library": self.library}
+        rec = {"name": self.name, "route": "cuda", "source": self.source,
+               "sources": self.sources,
+               "replaces": self.replaces, "launches": launches,
+               "max_abs_err": self.err, "ms": self.ms,
+               "plain_ms": self.plain_ms, "bound_ms": self.bound,
+               "bound_by": max(self.bound_kind, key=self.bound_kind.get),
+               "library_ms": self.library_ms, "library": self.library}
+        if self.device is not None:
+            rec["device_ms"], rec["library_device_ms"] = self.device
+        return rec
 
 
 def make_train_batch(rng, comp, img, g):
@@ -247,7 +275,9 @@ def main():
         "dwconv_ln": KernelRecord(
             "dwconv_ln", "sm3det_tpu_torch/ops/cuda/csrc/dwconv_ln.cu",
             "sm3det_tpu/ops/pallas/convnext_block_kernel.py:322",
-            "F.conv2d(groups=C) + F.layer_norm"),
+            "F.conv2d(groups=C) + F.layer_norm",
+            sources=["sm3det_tpu_torch/ops/cuda/csrc/dwconv_ln.cu",
+                     "sm3det_tpu_torch/ops/cuda/csrc/dwconv_core.cuh"]),
         "fused_convnext_block": KernelRecord(
             "fused_convnext_block",
             "sm3det_tpu_torch/ops/cuda/csrc/grouped_ffn.cu",
@@ -255,6 +285,7 @@ def main():
             "F.conv2d(groups=C) + F.layer_norm + F.linear + F.gelu + "
             "F.linear + residual",
             sources=["sm3det_tpu_torch/ops/cuda/csrc/dwconv_ln.cu",
+                     "sm3det_tpu_torch/ops/cuda/csrc/dwconv_core.cuh",
                      "sm3det_tpu_torch/ops/cuda/csrc/grouped_ffn.cu"]),
         "moe_ffn_grouped": KernelRecord(
             "moe_ffn_grouped",
@@ -288,6 +319,8 @@ def main():
             "sm3det_tpu/ops/pallas/convnext_block_kernel.py:345",
             "F.conv2d(groups=C) + F.layer_norm, forward and backward",
             sources=["sm3det_tpu_torch/ops/cuda/csrc/dwconv_ln.cu",
+                     "sm3det_tpu_torch/ops/cuda/csrc/dwconv_ln_bwd.cu",
+                     "sm3det_tpu_torch/ops/cuda/csrc/dwconv_core.cuh",
                      "sm3det_tpu_torch/ops/cuda/convnext_block_kernel.py"]),
     }
     failures = []
@@ -640,9 +673,11 @@ def main():
     del g_out, got
 
     # row 10: the trainable dw7x7 + LN, forward and the five gradients,
-    # against the plain fp32 formulation and its autograd, at the train
-    # step's backbone shapes ([4:2:2] = 8 images of 800^2)
+    # against the plain fp32 formulation's autograd and the closed-form
+    # plain backward, at the train step's backbone shapes ([4:2:2] = 8
+    # images of 800^2); the backward twice, for bit-equal gradients
     n_tr = sum(TRAIN)
+    grad_names = ("dx", "ddwk", "ddwb", "dlns", "dlnb")
     for hw, c, n_dense, n_moe, _ in STAGES:
         for dtype in ((torch.float32, torch.bfloat16) if hw == 25
                       else (torch.bfloat16,)):
@@ -665,11 +700,22 @@ def main():
                 return (out,) + torch.autograd.grad(out, ins, g_out)
 
             got, ref = kernel_fb(), plain_fb()
-            for what, a, b in zip(("out", "dx", "ddwk", "ddwb", "dlns",
-                                   "dlnb"), got, ref):
+            again = kernel_fb()
+            closed = cbk.dwconv_ln_bwd_ref(*[t.detach() for t in ins], g_out)
+            for what, a, b in zip(("out",) + grad_names, got, ref):
                 check("fused_dwconv_ln_train", dtype, (shape, what), a, b,
                       tol[dtype])
-            del got, ref
+            for what, a, b in zip(grad_names, got[1:], closed):
+                check("fused_dwconv_ln_train", dtype,
+                      (shape, what, "closed form"), a, b, tol[dtype])
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            log(f"[kernel] fused_dwconv_ln_train {str(dtype)[6:]} {shape}: "
+                f"two backward runs bit-equal {same} "
+                f"{'ok' if same else 'FAIL'}")
+            if not same:
+                failures.append(f"fused_dwconv_ln_train {dtype} {shape} "
+                                f"not deterministic")
+            del got, ref, again, closed
             if dtype != torch.bfloat16:
                 continue
             xl = ins[0].permute(0, 3, 1, 2)
@@ -681,9 +727,15 @@ def main():
                                    ins[4], 1e-6)
                 return torch.autograd.grad(out, ins, g_out)
 
-            ms = cuda_ms(torch, kernel_fb, iters=5)
+            saved = [t.detach() for t in ins]
+            ms = cuda_ms(torch, kernel_fb)
+            fwd_ms = cuda_ms(torch, lambda: cbk.fused_dwconv_ln(*saved))
+            bwd_ms = cuda_ms(torch, lambda: cbk._dwconv_ln_bwd_launch(
+                *saved, g_out, 1e-6))
             pms = cuda_ms(torch, plain_fb, iters=5)
-            lms = cuda_ms(torch, library_fb, iters=5)
+            lms = cuda_ms(torch, library_fb)
+            dev_ms = device_ms(torch, kernel_fb)
+            dev_lms = device_ms(torch, library_fb)
             n_pix = n_tr * hw * hw
             # each input and output once: x, g in; out, dx out (+ weights);
             # forward 106 fp32 operations a value, backward two 7x7 passes
@@ -692,10 +744,15 @@ def main():
                             [(n_pix * c * 326, "float32")])
             recs["fused_dwconv_ln_train"].add(n_dense + n_moe, ms, pms, b, k,
                                               lms)
+            recs["fused_dwconv_ln_train"].add_device(n_dense + n_moe, dev_ms,
+                                                     dev_lms)
             log(f"[time]   fused_dwconv_ln_train {shape} bf16 forward + "
-                f"backward: {ms:.4f} ms, plain {pms:.4f} ms, library "
-                f"{lms:.4f} ms, bound {b:.4f} ms ({k})")
-            del ins, g_out
+                f"backward: {ms:.4f} ms (forward kernel {fwd_ms:.4f}, "
+                f"backward kernels {bwd_ms:.4f}), plain {pms:.4f} ms, "
+                f"library {lms:.4f} ms, bound {b:.4f} ms ({k}); device "
+                f"time only: kernels {dev_ms:.4f} ms, library {dev_lms:.4f} "
+                f"ms")
+            del ins, g_out, saved
 
     if failures:
         fail(f"kernels disagree with their plain versions: {failures}")
@@ -906,7 +963,7 @@ def main():
             "moe_ffn_grouped": 7, "fused_layernorm": 8, "hbb_iou": 1,
             "rotated_iou": 0, "rotated_iou_banded": 0,
             "roi_align_rotated": 0, "roi_align_rotated_bwd": 0,
-            "fused_dwconv_ln_train": 0}
+            "fused_dwconv_ln_train": 0, "fused_dwconv_ln_train_bwd": 0}
     for k, v in sar_launches.items():
         if v != want[k]:
             failures.append(f"sar launches {k}={v}")
@@ -980,7 +1037,7 @@ def main():
             "moe_ffn_grouped": 7, "fused_layernorm": 8, "hbb_iou": 2,
             "rotated_iou": 0, "rotated_iou_banded": 1,
             "roi_align_rotated": 1, "roi_align_rotated_bwd": 0,
-            "fused_dwconv_ln_train": 0}
+            "fused_dwconv_ln_train": 0, "fused_dwconv_ln_train_bwd": 0}
     for k, v in launches.items():
         if v != want[k]:
             log(f"[joint bf16] launches of {k}: {v}, expected {want[k]}")
@@ -1189,6 +1246,11 @@ def main():
               "roi_align_rotated_bwd", "fused_dwconv_ln_train"):
         if train_launches[k] <= 0:
             failures.append(f"train launches {k}={train_launches[k]}")
+    # the 18 ConvNeXt-T blocks: one forward and one backward each
+    for k in ("fused_dwconv_ln_train", "fused_dwconv_ln_train_bwd"):
+        if train_launches[k] != 18:
+            failures.append(f"train launches {k}={train_launches[k]}, "
+                            f"expected 18")
     if failures:
         fail(f"flagship train step failed: {failures}")
     launches["roi_align_rotated_bwd"] = train_launches["roi_align_rotated_bwd"]

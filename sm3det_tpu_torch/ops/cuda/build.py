@@ -37,7 +37,7 @@ LAUNCHES = {"dwconv_ln": 0, "fused_convnext_block": 0,
             "moe_ffn_grouped": 0, "hbb_iou": 0, "fused_layernorm": 0,
             "rotated_iou": 0, "rotated_iou_banded": 0,
             "roi_align_rotated": 0, "roi_align_rotated_bwd": 0,
-            "fused_dwconv_ln_train": 0}
+            "fused_dwconv_ln_train": 0, "fused_dwconv_ln_train_bwd": 0}
 
 _lib = None
 
@@ -45,10 +45,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # x, dwk (C,49) f32, dwb, lns, lnb, out, B, H, W, C, in_bf16,
+    # x, taps (49,C) f32, dwb, lns, lnb, out, B, H, W, C, in_bf16,
     # out_bf16, eps, stream
     "sm3det_dwconv_ln": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _F, _P],
+    # x, taps (49,C) f32, dwb, lns, g, da scratch, part_a, its rows,
+    # part_b, n_groups, dx, ddwk, ddwb, dlns, dlnb, B, H, W, C, in_bf16,
+    # g_bf16, bf16 mask of (ddwk, ddwb, dlns, dlnb), eps, stream
+    "sm3det_dwconv_ln_bwd": [_P] * 7 + [_I, _P, _I] + [_P] * 5
+    + [_I] * 7 + [_F, _P],
     # a, tile_expert, tile_rows, w, bias, shortcut, gamma, out, M, K, N,
     # epilogue, bf16, stream
     "sm3det_grouped_gemm": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I,

@@ -75,14 +75,26 @@ def _block_args(gen, b, hw, c, dtype):
 
 
 SHAPES = [(2, 9, 40), (2, 13, 96), (8, 50, 384), (8, 25, 768)]
+# the dw7x7 + LN kernels also at a non-square image and at C = 36, whose
+# bf16 row (72 bytes) is not a multiple of 16 bytes, and an odd C
+DWCONV_SHAPES = SHAPES + [(2, (9, 13), 36), (2, (9, 13), 96),
+                          (1, (7, 5), 33)]
+
+
+def _dwconv_inputs(gen, b, hw, c, dtype):
+    h, w = hw if isinstance(hw, tuple) else (hw, hw)
+    return [_rand(gen, b, h, w, c, dtype=dtype),
+            _rand(gen, c, 1, 7, 7, scale=0.15, dtype=dtype),
+            _rand(gen, c, scale=0.1, dtype=dtype),
+            (1 + _rand(gen, c, scale=0.1)).to(dtype),
+            _rand(gen, c, scale=0.1, dtype=dtype)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,hw,c", SHAPES)
+@pytest.mark.parametrize("b,hw,c", DWCONV_SHAPES)
 def test_dwconv_ln_kernel(cuda, dtype, b, hw, c):
     gen = torch.Generator(device=cuda).manual_seed(c)
-    a = _block_args(gen, b, hw, c, dtype)
-    args = [a[k] for k in ("x", "dwk", "dwb", "lns", "lnb")]
+    args = _dwconv_inputs(gen, b, hw, c, dtype)
     build.reset_launches()
     got = cbk.fused_dwconv_ln(*args)
     assert build.LAUNCHES["dwconv_ln"] == 1
@@ -305,23 +317,45 @@ def test_roi_align_autograd_on_the_card(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,hw,c", SHAPES)
+@pytest.mark.parametrize("b,hw,c", DWCONV_SHAPES)
 def test_dwconv_ln_train(cuda, dtype, b, hw, c):
-    """Row 10: the kernel forward and the recomputing backward against the
-    plain fp32 formulation and its autograd."""
-    gen = torch.Generator(device=cuda).manual_seed(hw * c)
-    a = _block_args(gen, b, hw, c, dtype)
-    ins = [a[k].requires_grad_(True)
-           for k in ("x", "dwk", "dwb", "lns", "lnb")]
-    g = _rand(gen, b, hw, hw, c, dtype=dtype)
+    """Row 10: the kernel forward and the backward kernels against the
+    plain fp32 formulation's autograd and the closed-form plain backward;
+    two backward runs give the same bits; one count a backward."""
+    gen = torch.Generator(device=cuda).manual_seed(c * 7 + b)
+    ins = [t.requires_grad_(True)
+           for t in _dwconv_inputs(gen, b, hw, c, dtype)]
+    g = _rand(gen, *ins[0].shape, dtype=dtype)
     build.reset_launches()
     out = cbk.fused_dwconv_ln_train(*ins)
-    got = (out,) + torch.autograd.grad(out, ins, g)
+    got = torch.autograd.grad(out, ins, g)
     assert build.LAUNCHES["fused_dwconv_ln_train"] == 1
+    assert build.LAUNCHES["fused_dwconv_ln_train_bwd"] == 1
+    again = torch.autograd.grad(cbk.fused_dwconv_ln_train(*ins), ins, g)
+    assert build.LAUNCHES["fused_dwconv_ln_train_bwd"] == 2
+    for a, r in zip(got, again):
+        assert torch.equal(a, r)
     ref_out = cbk.dwconv_ln_ref(*ins)
-    ref = (ref_out,) + torch.autograd.grad(ref_out, ins, g)
-    for x, r in zip(got, ref):
-        _check(x, r, dtype)
+    ref = torch.autograd.grad(ref_out, ins, g)
+    closed = cbk.dwconv_ln_bwd_ref(*[t.detach() for t in ins], g)
+    _check(out, ref_out, dtype)
+    for a, r, r2 in zip(got, ref, closed):
+        _check(a, r, dtype)
+        _check(a, r2, dtype)
+
+
+def test_dwconv_ln_train_needs_some_grads(cuda):
+    """Inputs that need no gradient get None, the others the kernels'."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    ins = _dwconv_inputs(gen, 2, (9, 13), 36, torch.bfloat16)
+    ins[1].requires_grad_(True)
+    ins[3].requires_grad_(True)
+    g = _rand(gen, *ins[0].shape, dtype=torch.bfloat16)
+    cbk.fused_dwconv_ln_train(*ins).backward(g)
+    assert ins[0].grad is None and ins[2].grad is None
+    closed = cbk.dwconv_ln_bwd_ref(*ins, g)
+    _check(ins[1].grad, closed[1], torch.bfloat16)
+    _check(ins[3].grad, closed[3], torch.bfloat16)
 
 
 def test_forward_only_kernels_refuse_grad_on_the_card(cuda):
@@ -384,7 +418,8 @@ def test_sar_slice_bf16_goes_through_every_kernel(cuda):
                               "rotated_iou_banded": 0,
                               "roi_align_rotated": 0,
                               "roi_align_rotated_bwd": 0,
-                              "fused_dwconv_ln_train": 0}
+                              "fused_dwconv_ln_train": 0,
+                              "fused_dwconv_ln_train_bwd": 0}
     assert dets.shape == (2, 10, 5) and bool(torch.isfinite(dets).all())
     assert int(valid.sum()) > 0
 
@@ -417,7 +452,8 @@ def test_joint_slice_bf16_goes_through_every_kernel(cuda):
                               "rotated_iou_banded": 1,
                               "roi_align_rotated": 1,
                               "roi_align_rotated_bwd": 0,
-                              "fused_dwconv_ln_train": 0}
+                              "fused_dwconv_ln_train": 0,
+                              "fused_dwconv_ln_train_bwd": 0}
     for (dets, labels, valid), shape in zip(out, ((2, 10, 5), (2, 10, 6),
                                                   (1, 10, 6))):
         assert dets.shape == shape and bool(torch.isfinite(dets).all())
@@ -547,6 +583,7 @@ def test_bf16_train_step_goes_through_the_train_kernels(cuda):
     # 12 atto blocks; rgb and infrared: one proposal NMS, one align
     # forward and backward, one rotated IoU an image
     assert build.LAUNCHES["fused_dwconv_ln_train"] == 12
+    assert build.LAUNCHES["fused_dwconv_ln_train_bwd"] == 12
     assert build.LAUNCHES["hbb_iou"] == 2
     assert build.LAUNCHES["rotated_iou"] == 2
     assert build.LAUNCHES["roi_align_rotated"] == 2

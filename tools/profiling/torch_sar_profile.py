@@ -47,7 +47,9 @@ ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 
 # the __global__ functions of sm3det_tpu_torch/ops/cuda/csrc/*.cu
-PORT_KERNELS = ("dwconv_ln_kernel", "gemm_bf16_kernel", "gemm_f32_kernel",
+PORT_KERNELS = ("dwconv_ln_kernel", "dwconv_ln_bwd_stats_kernel",
+                "dwconv_ln_bwd_conv_kernel", "dwconv_ln_bwd_reduce_kernel",
+                "gemm_bf16_kernel", "gemm_f32_kernel",
                 "hbb_iou_kernel", "layernorm_kernel", "rotated_iou_kernel",
                 "roi_align_rotated_kernel", "roi_align_rotated_bwd_kernel")
 
