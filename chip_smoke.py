@@ -149,6 +149,11 @@ class KernelRecord:
         self.device = None      # (kernel, library) device ms, where taken
         self.err = 0.0
         self.bound_kind = {}
+        self.extra = {}         # further per-forward sums, e.g. ffn_ms
+
+    def add_extra(self, n, **values):
+        for k, v in values.items():
+            self.extra[k] = self.extra.get(k, 0.0) + n * v
 
     def add(self, n, ms, plain_ms, bound, kind, lib_ms):
         self.ms += n * ms
@@ -172,6 +177,7 @@ class KernelRecord:
                "library_ms": self.library_ms, "library": self.library}
         if self.device is not None:
             rec["device_ms"], rec["library_device_ms"] = self.device
+        rec.update(self.extra)
         return rec
 
 
@@ -280,17 +286,22 @@ def main():
                      "sm3det_tpu_torch/ops/cuda/csrc/dwconv_core.cuh"]),
         "fused_convnext_block": KernelRecord(
             "fused_convnext_block",
-            "sm3det_tpu_torch/ops/cuda/csrc/grouped_ffn.cu",
+            "sm3det_tpu_torch/ops/cuda/csrc/ffn_wgmma.cu",
             "sm3det_tpu/ops/pallas/convnext_block_kernel.py:313",
             "F.conv2d(groups=C) + F.layer_norm + F.linear + F.gelu + "
             "F.linear + residual",
             sources=["sm3det_tpu_torch/ops/cuda/csrc/dwconv_ln.cu",
                      "sm3det_tpu_torch/ops/cuda/csrc/dwconv_core.cuh",
-                     "sm3det_tpu_torch/ops/cuda/csrc/grouped_ffn.cu"]),
+                     "sm3det_tpu_torch/ops/cuda/csrc/ffn_wgmma.cu",
+                     "sm3det_tpu_torch/ops/cuda/csrc/wgmma_sm90.cuh"]),
         "moe_ffn_grouped": KernelRecord(
             "moe_ffn_grouped",
-            "sm3det_tpu_torch/ops/cuda/csrc/grouped_ffn.cu",
-            "sm3det_tpu/ops/pallas/moe_groupgemm_kernel.py:42", None),
+            "sm3det_tpu_torch/ops/cuda/csrc/ffn_wgmma.cu",
+            "sm3det_tpu/ops/pallas/moe_groupgemm_kernel.py:42",
+            "torch._grouped_mm + F.gelu + torch._grouped_mm"
+            if hasattr(torch, "_grouped_mm") else None,
+            sources=["sm3det_tpu_torch/ops/cuda/csrc/ffn_wgmma.cu",
+                     "sm3det_tpu_torch/ops/cuda/csrc/wgmma_sm90.cuh"]),
         "hbb_iou": KernelRecord(
             "hbb_iou", "sm3det_tpu_torch/ops/cuda/csrc/hbb_iou.cu",
             "sm3det_tpu/ops/pallas/hbb_iou_kernel.py:29", None),
@@ -345,6 +356,37 @@ def main():
     # relative) where fp32 sums land on either side, plus one rounding of
     # the bf16 hidden activation: 2^-6 of the output scale
     tol = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
+
+    def moe_library_ms(x_slots, tile_e, w1, b1, w2, b2):
+        """The yardstick of row 3: ``torch._grouped_mm`` + GELU +
+        ``torch._grouped_mm`` over the same slot layout (each expert's
+        rows one group), where the card's torch has it; the port never
+        calls it. None, with the reason in the record, where it has not or
+        refuses these operands."""
+        rec = recs["moe_ffn_grouped"]
+        if rec.library is None:
+            return None
+        tile = x_slots.shape[0] // tile_e.shape[0]
+        ends = torch.cumsum(torch.bincount(tile_e, minlength=w1.shape[0])
+                            * tile, 0).to(torch.int32)
+        slot_e = tile_e.repeat_interleave(tile)
+        b1s, b2s = b1[slot_e], b2[slot_e]
+
+        def chain():
+            hdn = torch._grouped_mm(x_slots, w1, offs=ends) + b1s
+            return torch._grouped_mm(F.gelu(hdn, approximate="tanh"), w2,
+                                     offs=ends) + b2s
+        try:
+            chain()
+        except (RuntimeError, TypeError) as exc:
+            log(f"[time]   torch._grouped_mm refused the slot layout: {exc}")
+            rec.library, rec.library_ms = f"none ({exc})"[:200], None
+            return None
+        return cuda_ms(torch, chain)
+
+    if recs["moe_ffn_grouped"].library is None:
+        log("[time]   this torch has no torch._grouped_mm: row 3 has no "
+            "library yardstick")
 
     # ---- 3. kernels against their plain versions -------------------------
     for dtype in (torch.float32, torch.bfloat16):
@@ -427,6 +469,39 @@ def main():
                 log(f"[time]   fused_convnext_block {shape}: kernel {ms:.4f} "
                     f"ms, plain {pms:.4f} ms, library {lms:.4f} ms, bound "
                     f"{b:.4f} ms ({k})")
+                # the FFN half alone: the fused launch on dwconv_ln's output
+                xn = cbk.fused_dwconv_ln(x, dwk, dwb, lns, lnb).reshape(-1, c)
+                x2 = x.reshape(-1, c)
+                w1e, w2e = w1[None], w2[None]
+
+                def ffn_half():
+                    return mgk.ffn_fused(xn, w1e, b1, w2e, b2, shortcut=x2,
+                                         gamma=gamma)
+
+                def ffn_half_plain():
+                    hdn = mgk.ffn_ref(xn, w1, b1, w2, torch.zeros_like(b2))
+                    return (x2.float() + gamma.float() * (
+                        hdn.float() + b2.float())).to(dtype)
+
+                def ffn_half_lib():
+                    return torch.addcmul(x2, F.linear(F.gelu(
+                        F.linear(xn, w1t, b1), approximate="tanh"), w2t, b2),
+                        gamma)
+                fms = cuda_ms(torch, ffn_half)
+                flms = cuda_ms(torch, ffn_half_lib)
+                fb, fk = bound_ms(3 * n_pix * c * isz + 2 * c * hid * isz,
+                                  [(4 * n_pix * c * hid, dname)])
+                recs["fused_convnext_block"].add_extra(
+                    n_dense, ffn_ms=fms, ffn_library_ms=flms, ffn_bound_ms=fb)
+                # ffn_ref rounds the FFN before the residual (one more
+                # bf16 step than the kernel): within the 2^-6 tolerance
+                check("fused_convnext_block", dtype, (shape, "ffn half"),
+                      ffn_half(), ffn_half_plain(), tol[dtype])
+                log(f"[time]   fused_convnext_block FFN half {shape}: kernel "
+                    f"{fms:.4f} ms, library {flms:.4f} ms (F.linear + "
+                    f"F.gelu + F.linear + torch.addcmul), bound {fb:.4f} ms "
+                    f"({fk})")
+                del xn, x2
 
             if not n_moe:
                 continue
@@ -453,10 +528,13 @@ def main():
                 pms = cuda_ms(torch, lambda: mgk.moe_ffn_grouped_ref(*margs))
                 b, k = bound_ms(2 * s * c * isz + e * 2 * c * hid * isz,
                                 [(4 * n_pix * topk * c * hid, dname)])
-                recs["moe_ffn_grouped"].add(n_moe, ms, pms, b, k, 0.0)
+                lms = moe_library_ms(*margs)
+                recs["moe_ffn_grouped"].add(n_moe, ms, pms, b, k, lms or 0.0)
                 log(f"[time]   moe_ffn_grouped {sshape}: kernel {ms:.4f} ms, "
-                    f"plain {pms:.4f} ms, bound {b:.4f} ms ({k}); "
-                    f"{s} slots for {n_pix * topk} routes")
+                    f"plain {pms:.4f} ms, library "
+                    f"{'n/a' if lms is None else f'{lms:.4f} ms'} "
+                    f"({recs['moe_ffn_grouped'].library}), bound {b:.4f} ms "
+                    f"({k}); {s} slots for {n_pix * topk} routes")
 
     nb = 2000
     xy = torch.rand(N_IMGS, nb, 2, generator=gen, device=dev) * 760

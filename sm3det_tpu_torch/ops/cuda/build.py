@@ -54,10 +54,13 @@ _SIGNATURES = {
     # g_bf16, bf16 mask of (ddwk, ddwb, dlns, dlnb), eps, stream
     "sm3det_dwconv_ln_bwd": [_P] * 7 + [_I, _P, _I] + [_P] * 5
     + [_I] * 7 + [_F, _P],
-    # a, tile_expert, tile_rows, w, bias, shortcut, gamma, out, M, K, N,
-    # epilogue, bf16, stream
+    # fp32: a, tile_expert, tile_rows, w, bias, shortcut, gamma, out, M, K,
+    # N, epilogue, stream
     "sm3det_grouped_gemm": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I,
-                            _I, _I, _P],
+                            _I, _P],
+    # bf16: x, tile_expert, tile_rows, w1, b1, w2, b2, shortcut, gamma, out,
+    # M, C, H, E, flags, stream
+    "sm3det_ffn_fused": [_P, _P, _I] + [_P] * 7 + [_I] * 5 + [_P],
     # boxes1, boxes2, out, B, N, M, triu, eps, stream
     "sm3det_hbb_iou": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
     # x, scale, bias, out, rows, C, in_bf16, out_bf16, eps, stream

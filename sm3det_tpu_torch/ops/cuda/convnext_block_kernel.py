@@ -1,6 +1,7 @@
 """ConvNeXt kernels: ``fused_dwconv_ln``, ``fused_convnext_block`` and
-``fused_layernorm``, each a CUDA path (``csrc/dwconv_ln.cu``,
-``csrc/grouped_ffn.cu``, ``csrc/layernorm.cu``) and a plain PyTorch version,
+``fused_layernorm``, each a CUDA path (``csrc/dwconv_ln.cu``; its MLP
+``csrc/ffn_wgmma.cu`` in bf16, ``csrc/grouped_ffn.cu`` in fp32;
+``csrc/layernorm.cu``) and a plain PyTorch version,
 and ``fused_dwconv_ln_train``, the trainable dw7x7 + LN, whose backward is
 ``csrc/dwconv_ln_bwd.cu`` on the card and :func:`dwconv_ln_bwd_ref` on the
 host.
@@ -36,7 +37,8 @@ import torch.nn.functional as F
 
 from ...models.layers import gelu
 from . import build
-from .moe_groupgemm_kernel import EPI_GELU, EPI_RESIDUAL, grouped_gemm
+from .moe_groupgemm_kernel import (EPI_GELU, EPI_RESIDUAL, ffn_fused,
+                                   grouped_gemm)
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -343,9 +345,11 @@ def fused_convnext_block(x, dwk, dwb, lns, lnb, w1, b1, w2, b2, gamma,
     """Whole dense ConvNeXt block:
     ``x + gamma * fc2(gelu(fc1(LN(dw7x7(x)))))``.
 
-    On a CUDA tensor: one ``dwconv_ln`` launch, then the grouped GEMM with
-    one expert twice (GELU epilogue, then the layer-scale and residual
-    epilogue). On a CPU tensor: :func:`convnext_block_ref`.
+    On a CUDA tensor: one ``dwconv_ln`` launch, then the MLP: in bf16 one
+    launch of the fused FFN (:func:`ffn_fused`, one expert, the layer-scale
+    and residual epilogue), in fp32 the fp32 grouped GEMM twice (GELU
+    epilogue, then the layer-scale and residual epilogue). On a CPU tensor:
+    :func:`convnext_block_ref`.
     """
     if x.device.type == "cpu":
         return convnext_block_ref(x, dwk, dwb, lns, lnb, w1, b1, w2, b2,
@@ -361,10 +365,18 @@ def fused_convnext_block(x, dwk, dwb, lns, lnb, w1, b1, w2, b2, gamma,
     if out_dtype != dt:
         raise ValueError(f"fused_convnext_block: the kernel writes {dt}, "
                          f"but x, w2, gamma promote to {out_dtype}")
+    if dt == torch.bfloat16 and w1.dtype != dt:
+        # the fused FFN reads the weights as they are: no per-call copy
+        raise ValueError(f"fused_convnext_block: bf16 x needs bf16 w1, got "
+                         f"{w1.dtype}")
     b, h, w, c = x.shape
     xn = _dwconv_ln_launch(x, dwk, dwb, lns, lnb, eps, dt)
-    hid = grouped_gemm(xn.reshape(-1, c), w1.to(dt)[None], b1, EPI_GELU)
-    out = grouped_gemm(hid, w2.to(dt)[None], b2, EPI_RESIDUAL,
-                       shortcut=x.reshape(-1, c), gamma=gamma)
+    if dt == torch.bfloat16:
+        out = ffn_fused(xn.reshape(-1, c), w1[None], b1, w2[None], b2,
+                        shortcut=x.reshape(-1, c), gamma=gamma)
+    else:
+        hid = grouped_gemm(xn.reshape(-1, c), w1.to(dt)[None], b1, EPI_GELU)
+        out = grouped_gemm(hid, w2.to(dt)[None], b2, EPI_RESIDUAL,
+                           shortcut=x.reshape(-1, c), gamma=gamma)
     build.LAUNCHES["fused_convnext_block"] += 1
     return out.reshape(b, h, w, c)

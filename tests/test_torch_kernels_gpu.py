@@ -145,6 +145,141 @@ def test_moe_ffn_grouped_kernel(cuda, dtype, n, d, e, k):
     _check(got, mgk.moe_ffn_grouped_ref(*args), dtype)
 
 
+def _cuda_kernels(fn):
+    """``fn()`` and the names of the CUDA kernels it launched
+    (``torch.profiler``)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, [ev.name for ev in prof.events()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _is_ffn(name):
+    return "ffn_fused_kernel" in name
+
+
+# the fused bf16 FFN (csrc/ffn_wgmma.cu) at the four stage widths and at
+# ConvNeXt-B's last (C = 1024: clusters of eight 128-column blocks); the
+# dense rows are not a multiple of its 128-row tile (25^2 x 8 = 5000 at
+# C = 768, the main path's stage 3)
+FFN_DENSE = [(2, 45, 96), (2, 30, 192), (4, 25, 384), (8, 25, 768),
+             (2, 13, 1024)]
+
+
+@pytest.mark.parametrize("b,hw,c", FFN_DENSE)
+def test_ffn_fused_dense_block(cuda, b, hw, c):
+    """The dense block's MLP: one launch of the fused kernel after the
+    ``dwconv_ln`` launch, and on its own nothing else (no dtype copies of
+    the weights, biases or gamma); bit-equal runs."""
+    gen = torch.Generator(device=cuda).manual_seed(c + 5)
+    a = _block_args(gen, b, hw, c, torch.bfloat16)
+    args = [a[k] for k in ("x", "dwk", "dwb", "lns", "lnb", "w1", "b1",
+                           "w2", "b2", "gamma")]
+    build.reset_launches()
+    got, names = _cuda_kernels(lambda: cbk.fused_convnext_block(*args))
+    assert build.LAUNCHES["fused_convnext_block"] == 1
+    assert sum(map(_is_ffn, names)) == 1, names
+    assert sum("dwconv_ln_kernel" in n for n in names) == 1, names
+    assert not any("gemm" in n for n in names), names
+    _check(got, cbk.convnext_block_ref(*args), torch.bfloat16)
+    assert torch.equal(got, cbk.fused_convnext_block(*args))
+    xn = cbk.fused_dwconv_ln(*args[:5]).reshape(-1, c)
+    half, names = _cuda_kernels(lambda: mgk.ffn_fused(
+        xn, a["w1"][None], a["b1"], a["w2"][None], a["b2"],
+        shortcut=a["x"].reshape(-1, c), gamma=a["gamma"]))
+    assert len(names) == 1 and _is_ffn(names[0]), names
+    assert torch.equal(half.reshape(got.shape), got)
+
+
+def _ffn_weights(gen, e, c, vec_dtype=torch.bfloat16):
+    h = 4 * c
+    return (_rand(gen, e, c, h, scale=c ** -0.5, dtype=torch.bfloat16),
+            _rand(gen, e, h, scale=0.1, dtype=vec_dtype),
+            _rand(gen, e, h, c, scale=h ** -0.5, dtype=torch.bfloat16),
+            _rand(gen, e, c, scale=0.1, dtype=vec_dtype))
+
+
+# expert of each tile: a spread with a run per expert, expert 1 owning no
+# tile, one expert owning every tile
+TILE_EXPERTS = {"spread": [0, 0, 1, 2, 2, 2, 3], "idle": [0, 0, 2, 3, 3],
+                "single": [2, 2, 2, 2]}
+
+
+# above C = 1024 the clusters of eight cover C in column passes of 1024
+@pytest.mark.parametrize("case", sorted(TILE_EXPERTS))
+@pytest.mark.parametrize("c", [96, 192, 384, 768, 1024, 1536, 2048])
+def test_ffn_fused_moe(cuda, c, case):
+    """The MoE expert FFN over a slot layout: one launch, nothing else,
+    bit-equal runs; tile_expert as the dispatch gives it (int64) and in
+    int32; fp32 biases read as they are."""
+    gen = torch.Generator(device=cuda).manual_seed(c)
+    tile = 256 if c > 512 else 512
+    te = torch.tensor(TILE_EXPERTS[case], device=cuda)
+    x = _rand(gen, tile * te.numel(), c, dtype=torch.bfloat16)
+    vec_dtype = torch.float32 if case == "idle" else torch.bfloat16
+    w1, b1, w2, b2 = _ffn_weights(gen, 4, c, vec_dtype)
+    args = (x, te, w1, b1, w2, b2)
+    build.reset_launches()
+    got, names = _cuda_kernels(lambda: mgk.moe_ffn_grouped(*args))
+    assert build.LAUNCHES["moe_ffn_grouped"] == 1
+    assert len(names) == 1 and _is_ffn(names[0]), names
+    _check(got, mgk.moe_ffn_grouped_ref(*args), torch.bfloat16)
+    assert torch.equal(got, mgk.moe_ffn_grouped(*args))
+    assert torch.equal(got, mgk.moe_ffn_grouped(x, te.int(), *args[2:]))
+
+
+def test_ffn_fused_refuses_other_weight_dtypes(cuda):
+    """bf16 activations need bf16 weights: the kernel reads them as they
+    are, so fp32 ones raise before anything is launched (no per-call
+    copy)."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    a = _block_args(gen, 2, 9, 96, torch.bfloat16)
+    a["w1"] = a["w1"].float()
+    args = [a[k] for k in ("x", "dwk", "dwb", "lns", "lnb", "w1", "b1",
+                           "w2", "b2", "gamma")]
+    te = torch.tensor([0, 1], device=cuda)
+    w1, b1, w2, b2 = _ffn_weights(gen, 2, 96)
+    x = _rand(gen, 2 * 128, 96, dtype=torch.bfloat16)
+    build.reset_launches()
+    with pytest.raises(ValueError, match="w1"):
+        cbk.fused_convnext_block(*args)
+    with pytest.raises(ValueError, match="bf16"):
+        mgk.moe_ffn_grouped(x, te, w1.float(), b1, w2, b2)
+    with pytest.raises(ValueError, match="bf16"):
+        mgk.moe_ffn_grouped(x, te, w1, b1, w2.float(), b2)
+    torch.cuda.synchronize()
+    assert not any(build.LAUNCHES.values()), build.LAUNCHES
+
+
+# stage 0 of two 800^2 images; the dense FFN at C = 1536 and 2048 (ConvNeXt-L
+# and -XL, wider than dwconv_ln takes), in two column passes
+@pytest.mark.parametrize("m,c", [(2 * 200 * 200, 96), (144, 1536),
+                                 (121, 2048)])
+def test_ffn_fused_keeps_the_hidden_on_chip(cuda, m, c):
+    """The dense FFN with its residual epilogue: the call allocates its
+    output and no (M, 4C) hidden tensor."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = _rand(gen, m, c, dtype=torch.bfloat16)
+    w1, b1, w2, b2 = _ffn_weights(gen, 1, c)
+    gamma = torch.rand(c, generator=gen, device=cuda).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = mgk.ffn_fused(x, w1, b1[0], w2, b2[0], shortcut=x, gamma=gamma)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated() - base
+    hidden_bytes = m * 4 * c * 2
+    assert grown < hidden_bytes, (grown, hidden_bytes)
+    assert grown >= out.numel() * 2
+    ref = x.float() + gamma.float() * mgk.ffn_ref(
+        x, w1[0], b1[0], w2[0], b2[0]).float()
+    # ffn_ref rounds the FFN before the residual; the kernel rounds once
+    _check(out, ref.to(torch.bfloat16), torch.bfloat16)
+
+
 @pytest.mark.parametrize("n", [130, 2000])
 @pytest.mark.parametrize("triu", [False, True])
 def test_hbb_iou_kernel(cuda, n, triu):

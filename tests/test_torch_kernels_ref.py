@@ -84,6 +84,34 @@ def test_fused_convnext_block_fp32(c):
                                atol=1e-4)
 
 
+@pytest.mark.parametrize("c", [40, 96, 192])
+def test_fused_convnext_block_bf16(c):
+    """The contract the fused bf16 FFN kernel keeps: the port's plain
+    version against the Pallas kernel at bf16 (LN output, hidden activation
+    and output rounded to bf16, tanh GELU, fp32 sums)."""
+    rng = np.random.RandomState(c + 3)
+    x = rng.randn(2, 10, 12, c).astype(np.float32)
+    p = _block_params(rng, c, 4 * c)
+    names = ("dwk", "dwb", "lns", "lnb", "w1", "b1", "w2", "b2", "gamma")
+    j = {k: jnp.asarray(p[k], jnp.bfloat16) for k in names}
+    jx = jnp.asarray(x, jnp.bfloat16)
+    ref = np.asarray(jax_block(jx, *(j[k] for k in names), interpret=True),
+                     np.float32)
+    t = {k: torch.from_numpy(np.array(v, np.float32)).to(torch.bfloat16)
+         for k, v in j.items()}
+    got = fused_convnext_block(
+        torch.from_numpy(np.array(jx, np.float32)).to(torch.bfloat16),
+        t["dwk"].permute(3, 2, 0, 1).contiguous(), t["dwb"], t["lns"],
+        t["lnb"], t["w1"], t["b1"], t["w2"], t["b2"], t["gamma"])
+    assert got.dtype == torch.bfloat16
+    # the two round the same fp32 values to bf16 three times (LN output,
+    # hidden, output) after sums taken in other orders: a value may land
+    # on the neighbouring bf16 step, and a hidden step moves the output by
+    # ~2^-8 of its scale: 2^-6 of the output scale, as the other bf16 rows
+    tol = 2 ** -6 * np.abs(ref).max()
+    np.testing.assert_allclose(got.float().numpy(), ref, rtol=0, atol=tol)
+
+
 @pytest.mark.parametrize("c", [40, 96])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_fused_layernorm(c, dtype):
@@ -105,9 +133,21 @@ def test_fused_layernorm(c, dtype):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_moe_ffn_grouped(dtype):
+    _check_moe_ffn_grouped(dtype, [0, 0, 1, 1, 1, 2])
+
+
+# expert 1 owns no tile; one expert owns every tile
+@pytest.mark.parametrize("te", [[0, 0, 2, 2], [1, 1, 1]],
+                         ids=["idle", "single"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_ffn_grouped_tile_experts(dtype, te):
+    _check_moe_ffn_grouped(dtype, te)
+
+
+def _check_moe_ffn_grouped(dtype, tile_expert):
     rng = np.random.RandomState(3)
     e, d, h, tile = 3, 96, 160, 128
-    te = np.array([0, 0, 1, 1, 1, 2], np.int32)
+    te = np.array(tile_expert, np.int32)
     s = tile * len(te)
     arrs = dict(x=rng.randn(s, d), w1=rng.randn(e, d, h) / np.sqrt(d),
                 b1=rng.randn(e, h) * 0.1, w2=rng.randn(e, h, d) / np.sqrt(h),

@@ -49,7 +49,7 @@ sys.path.insert(0, str(ROOT))
 # the __global__ functions of sm3det_tpu_torch/ops/cuda/csrc/*.cu
 PORT_KERNELS = ("dwconv_ln_kernel", "dwconv_ln_bwd_stats_kernel",
                 "dwconv_ln_bwd_conv_kernel", "dwconv_ln_bwd_reduce_kernel",
-                "gemm_bf16_kernel", "gemm_f32_kernel",
+                "ffn_fused_kernel", "gemm_f32_kernel",
                 "hbb_iou_kernel", "layernorm_kernel", "rotated_iou_kernel",
                 "roi_align_rotated_kernel", "roi_align_rotated_bwd_kernel")
 
@@ -297,6 +297,13 @@ def report_profile(torch, run, path, wall_med):
         groups[group] += ev.time_range.elapsed_us() / 1e3
     for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"[profile]   device time, {group:28s} {ms:8.3f} ms")
+    for k in PORT_KERNELS:
+        evs = [ev for ev in kernels
+               if f"(anonymous namespace)::{k}" in ev.name]
+        if evs:
+            print(f"[profile]   device time of {k:28s} "
+                  f"{sum(ev.time_range.elapsed_us() for ev in evs) / 1e3:8.3f}"
+                  f" ms, {len(evs)} launches")
     by_name = defaultdict(lambda: [0.0, 0])
     for ev in kernels:
         by_name[ev.name][0] += ev.time_range.elapsed_us()
