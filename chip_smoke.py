@@ -32,7 +32,11 @@ Phases (any failure exits non-zero):
    (median and quartiles), peak memory, every loss and the launches of
    every kernel in one step.
 
-Phase 3 also holds the training kernels against their plain versions:
+Phase 3 also holds rows 9, 2 and 10 against their plain versions at
+ConvNeXt-L's and -XL's widest stages (C = 1536, 2048), row 7 on the joint
+forward's own proposals in 4c, and reports the bytes row 7 reads from L2
+(the taps one by one against the RoIs' footprints). It also holds the
+training kernels against their plain versions:
 the pyramid RoI align's feature gradient (``roi_align_rotated_bwd.cu``) and
 the trainable dw7x7 + LN (``fused_dwconv_ln_train``: the forward kernel and
 the five gradients of the ``dwconv_ln_bwd.cu`` kernels, against autograd of
@@ -434,10 +438,18 @@ def main():
                                                           1e-6))
                 b, k = bound_ms(2 * n_pix * c * isz + 2 * c * isz,
                                 [(n_pix * c * 8, "float32")])
+                # device time alone: at the small stages the wrapper's host
+                # time sets the CUDA-event time
+                dev_ms = device_ms(torch, lambda: cbk.fused_layernorm(
+                    xo, lns, lnb))
+                dev_lms = device_ms(torch, lambda: F.layer_norm(
+                    xo, (c,), lns, lnb, 1e-6))
                 recs["fused_layernorm"].add(n_ln, ms, pms, b, k, lms)
+                recs["fused_layernorm"].add_device(n_ln, dev_ms, dev_lms)
                 log(f"[time]   fused_layernorm {shape}: kernel {ms:.4f} ms, "
                     f"plain {pms:.4f} ms, library {lms:.4f} ms, bound "
-                    f"{b:.4f} ms ({k})")
+                    f"{b:.4f} ms ({k}); device time only: kernel "
+                    f"{dev_ms:.4f} ms, library {dev_lms:.4f} ms")
 
             hid = 4 * c
             w1 = rnd(c, hid, scale=c ** -0.5).to(dtype)
@@ -673,6 +685,27 @@ def main():
         rois[5::50, 1:3] = -3.0 * IMG
         return rois
 
+    def align_l2_bytes(what, feats, rr, isz):
+        """The bytes of features row 7 reads from L2 for these RoIs: 16
+        taps of C channels a bin, read one by one (the bin-row kernel of
+        PRs 2-5), against this kernel's: each staged footprint's pixels
+        once, and the taps of a RoI whose footprint is too large to stage
+        (an upper bound: its repeated taps may hit L1). The counts come
+        from one more launch."""
+        ch = feats[0].shape[-1]
+        taps = rr.shape[0] * 49 * 16 * ch * isz
+        fp = rak.roi_align_rotated_footprint(feats, rr)
+        foot = int(fp.sum()) * ch * isz
+        rec = recs["roi_align_rotated"]
+        rec.extra[f"l2_tap_bytes_{what}"] = taps
+        rec.extra[f"l2_footprint_bytes_{what}"] = foot
+        log(f"[time]   roi_align_rotated {what} RoIs: L2 reads of the taps "
+            f"one by one {taps / 1e9:.3f} GB, of this kernel {foot / 1e9:.3f}"
+            f" GB ({foot / taps:.3f}: staged footprints, and the taps of the "
+            f"{int((fp == 4 * 196).sum())} RoIs read from device memory); "
+            f"pixels a RoI: median {float(fp.float().median()):.0f}, max "
+            f"{int(fp.max())}")
+
     rois = some_rois(N_IMGS, n_rois)
     lvls = route_levels(rois)
     log(f"[kernel] roi_align_rotated: {n_rois} RoIs, per level "
@@ -697,10 +730,16 @@ def main():
                 sum(f.numel() for f in feats[:4]) * isz + rois.numel() * 4
                 + got.numel() * isz,
                 [(n_rois * 49 * 16 * 256 * 2, "float32")])
+            dev_ms = device_ms(
+                torch, lambda: rak.roi_align_rotated_pyramid_fused(
+                    feats, rois), iters=5)
             recs["roi_align_rotated"].add(1, ms, pms, b, k, 0.0)
+            recs["roi_align_rotated"].extra["device_ms"] = dev_ms
             log(f"[time]   roi_align_rotated ({n_rois}, 7, 7, 256) bf16: "
                 f"kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {b:.4f} ms "
-                f"({k})")
+                f"({k}); device time only (the kernel and route_levels' "
+                f"ops) {dev_ms:.4f} ms")
+            align_l2_bytes("synthetic", feats, rois, isz)
         del got, feats
     # ---- the train step's kernels ----------------------------------------
     # row 8: the align's feature gradient at the train step's shapes (2
@@ -831,6 +870,43 @@ def main():
                 f"time only: kernels {dev_ms:.4f} ms, library {dev_lms:.4f} "
                 f"ms")
             del ins, g_out, saved
+
+    # ConvNeXt-L's and -XL's widest stages (C = 1536, 2048; off the main
+    # path): rows 9, 2 and 10 (forward and the five gradients, the
+    # backward twice for bit-equal gradients)
+    for c in (1536, 2048):
+        for dtype in (torch.float32, torch.bfloat16):
+            shape = (2, 12, 12, c)
+            ins = [rnd(*shape, dtype=dtype),
+                   rnd(c, 1, 7, 7, scale=0.15).to(dtype),
+                   rnd(c, scale=0.1).to(dtype),
+                   (1 + rnd(c, scale=0.1)).to(dtype),
+                   rnd(c, scale=0.1).to(dtype)]
+            xo = ins[0] * 3 + 1
+            check("fused_layernorm", dtype, shape,
+                  cbk.fused_layernorm(xo, ins[3], ins[4]),
+                  cbk.layernorm_math(xo, ins[3], ins[4]), tol[dtype],
+                  main_path=False)
+            check("dwconv_ln", dtype, shape, cbk.fused_dwconv_ln(*ins),
+                  cbk.dwconv_ln_ref(*ins), tol[dtype], main_path=False)
+            ins = [t.requires_grad_(True) for t in ins]
+            g_out = rnd(*shape, dtype=dtype)
+            out = cbk.fused_dwconv_ln_train(*ins)
+            got = (out,) + torch.autograd.grad(out, ins, g_out)
+            again = torch.autograd.grad(cbk.fused_dwconv_ln_train(*ins), ins,
+                                        g_out)
+            closed = cbk.dwconv_ln_bwd_ref(*[t.detach() for t in ins],
+                                           g_out)
+            check("fused_dwconv_ln_train", dtype, (shape, "out"), got[0],
+                  cbk.dwconv_ln_ref(*[t.detach() for t in ins]), tol[dtype],
+                  main_path=False)
+            for what, a, b in zip(grad_names, got[1:], closed):
+                check("fused_dwconv_ln_train", dtype, (shape, what), a, b,
+                      tol[dtype], main_path=False)
+            if not all(torch.equal(a, b) for a, b in zip(got[1:], again)):
+                failures.append(f"fused_dwconv_ln_train {dtype} {shape} not "
+                                f"deterministic")
+            del ins, g_out, out, got, again, closed
 
     if failures:
         fail(f"kernels disagree with their plain versions: {failures}")
@@ -1165,7 +1241,36 @@ def main():
         f"{joint_peak_gib:.2f} GiB; card {smi}")
     log("[joint bf16] stages (CUDA events, mean of 3, ms): " + "; ".join(
         f"{k} {v:.2f}" for k, v in stages.items()))
-    del x, rpn, props, rf, logits, deltas, s_cls, s_reg
+    # row 7 on the RoIs the joint forward's RPN produced
+    n_img = props.shape[0]
+    rois_j = torch.cat([torch.arange(n_img, device=dev, dtype=props.dtype)
+                        .repeat_interleave(props.shape[1])[:, None],
+                        props.reshape(-1, 5)], -1)
+    lv_j = route_levels(rois_j.float())
+    log(f"[joint bf16] roi_align_rotated on the joint forward's "
+        f"{rois_j.shape[0]} proposals: per level "
+        f"{torch.bincount(lv_j, minlength=4).tolist()}")
+    with torch.no_grad():
+        got = rak.roi_align_rotated_pyramid_fused(x, rois_j)
+        ref = roi_align_rotated_pyramid(x, rois_j, lv_j, 7)
+        check("roi_align_rotated", got.dtype,
+              ("joint proposals", tuple(got.shape)), got, ref,
+              tol[got.dtype])
+        ms = cuda_ms(torch, lambda: rak.roi_align_rotated_pyramid_fused(
+            x, rois_j), iters=5)
+        pms = cuda_ms(torch, lambda: roi_align_rotated_pyramid(
+            x, rois_j, lv_j, 7), iters=2, warmup=1)
+        again = rak.roi_align_rotated_pyramid_fused(x, rois_j)
+    same = torch.equal(got, again)
+    if not same:
+        failures.append("roi_align_rotated: runs differ")
+    recs["roi_align_rotated"].extra.update(proposals_ms=ms,
+                                           proposals_plain_ms=pms)
+    log(f"[time]   roi_align_rotated joint proposals {tuple(got.shape)}: "
+        f"kernel {ms:.4f} ms, plain {pms:.4f} ms; two runs bit-equal "
+        f"{same}")
+    align_l2_bytes("proposals", x, rois_j, got.element_size())
+    del x, rpn, props, rf, logits, deltas, s_cls, s_reg, got, ref, again
 
     # test-time augmentation on one RGB image: the merge of the two
     # variants' detections runs the un-banded rotated IoU kernel

@@ -63,16 +63,18 @@ _SIGNATURES = {
     "sm3det_ffn_fused": [_P, _P, _I] + [_P] * 7 + [_I] * 5 + [_P],
     # boxes1, boxes2, out, B, N, M, triu, eps, stream
     "sm3det_hbb_iou": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
-    # x, scale, bias, out, rows, C, in_bf16, out_bf16, eps, stream
-    "sm3det_layernorm": [_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _F,
-                         _P],
+    # x, scale, bias, out, rows, C, in_bf16, out_bf16, bf16 mask of
+    # (scale, bias), eps, stream
+    "sm3det_layernorm": [_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I,
+                         _F, _P],
     # boxes1, boxes2, groups1, groups2 (both null: not banded), out, B, N,
     # M, triu, stream
     "sm3det_rotated_iou": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # 4 level pointers, 4 heights, 4 widths, 4 x 1/stride, rois, lvls, out,
-    # B, C, N, out_size, sample_num, bf16, stream
+    # footprint (null, or (N,) int32 pixels read a RoI), B, C, N, out_size,
+    # sample_num, bf16, stream
     "sm3det_roi_align_rotated": [_P] * 4 + [_I] * 8 + [_F] * 4
-    + [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    + [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # 4 fp32 gradient pointers, 4 heights, 4 widths, 4 x 1/stride, rois,
     # lvls, g, B, C, N, out_size, sample_num, bf16, stream
     "sm3det_roi_align_rotated_bwd": [_P] * 4 + [_I] * 8 + [_F] * 4

@@ -41,6 +41,9 @@ from .moe_groupgemm_kernel import (EPI_GELU, EPI_RESIDUAL, ffn_fused,
                                    grouped_gemm)
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+# the widest C the LayerNorm and dw7x7 + LN kernels take: ConvNeXt-XL's
+# last stage (``csrc/layernorm.cu``, ``csrc/dwconv_core.cuh``)
+MAX_CHANNELS = 2048
 
 
 def _ln_dtype(x, lns, lnb):
@@ -74,12 +77,16 @@ def fused_layernorm(x, scale, bias, eps: float = 1e-6):
         raise ValueError(f"fused_layernorm: unsupported dtypes {x.dtype} -> "
                          f"{out_dtype}")
     c = x.shape[-1]
-    if c > 1024:
-        raise ValueError(f"fused_layernorm: C={c} > 1024")
+    if c > MAX_CHANNELS:
+        raise ValueError(f"fused_layernorm: C={c} > {MAX_CHANNELS}")
     for t, name in ((scale, "scale"), (bias, "bias")):
         build.require_cuda(t, name, x.device)
-    x = x.contiguous()
-    s, b = (v.float().contiguous() for v in (scale, bias))
+        if t.dtype not in _KERNEL_DTYPES or t.shape != (c,):
+            raise ValueError(f"fused_layernorm: {name} {t.dtype} "
+                             f"{tuple(t.shape)} for C={c}")
+    x = _aligned(x)
+    # the kernel reads scale and bias in their own dtype: no per-call copy
+    s, b = scale.contiguous(), bias.contiguous()
     out = torch.empty(x.shape, device=x.device, dtype=out_dtype)
     if out.numel() == 0:
         return out
@@ -87,7 +94,9 @@ def fused_layernorm(x, scale, bias, eps: float = 1e-6):
     rc = lib.sm3det_layernorm(
         x.data_ptr(), s.data_ptr(), b.data_ptr(), out.data_ptr(),
         x.numel() // c, c, int(x.dtype == torch.bfloat16),
-        int(out_dtype == torch.bfloat16), eps, build.stream_ptr(x.device))
+        int(out_dtype == torch.bfloat16),
+        int(s.dtype == torch.bfloat16) | 2 * int(b.dtype == torch.bfloat16),
+        eps, build.stream_ptr(x.device))
     build.check(rc, "fused_layernorm")
     build.LAUNCHES["fused_layernorm"] += 1
     return out
@@ -179,9 +188,9 @@ def _check_dwconv_args(x, dwk, dwb, lns, lnb, out_dtype):
         raise ValueError(f"dwconv_ln: unsupported dtypes {x.dtype} -> "
                          f"{out_dtype}")
     c = x.shape[-1]
-    if dwk.shape != (c, 1, 7, 7) or c > 1024:
+    if dwk.shape != (c, 1, 7, 7) or c > MAX_CHANNELS:
         raise ValueError(f"dwconv_ln: dwk {tuple(dwk.shape)} for C={c} "
-                         f"(C <= 1024)")
+                         f"(C <= {MAX_CHANNELS})")
     for t, name in ((dwk, "dwk"), (dwb, "dwb"), (lns, "lns"), (lnb, "lnb")):
         build.require_cuda(t, name, x.device)
 

@@ -69,7 +69,13 @@ inline Geo make_geo(int B, int H, int W, int C) {
 // most 8 blocks (the portable cluster size), as many as that allows, so
 // that each thread keeps all its accumulators of a tile (ncb x 16 floats)
 // in registers and the LN needs one sweep (C = 96: 3 blocks of 1 chunk;
-// 384: 6 of 2; 768: 8 of 3).
+// 384: 6 of 2; 768: 8 of 3; 1536: 8 of 6; 2048: 8 of 8). The registers
+// bound ncb: 8 chunks are 128 accumulators of the 255 a thread may hold,
+// so C <= 8 x 8 x 32 = 2048 (ConvNeXt-XL's widest stage). Above 4 chunks
+// ncb is rounded up to 6 or 8, the two instantiations the kernels carry
+// for ConvNeXt-L and -XL.
+constexpr int MAX_CHANNELS = 2048;
+
 struct Split {
   int ncb, g;
 };
@@ -78,6 +84,7 @@ inline Split split_channels(int C, int CK) {
   const int nch = (C + CK - 1) / CK;
   Split sp;
   sp.ncb = (nch + 7) / 8;
+  if (sp.ncb == 5 || sp.ncb == 7) ++sp.ncb;
   sp.g = (nch + sp.ncb - 1) / sp.ncb;
   return sp;
 }

@@ -9,7 +9,7 @@
 // top of the conv bias, with zero padding 3; the LN statistics are taken on
 // the unrounded fp32 accumulator, var = max(E[x^2] - mean^2, 0), eps given;
 // the normalised value is scaled, shifted and rounded once to the output
-// type. Input fp32 or bf16, output fp32 or bf16, any C <= 1024, any H, W.
+// type. Input fp32 or bf16, output fp32 or bf16, any C <= 2048, any H, W.
 //
 // Bound on the H100: the fp32 FMA rate. Each output element needs 49 FMAs
 // and ~8 flops of LN (~106 flops at the 67 TFLOP/s of the CUDA cores: the
@@ -20,8 +20,9 @@
 // Design (dwconv_core.cuh): a cluster of up to 8 blocks owns a 4 x 16
 // pixel tile and all C channels of it (the LN reduces over C); each block
 // takes ncb of the C / 32 channel chunks (C = 96: 3 blocks of 1 chunk;
-// 384: 6 of 2; 768: 8 of 3), so a thread keeps all its accumulators of the
-// tile in registers: a channel pair x a strip of 8 pixels x ncb chunks.
+// 384: 6 of 2; 768: 8 of 3; ConvNeXt-L's 1536: 8 of 6; -XL's 2048: 8 of
+// 8), so a thread keeps all its accumulators of the tile in registers: a
+// channel pair x a strip of 8 pixels x ncb chunks.
 // The chunks' halo tiles (10 x 22 pixels, 3.4x of the input, from L2) are
 // copied by cp.async into two buffers, the next one in flight while this
 // one computes, across tiles too: the clusters are persistent and walk a
@@ -194,7 +195,9 @@ int launch(const void* x, const float* taps, const float* dwb,
     case 1: SM3DET_FWD_NCB(1);
     case 2: SM3DET_FWD_NCB(2);
     case 3: SM3DET_FWD_NCB(3);
-    default: SM3DET_FWD_NCB(4);
+    case 4: SM3DET_FWD_NCB(4);
+    case 6: SM3DET_FWD_NCB(6);
+    default: SM3DET_FWD_NCB(8);
   }
 #undef SM3DET_FWD_NCB
 }
@@ -206,6 +209,7 @@ extern "C" int sm3det_dwconv_ln(const void* x, const float* taps,
                                 const float* lnb, void* out, int B, int H,
                                 int W, int C, int in_bf16, int out_bf16,
                                 float eps, cudaStream_t stream) {
+  if (C <= 0 || C > dwcore::MAX_CHANNELS) return (int)cudaErrorInvalidValue;
   using bf = __nv_bfloat16;
 #define SM3DET_FWD(TI, TO)                                                   \
   return launch<TI, TO>(x, taps, dwb, lns, lnb, out, B, H, W, C, eps, stream)

@@ -446,7 +446,9 @@ int launch(const void* x, const float* taps, const float* dwb,
     case 1: SM3DET_BWD_NCB(1);
     case 2: SM3DET_BWD_NCB(2);
     case 3: SM3DET_BWD_NCB(3);
-    default: SM3DET_BWD_NCB(4);
+    case 4: SM3DET_BWD_NCB(4);
+    case 6: SM3DET_BWD_NCB(6);
+    default: SM3DET_BWD_NCB(8);
   }
 #undef SM3DET_BWD_NCB
 }
@@ -459,6 +461,7 @@ extern "C" int sm3det_dwconv_ln_bwd(
     int n_groups, void* dx, void* ddwk, void* ddwb, void* dlns, void* dlnb,
     int B, int H, int W, int C, int in_bf16, int g_bf16, int bf16_mask,
     float eps, cudaStream_t stream) {
+  if (C <= 0 || C > dwcore::MAX_CHANNELS) return (int)cudaErrorInvalidValue;
   using bf = __nv_bfloat16;
 #define SM3DET_BWD(TI, TG)                                                   \
   return launch<TI, TG>(x, taps, dwb, lns, g, da, part_a, n_stats, part_b,   \

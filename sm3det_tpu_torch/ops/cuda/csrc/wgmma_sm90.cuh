@@ -1,5 +1,7 @@
-// Hopper (sm_90a) building blocks for the fused FFN kernel: mbarriers,
-// TMA tile loads, wgmma descriptors and the bf16 wgmma instructions.
+// Hopper (sm_90a) building blocks for the fused FFN kernel (and the
+// mbarriers and 1-D bulk copies of layernorm.cu and roi_align_rotated.cu):
+// mbarriers, TMA tile and bulk loads, wgmma descriptors and the bf16 wgmma
+// instructions.
 //
 // All shared-memory tiles here use the 128-byte swizzle (TMA's
 // CU_TENSOR_MAP_SWIZZLE_128B, wgmma's layout type 1): a tile is stored as
@@ -100,6 +102,17 @@ __device__ __forceinline__ uint32_t map_to_rank(uint32_t local_addr,
 }
 __device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
   asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+// 1-D bulk copy of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from device memory into this block's shared memory, completing
+// as transaction bytes on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
 // copy `bytes` (a multiple of 16) of this block's shared memory to
 // `dst` in a block of the cluster (map_to_rank addresses); completes as

@@ -26,7 +26,8 @@ from ..roi_align_rotated import roi_align_rotated_pyramid, route_levels
 from . import build
 
 MAX_LEVELS = 4
-MAX_SAMPLES = 64      # out_size * sample_num^2, one bin row of the kernel
+MAX_SAMPLES = 64      # out_size * sample_num^2, a bin row of the backward
+MAX_ROI_SAMPLES = 1024  # out_size^2 * sample_num^2, a RoI of the forward
 
 
 def _check_args(feats, rois, out_size, featmap_strides, sample_num):
@@ -34,9 +35,9 @@ def _check_args(feats, rois, out_size, featmap_strides, sample_num):
     n_lvl = len(featmap_strides)
     if n_lvl > MAX_LEVELS:
         raise ValueError(f"at most {MAX_LEVELS} levels, got {n_lvl}")
-    if out_size * sample_num * sample_num > MAX_SAMPLES:
-        raise ValueError("out_size * sample_num^2 exceeds the kernel's "
-                         f"{MAX_SAMPLES} samples a bin row")
+    if (out_size * sample_num) ** 2 > MAX_ROI_SAMPLES:
+        raise ValueError("out_size^2 * sample_num^2 exceeds the kernel's "
+                         f"{MAX_ROI_SAMPLES} samples a RoI")
     dtype = feats[0].dtype
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"features must be fp32 or bf16, got {dtype}")
@@ -59,7 +60,12 @@ def _geometry_args(levels, featmap_strides):
             + [1.0 / s for s in featmap_strides] + [0.0] * pad)
 
 
-def _launch(feats, rois, lvls, out_size, featmap_strides, sample_num):
+def _launch(feats, rois, lvls, out_size, featmap_strides, sample_num,
+            footprint=None):
+    """One launch of the forward kernel; ``footprint``, an (N,) int32
+    tensor or None, receives what each RoI read of its level, in pixels of
+    C channels: its footprint where the kernel staged it, its 16 taps a
+    bin where it read them from device memory."""
     _check_args(feats, rois, out_size, featmap_strides, sample_num)
     dev = rois.device
     n_lvl = len(featmap_strides)
@@ -75,12 +81,28 @@ def _launch(feats, rois, lvls, out_size, featmap_strides, sample_num):
         rc = lib.sm3det_roi_align_rotated(
             *[f.data_ptr() for f in levels], *[None] * (MAX_LEVELS - n_lvl),
             *_geometry_args(levels, featmap_strides),
-            rois.data_ptr(), lvls.data_ptr(), out.data_ptr(), bsz, ch, n,
-            out_size, sample_num, int(dtype == torch.bfloat16),
-            build.stream_ptr(dev))
+            rois.data_ptr(), lvls.data_ptr(), out.data_ptr(),
+            build.ptr(footprint), bsz, ch, n, out_size, sample_num,
+            int(dtype == torch.bfloat16), build.stream_ptr(dev))
         build.check(rc, "roi_align_rotated")
         build.LAUNCHES["roi_align_rotated"] += 1
     return out
+
+
+def roi_align_rotated_footprint(feats, rois, out_size: int = 7,
+                                featmap_strides=(4, 8, 16, 32),
+                                sample_num: int = 2,
+                                finest_scale: int = 56) -> torch.Tensor:
+    """What the forward kernel reads of its level for each RoI, in pixels
+    of C channels (``_launch``'s ``footprint``): (N,) int32, from one
+    launch on CUDA tensors. A measurement of the kernel's L2 traffic reads
+    it; the model never calls it."""
+    build.require_cuda(rois, "rois")
+    rois = rois.detach()
+    lvls = route_levels(rois.float(), finest_scale, len(featmap_strides))
+    fp = torch.zeros(rois.shape[0], device=rois.device, dtype=torch.int32)
+    _launch(feats, rois, lvls, out_size, featmap_strides, sample_num, fp)
+    return fp
 
 
 def roi_align_rotated_pyramid_bwd(g, rois, lvls, level_shapes, dtype,

@@ -75,10 +75,17 @@ def _block_args(gen, b, hw, c, dtype):
 
 
 SHAPES = [(2, 9, 40), (2, 13, 96), (8, 50, 384), (8, 25, 768)]
+# ConvNeXt-L's and -XL's widest stages (8 blocks of 6 and of 8 channel
+# chunks in the dw7x7 + LN clusters)
+WIDE = [(1, 6, 1536), (2, 5, 2048)]
 # the dw7x7 + LN kernels also at a non-square image and at C = 36, whose
 # bf16 row (72 bytes) is not a multiple of 16 bytes, and an odd C
 DWCONV_SHAPES = SHAPES + [(2, (9, 13), 36), (2, (9, 13), 96),
-                          (1, (7, 5), 33)]
+                          (1, (7, 5), 33)] + WIDE
+# the LayerNorm kernel also where a row is not a multiple of 16 bytes
+# (scalar reads, several rows a row group; C = 33 also leaves a tail under
+# 16 bytes at the end of x) and where the last chunk of rows is short
+LN_SHAPES = SHAPES + [(2, 7, 36), (1, 5, 33), (3, 20, 192)] + WIDE
 
 
 def _dwconv_inputs(gen, b, hw, c, dtype):
@@ -101,8 +108,15 @@ def test_dwconv_ln_kernel(cuda, dtype, b, hw, c):
     _check(got, cbk.dwconv_ln_ref(*args), dtype)
 
 
+def _ln_args(gen, b, hw, c, dtype):
+    """LayerNorm input off zero mean, and its scale and bias."""
+    return ((_rand(gen, b, hw, hw, c, dtype=dtype) * 3 + 1).to(dtype),
+            (1 + _rand(gen, c, scale=0.1)).to(dtype),
+            _rand(gen, c, scale=0.1, dtype=dtype))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,hw,c", SHAPES)
+@pytest.mark.parametrize("b,hw,c", LN_SHAPES)
 def test_layernorm_kernel(cuda, dtype, b, hw, c):
     gen = torch.Generator(device=cuda).manual_seed(c + 2)
     a = _block_args(gen, b, hw, c, dtype)
@@ -111,6 +125,93 @@ def test_layernorm_kernel(cuda, dtype, b, hw, c):
     got = cbk.fused_layernorm(*args)
     assert build.LAUNCHES["fused_layernorm"] == 1
     _check(got, cbk.layernorm_math(*args), dtype)
+
+
+class _LibSpy:
+    """The kernel library with a record of the C entries called and their
+    arguments."""
+
+    def __init__(self, lib):
+        self.lib, self.calls = lib, []
+
+    def __getattr__(self, name):
+        fn = getattr(self.lib, name)
+
+        def call(*args):
+            self.calls.append((name, args))
+            return fn(*args)
+        return call
+
+
+# bf16 x with fp32, bf16 and mixed parameters (the output is fp32 where
+# either parameter is), and fp32 x with bf16 parameters
+@pytest.mark.parametrize("xd,sd,bd", [
+    (torch.bfloat16, torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32, torch.float32),
+    (torch.bfloat16, torch.bfloat16, torch.float32),
+    (torch.float32, torch.bfloat16, torch.bfloat16)])
+def test_layernorm_reads_parameters_as_they_are(cuda, monkeypatch, xd, sd,
+                                                bd):
+    """One launch, given scale and bias themselves (no per-call copy), at
+    the main path's (B, 25, 25, 768) and the stem's C = 96; bit-equal
+    runs."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    spy = _LibSpy(build.load_library())
+    monkeypatch.setattr(build, "load_library", lambda: spy)
+    for b, hw, c in ((2, 25, 768), (2, 40, 96)):
+        x, s, bias = _ln_args(gen, b, hw, c, xd)
+        s, bias = s.to(sd), bias.to(bd)
+        spy.calls.clear()
+        build.reset_launches()
+        got = cbk.fused_layernorm(x, s, bias)
+        assert build.LAUNCHES["fused_layernorm"] == 1
+        assert [name for name, _ in spy.calls] == ["sm3det_layernorm"]
+        args = spy.calls[0][1]
+        assert args[1] == s.data_ptr() and args[2] == bias.data_ptr()
+        ref = cbk.layernorm_math(x, s, bias)
+        _check(got, ref, torch.float32 if ref.dtype == torch.float32
+               else torch.bfloat16)
+        assert torch.equal(got, cbk.fused_layernorm(x, s, bias))
+
+
+def test_wide_channels_refuse_past_2048(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x, s, b = _ln_args(gen, 1, 2, 2056, torch.bfloat16)
+    with pytest.raises(ValueError, match="2048"):
+        cbk.fused_layernorm(x, s, b)
+    args = _dwconv_inputs(gen, 1, 3, 2056, torch.bfloat16)
+    with pytest.raises(ValueError, match="2048"):
+        cbk.fused_dwconv_ln(*args)
+
+
+@pytest.mark.parametrize("arch", ["large", "xlarge"])
+def test_convnext_wide_archs_run_on_the_card(cuda, arch):
+    """ConvNeXt-L and -XL (stage 3 at C = 1536 / 2048, a MoE block in
+    stages 2 and 3): a bf16 forward through the kernels, every LayerNorm
+    and dw7x7 + LN included, finite, as the host's fp32 plain path within
+    bf16's reach."""
+    from sm3det_tpu_torch.models.backbones.convnext import ConvNeXtMoE
+    net = ConvNeXtMoE(arch=arch, moe_block_inds=((), (), (0,), (0,)),
+                      num_experts=2, top_k=1,
+                      gen=torch.Generator().manual_seed(0)).eval()
+    for blk in net.modules():
+        if hasattr(blk, "gamma"):
+            blk.gamma.data.fill_(0.2)        # blocks that change x
+    img = torch.rand(1, 64, 64, 3, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        ref = net(img)
+        card = net.to(cuda, torch.bfloat16)
+        build.reset_launches()
+        got = card(img.to(cuda, torch.bfloat16))
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["fused_layernorm"] == 8
+    assert build.LAUNCHES["dwconv_ln"] == 36
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and bool(torch.isfinite(g.float()).all())
+        # 36 blocks of bf16 rounding: the features' shape, not their bits
+        cos = torch.nn.functional.cosine_similarity(
+            g.float().cpu().flatten(), r.flatten(), dim=0)
+        assert cos > 0.99, float(cos)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -166,7 +267,11 @@ def _is_ffn(name):
 # dense rows are not a multiple of its 128-row tile (25^2 x 8 = 5000 at
 # C = 768, the main path's stage 3)
 FFN_DENSE = [(2, 45, 96), (2, 30, 192), (4, 25, 384), (8, 25, 768),
-             (2, 13, 1024)]
+             (2, 13, 1024),
+             # between the variants: ConvNeXt-nano's 80 / 160 / 320 / 640
+             # and -B's 128 / 256 / 512 (masked 192-column blocks, clusters)
+             (2, 30, 80), (2, 20, 128), (2, 20, 160), (2, 15, 256),
+             (2, 12, 320), (2, 12, 512), (2, 10, 640)]
 
 
 @pytest.mark.parametrize("b,hw,c", FFN_DENSE)
@@ -210,7 +315,8 @@ TILE_EXPERTS = {"spread": [0, 0, 1, 2, 2, 2, 3], "idle": [0, 0, 2, 3, 3],
 
 # above C = 1024 the clusters of eight cover C in column passes of 1024
 @pytest.mark.parametrize("case", sorted(TILE_EXPERTS))
-@pytest.mark.parametrize("c", [96, 192, 384, 768, 1024, 1536, 2048])
+@pytest.mark.parametrize("c", [96, 192, 384, 768, 1024, 1536, 2048,
+                               80, 128, 160, 256, 320, 512, 640])
 def test_ffn_fused_moe(cuda, c, case):
     """The MoE expert FFN over a slot layout: one launch, nothing else,
     bit-equal runs; tile_expert as the dispatch gives it (int64) and in
@@ -255,7 +361,7 @@ def test_ffn_fused_refuses_other_weight_dtypes(cuda):
 
 
 # stage 0 of two 800^2 images; the dense FFN at C = 1536 and 2048 (ConvNeXt-L
-# and -XL, wider than dwconv_ln takes), in two column passes
+# and -XL's last stage), in two column passes
 @pytest.mark.parametrize("m,c", [(2 * 200 * 200, 96), (144, 1536),
                                  (121, 2048)])
 def test_ffn_fused_keeps_the_hidden_on_chip(cuda, m, c):
@@ -388,9 +494,11 @@ def _rois(gen, b, n, size, device):
     return rois
 
 
+# C = 34: a pixel is not a multiple of 16 bytes (reads of a channel pair)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,n,size,c", [(1, 50, 128, 32), (3, 777, 320, 64),
-                                        (8, 4000, 800, 256)])
+                                        (8, 4000, 800, 256),
+                                        (2, 300, 256, 34)])
 def test_roi_align_rotated_kernel(cuda, dtype, b, n, size, c):
     gen = torch.Generator(device=cuda).manual_seed(n)
     feats = _pyramid(gen, b, size, c, dtype, cuda)
@@ -403,6 +511,28 @@ def test_roi_align_rotated_kernel(cuda, dtype, b, n, size, c):
     ref = roi_align_rotated_pyramid(feats, rois, lvls, 7)
     _check(got, ref, dtype)
     assert float(got[5::50].abs().max()) == 0.0      # far outside: zeros
+    assert torch.equal(got, rak.roi_align_rotated_pyramid_fused(feats, rois))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_rotated_footprints(cuda, dtype):
+    """Large RoIs sent to the finest level: footprints too large for the
+    shared-memory stage read their taps from device memory, the others
+    from the stage; both match the plain version. A small RoI's footprint
+    is fewer pixels than its 784 taps."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    feats = _pyramid(gen, 2, 800, 64, dtype, cuda)
+    rois = _rois(gen, 2, 600, 800, cuda)
+    rois[:8, 1:] = torch.tensor([40.0, 40.0, 24.0, 20.0, 0.3], device=cuda)
+    lvls = torch.zeros(rois.shape[0], dtype=torch.int32, device=cuda)
+    fp = torch.zeros(rois.shape[0], dtype=torch.int32, device=cuda)
+    got = rak._launch(feats, rois, lvls, 7, (4, 8, 16, 32), 2, fp)
+    ref = roi_align_rotated_pyramid(feats, rois, lvls, 7)
+    _check(got, ref, dtype)
+    assert int((fp == 4 * 196).sum()) > 0          # read from device memory
+    assert int(fp[:8].max()) < 196 and int(fp.min()) > 0
+    assert torch.equal(fp, rak.roi_align_rotated_footprint(
+        feats, rois, finest_scale=10 ** 6))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

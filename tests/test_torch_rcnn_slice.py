@@ -300,3 +300,33 @@ def test_aug_test_rgb_with_horizontal_flip(pair):
     sar = port.aug_test(imgs["sar"], "sar", img_shape=SHAPE,
                         flip_directions=(None, "vertical"))
     assert sar[0].shape == (2, 10, 5) and int(sar[2].sum()) > 0
+
+
+def test_aug_test_rgb_at_half_scale(pair):
+    """``scales=(0.5, 1.0)``: the port resizes with ``F.interpolate(...,
+    antialias=True)``, JAX with ``jax.image.resize(method="bilinear")``.
+    The two half-scale images (1e-5), then the features and RPN outputs of
+    the same half-scale image, then the merged detections of both scales
+    and both flips."""
+    jmodel, variables, port, imgs = pair
+    x = imgs["rgb"]
+    half = (IMG // 2, IMG // 2)
+    ref_img = np.array(jax.image.resize(
+        jnp.asarray(x), (x.shape[0],) + half + (3,), method="bilinear"))
+    got_img = torch.nn.functional.interpolate(
+        torch.from_numpy(x).permute(0, 3, 1, 2), size=half, mode="bilinear",
+        align_corners=False, antialias=True).permute(0, 2, 3, 1)
+    _close(got_img, ref_img, atol=1e-5, rtol=1e-5)
+    x_ref, (cls_ref, reg_ref) = jax.jit(lambda v, a: jmodel.apply(
+        v, a, "rgb", method=_jax_rpn))(variables, ref_img)
+    feats = port.neck_rcnn(port.extract_feat(torch.from_numpy(ref_img)))
+    cls, reg = port.head_rpn(feats, "rgb")
+    for g, r in zip(list(feats) + cls + reg,
+                    list(x_ref) + list(cls_ref) + list(reg_ref)):
+        assert tuple(g.shape) == r.shape
+        _close(g, r)
+    ref = jax.jit(lambda v, a: jmodel.apply(
+        v, a, "rgb", SHAPE, (0.5, 1.0), method="aug_test"))(variables, x)
+    got = port.aug_test(x, "rgb", img_shape=SHAPE, scales=(0.5, 1.0))
+    assert got[0].shape == (2, 10, 6) and int(got[2].sum()) > 0
+    _assert_dets(got, ref)
