@@ -34,8 +34,9 @@ Phases (any failure exits non-zero):
 
 Phase 3 also holds rows 9, 2 and 10 against their plain versions at
 ConvNeXt-L's and -XL's widest stages (C = 1536, 2048), row 7 on the joint
-forward's own proposals in 4c, and reports the bytes row 7 reads from L2
-(the taps one by one against the RoIs' footprints). It also holds the
+forward's own proposals in 4c, and logs an estimate of what row 7 reads
+of the levels (the taps one by one against the staged footprints, from
+the plain geometry). It also holds the
 training kernels against their plain versions:
 the pyramid RoI align's feature gradient (``roi_align_rotated_bwd.cu``) and
 the trainable dw7x7 + LN (``fused_dwconv_ln_train``: the forward kernel and
@@ -185,6 +186,45 @@ class KernelRecord:
         return rec
 
 
+def align_read_model(torch, sample_taps, feats, rois, lvls,
+                     strides=(4, 8, 16, 32), out=7, sn=2, stage=32 * 1024):
+    """An estimate, not a measurement, of what row 7's kernel reads of the
+    levels: the taps from the plain geometry (``sample_taps``) and the
+    kernel's rule (a RoI whose footprint, all C channels, fits the 32 KB
+    stage is read once, pixel by pixel; any other reads its 16 taps a bin
+    from device memory, each counted, though L1 may serve repeats).
+    Returns the staged footprint pixels, those taps, the RoIs staged and
+    not, and the median footprint of a RoI in pixels."""
+    ch, isz = feats[0].shape[-1], feats[0].element_size()
+    cap = stage // (ch * isz) if ch * isz % 16 == 0 else 0
+    tot = {"pixels": 0, "taps": 0, "staged": 0, "unstaged": 0}
+    every = []
+    for lvl, st in enumerate(strides):
+        r = rois[lvls == lvl].float()
+        n = r.shape[0]
+        if n == 0:
+            continue
+        hgt, wid = feats[lvl].shape[1], feats[lvl].shape[2]
+        y0, x0, y1, x1 = sample_taps(r, hgt, wid, out, st, sn)[:4]
+        # each tap row's span of columns, row by row of the level
+        slot = (torch.arange(n, device=r.device) * hgt).view(n, 1, 1, 1, 1)
+        slot = torch.stack([slot + y0, slot + y1]).reshape(-1)
+        xlo = torch.full((n * hgt,), wid, device=r.device,
+                         dtype=torch.long).scatter_reduce(
+            0, slot, torch.stack([x0, x0]).reshape(-1), "amin")
+        xhi = torch.full_like(xlo, -1).scatter_reduce(
+            0, slot, torch.stack([x1, x1]).reshape(-1), "amax")
+        pix = (xhi - xlo + 1).clamp(min=0).view(n, hgt).sum(1)
+        every.append(pix)
+        staged = pix <= cap
+        tot["pixels"] += int(pix[staged].sum())
+        tot["taps"] += int((~staged).sum()) * out * out * sn * sn * 4
+        tot["staged"] += int(staged.sum())
+        tot["unstaged"] += int((~staged).sum())
+    tot["median_pixels"] = float(torch.cat(every).float().median())
+    return tot
+
+
 def make_train_batch(rng, comp, img, g):
     """A train batch of numpy arrays as ``bench.py --train`` makes it: SAR
     xyxy gts, RGB / infrared OBB gts, ``g`` of each an image."""
@@ -252,7 +292,7 @@ def main():
     from sm3det_tpu_torch.ops.cuda import rotated_iou_kernel as rik
     from sm3det_tpu_torch.ops import nms as nms_mod
     from sm3det_tpu_torch.ops.roi_align_rotated import (
-        roi_align_rotated_pyramid, route_levels)
+        roi_align_rotated_pyramid, route_levels, sample_taps)
     from sm3det_tpu_torch.ops.rotated_iou import obb_corners
 
     torch.backends.cudnn.allow_tf32 = False
@@ -685,26 +725,24 @@ def main():
         rois[5::50, 1:3] = -3.0 * IMG
         return rois
 
-    def align_l2_bytes(what, feats, rr, isz):
-        """The bytes of features row 7 reads from L2 for these RoIs: 16
-        taps of C channels a bin, read one by one (the bin-row kernel of
-        PRs 2-5), against this kernel's: each staged footprint's pixels
-        once, and the taps of a RoI whose footprint is too large to stage
-        (an upper bound: its repeated taps may hit L1). The counts come
-        from one more launch."""
-        ch = feats[0].shape[-1]
-        taps = rr.shape[0] * 49 * 16 * ch * isz
-        fp = rak.roi_align_rotated_footprint(feats, rr)
-        foot = int(fp.sum()) * ch * isz
-        rec = recs["roi_align_rotated"]
-        rec.extra[f"l2_tap_bytes_{what}"] = taps
-        rec.extra[f"l2_footprint_bytes_{what}"] = foot
-        log(f"[time]   roi_align_rotated {what} RoIs: L2 reads of the taps "
-            f"one by one {taps / 1e9:.3f} GB, of this kernel {foot / 1e9:.3f}"
-            f" GB ({foot / taps:.3f}: staged footprints, and the taps of the "
-            f"{int((fp == 4 * 196).sum())} RoIs read from device memory); "
-            f"pixels a RoI: median {float(fp.float().median()):.0f}, max "
-            f"{int(fp.max())}")
+    def align_reads(what, feats, rr):
+        """Log, beside row 7's bytes bound, what it reads of the levels:
+        modelled from the plain geometry (``align_read_model``), not
+        measured (no counter of L2 reads on the card)."""
+        ch, isz = feats[0].shape[-1], feats[0].element_size()
+        lv = route_levels(rr.float())
+        modelled_tap_bytes = rr.shape[0] * 49 * 16 * ch * isz
+        m = align_read_model(torch, sample_taps, feats, rr, lv)
+        staged_footprint_pixels = m["pixels"]
+        est = (staged_footprint_pixels + m["taps"]) * ch * isz
+        log(f"[time]   roi_align_rotated {what} RoIs, modelled reads of the "
+            f"levels (plain geometry and the kernel's staging rule, not "
+            f"measured): the taps one by one {modelled_tap_bytes / 1e9:.3f} "
+            f"GB; this kernel {staged_footprint_pixels} staged footprint "
+            f"pixels ({m['staged']} RoIs) + {m['taps']} taps read from "
+            f"device memory ({m['unstaged']} RoIs) = {est / 1e9:.3f} GB "
+            f"({est / modelled_tap_bytes:.3f}); a RoI's footprint: median "
+            f"{m['median_pixels']:.0f} pixels against 784 taps")
 
     rois = some_rois(N_IMGS, n_rois)
     lvls = route_levels(rois)
@@ -739,7 +777,7 @@ def main():
                 f"kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {b:.4f} ms "
                 f"({k}); device time only (the kernel and route_levels' "
                 f"ops) {dev_ms:.4f} ms")
-            align_l2_bytes("synthetic", feats, rois, isz)
+            align_reads("synthetic", feats, rois)
         del got, feats
     # ---- the train step's kernels ----------------------------------------
     # row 8: the align's feature gradient at the train step's shapes (2
@@ -1269,7 +1307,7 @@ def main():
     log(f"[time]   roi_align_rotated joint proposals {tuple(got.shape)}: "
         f"kernel {ms:.4f} ms, plain {pms:.4f} ms; two runs bit-equal "
         f"{same}")
-    align_l2_bytes("proposals", x, rois_j, got.element_size())
+    align_reads("proposals", x, rois_j)
     del x, rpn, props, rf, logits, deltas, s_cls, s_reg, got, ref, again
 
     # test-time augmentation on one RGB image: the merge of the two

@@ -71,10 +71,9 @@ _SIGNATURES = {
     # M, triu, stream
     "sm3det_rotated_iou": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # 4 level pointers, 4 heights, 4 widths, 4 x 1/stride, rois, lvls, out,
-    # footprint (null, or (N,) int32 pixels read a RoI), B, C, N, out_size,
-    # sample_num, bf16, stream
+    # B, C, N, out_size, sample_num, bf16, stream
     "sm3det_roi_align_rotated": [_P] * 4 + [_I] * 8 + [_F] * 4
-    + [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    + [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # 4 fp32 gradient pointers, 4 heights, 4 widths, 4 x 1/stride, rois,
     # lvls, g, B, C, N, out_size, sample_num, bf16, stream
     "sm3det_roi_align_rotated_bwd": [_P] * 4 + [_I] * 8 + [_F] * 4

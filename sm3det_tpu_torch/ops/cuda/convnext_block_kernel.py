@@ -41,8 +41,9 @@ from .moe_groupgemm_kernel import (EPI_GELU, EPI_RESIDUAL, ffn_fused,
                                    grouped_gemm)
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-# the widest C the LayerNorm and dw7x7 + LN kernels take: ConvNeXt-XL's
-# last stage (``csrc/layernorm.cu``, ``csrc/dwconv_core.cuh``)
+# the widest C the LayerNorm and dw7x7 + LN kernels take, ConvNeXt-XL's
+# last stage: the user-facing check of ``dwcore::MAX_CHANNELS``
+# (``csrc/dwconv_core.cuh``), which both kernels' C entries enforce
 MAX_CHANNELS = 2048
 
 

@@ -24,6 +24,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "device_cache.cuh"
+
 namespace dwcore {
 
 namespace cg = cooperative_groups;
@@ -122,34 +124,30 @@ inline int launch_clusters(void (*kern)(Params...), int blocks, int threads,
   return (int)cudaGetLastError();
 }
 
-// Allow kernel KERN `smem` bytes of dynamic shared memory, once for each
-// kernel: a host call saved on every launch.
+// Allow kernel KERN `smem` bytes of dynamic shared memory on the current
+// device (once a device: a host call saved on every launch).
 template <auto KERN>
 inline int set_smem(size_t smem) {
-  static bool done = false;
-  if (done) return 0;
-  const cudaError_t err = cudaFuncSetAttribute(
-      KERN, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  done = err == cudaSuccess;
-  return (int)err;
+  return devcache::set_smem<KERN>(smem);
 }
 
-// Clusters of `cluster` blocks of KERN that the card holds at once (at
-// least 1): the grid of a persistent cluster kernel. Set the kernel's
-// shared memory limit (set_smem) first.
+// Clusters of `cluster` blocks of KERN that the current device holds at
+// once (at least 1): the grid of a persistent cluster kernel. Set the
+// kernel's shared memory limit (set_smem) first.
 template <auto KERN>
 inline int resident_clusters(int cluster, int threads, size_t smem) {
-  static int cached[9] = {0};
-  if (cached[cluster] == 0) {
-    cudaLaunchAttribute attr;
-    const cudaLaunchConfig_t cfg =
-        cluster_config(cluster, threads, smem, cluster, nullptr, &attr);
-    int n = 0;
-    if (cudaOccupancyMaxActiveClusters(&n, KERN, &cfg) != cudaSuccess)
-      n = 0;
-    cached[cluster] = n > 0 ? n : 1;
-  }
-  return cached[cluster];
+  int n = 0;
+  const int err = devcache::once<KERN>(
+      cluster, &n, [cluster, threads, smem](int, int* v) {
+        cudaLaunchAttribute attr;
+        const cudaLaunchConfig_t cfg =
+            cluster_config(cluster, threads, smem, cluster, nullptr, &attr);
+        if (cudaOccupancyMaxActiveClusters(v, KERN, &cfg) != cudaSuccess ||
+            *v < 1)
+          *v = 1;
+        return cudaSuccess;
+      });
+  return err == 0 ? n : 1;
 }
 
 // widest copy (bytes) that every row of C elements of `esize` bytes

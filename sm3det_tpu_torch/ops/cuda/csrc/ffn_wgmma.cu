@@ -72,6 +72,7 @@
 #include <dlfcn.h>
 #include <stdint.h>
 
+#include "device_cache.cuh"
 #include "wgmma_sm90.cuh"
 
 namespace {
@@ -651,7 +652,6 @@ int launch(const CUtensorMap& mx, const CUtensorMap& m1,
            const CUtensorMap& m2, Params p, cudaStream_t stream) {
   using K = Cfg<G, NC, XRES>;
   auto kern = ffn_fused_kernel<G, NC, XRES>;
-  static int avail = 0, resident = 0;            // one per instantiation
   const int kp = (p.C + KB - 1) / KB;
   // 1024: alignment slack; 48: the x and h barriers; 16 a stage
   const int fixed = 1024 + (XRES ? kp * X_PANEL : 0) + 2 * K::H_BYTES + 48;
@@ -668,37 +668,41 @@ int launch(const CUtensorMap& mx, const CUtensorMap& m1,
   cfg.stream = stream;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  if (!avail) {
-    int dev = 0, optin = 0;
-    cudaFuncAttributes fa;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                           dev);
-    cudaError_t err = cudaFuncGetAttributes(&fa, kern);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(
-          kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          optin - (int)fa.sharedSizeBytes);
-    if (err != cudaSuccess) return (int)err;
-    avail = optin - (int)fa.sharedSizeBytes;     // left for dynamic
-  }
+  // dynamic shared memory the kernel may use, set once a device
+  int avail = 0;
+  int err = devcache::once<ffn_fused_kernel<G, NC, XRES>>(
+      0, &avail, [kern](int dev, int* v) {
+        int optin = 0;
+        cudaFuncAttributes fa;
+        cudaError_t e = cudaDeviceGetAttribute(
+            &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+        if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kern);
+        if (e != cudaSuccess) return e;
+        *v = optin - (int)fa.sharedSizeBytes;    // left for dynamic
+        return cudaFuncSetAttribute(
+            kern, cudaFuncAttributeMaxDynamicSharedMemorySize, *v);
+      });
+  if (err != 0) return err;
   p.s1 = (avail - fixed - p.s2 * (K::ST2 + 16)) / (K::ST1 + 16);
   if (p.s1 > MAX_STAGES) p.s1 = MAX_STAGES;
   if (p.s1 < (XRES ? kp : 2)) return (int)cudaErrorInvalidValue;
   cfg.dynamicSmemBytes = fixed + p.s1 * (K::ST1 + 16) + p.s2 * (K::ST2 + 16);
-  if (!resident) {                               // clusters held at once
-    cfg.gridDim = dim3(NC);
-    int n = 0;
-    if (cudaOccupancyMaxActiveClusters(&n, kern, &cfg) != cudaSuccess ||
-        n < 1)
-      return (int)cudaErrorInvalidConfiguration;
-    resident = n;
-  }
+  int resident = 0;                              // clusters held at once
+  err = devcache::once<ffn_fused_kernel<G, NC, XRES>>(
+      (long long)cfg.dynamicSmemBytes + 1, &resident,
+      [kern, cfg](int, int* v) mutable {
+        cfg.gridDim = dim3(NC);
+        if (cudaOccupancyMaxActiveClusters(v, kern, &cfg) != cudaSuccess ||
+            *v < 1)
+          return cudaErrorInvalidConfiguration;
+        return cudaSuccess;
+      });
+  if (err != 0) return err;
   const int n_work = p.n_tiles * p.npass;
   const int clusters = n_work < resident ? n_work : resident;
   cfg.gridDim = dim3(clusters * NC);
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, kern, mx, m1, m2, p);
-  if (err != cudaSuccess) return (int)err;
+  err = (int)cudaLaunchKernelEx(&cfg, kern, mx, m1, m2, p);
+  if (err != 0) return err;
   return (int)cudaGetLastError();
 }
 

@@ -36,8 +36,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <unordered_map>
-
+#include "device_cache.cuh"
+#include "dwconv_core.cuh"
 #include "vec_io.cuh"
 #include "wgmma_sm90.cuh"
 
@@ -49,7 +49,6 @@ using namespace vec_io;
 constexpr int THREADS = 256;
 constexpr int STAGES = 3;
 constexpr int CHUNK_BYTES = 12 * 1024;   // bytes of x a chunk aims at
-constexpr int MAX_C = 2048;
 constexpr int BAR_BYTES = 64;            // the stages' mbarriers
 
 // shared memory: the mbarriers, scale and bias (fp32, C each), then the
@@ -174,13 +173,6 @@ int launch(const void* x, const void* scale, const void* bias, void* out,
            cudaStream_t stream) {
   constexpr auto kern = layernorm_kernel<Tin, Tout, VEC>;
   constexpr int EPV = VEC ? 16 / (int)sizeof(Tin) : 1;
-  static bool smem_set = false;
-  if (!smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, 227 * 1024);
-    if (err != cudaSuccess) return (int)err;
-    smem_set = true;
-  }
   // lanes a row: the power of two that gives each about 4 reads of 16
   // bytes, at most a warp; R: whole rows for every group, ~CHUNK_BYTES
   const int nv = C / EPV;
@@ -193,22 +185,13 @@ int launch(const void* x, const void* scale, const void* bias, void* out,
   const size_t smem = stage_offset(C) + STAGES * stage_bytes(C, R,
                                                              sizeof(Tin));
   // blocks the card holds at once with this much shared memory
-  static std::unordered_map<size_t, int> resident;
-  auto it = resident.find(smem);
-  if (it == resident.end()) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                   dev);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
-                                                          THREADS, smem);
-    if (err != cudaSuccess) return (int)err;
-    it = resident.emplace(smem, sms * (per_sm > 0 ? per_sm : 1)).first;
-  }
+  int resident = 0;
+  int err = devcache::set_smem<kern>(smem);
+  if (err == 0)
+    err = devcache::resident_blocks<kern>(THREADS, smem, &resident);
+  if (err != 0) return err;
   const long long n_chunks = (rows + R - 1) / R;
-  const int blocks = (int)(n_chunks < it->second ? n_chunks : it->second);
+  const int blocks = (int)(n_chunks < resident ? n_chunks : resident);
   kern<<<blocks, THREADS, smem, stream>>>(
       static_cast<const Tin*>(x), scale, bias, static_cast<Tout*>(out), rows,
       C, R, lanes, param_bf16, eps);
@@ -237,7 +220,7 @@ extern "C" int sm3det_layernorm(const void* x, const void* scale,
                                 int C, int in_bf16, int out_bf16,
                                 int param_bf16, float eps,
                                 cudaStream_t stream) {
-  if (C <= 0 || C > MAX_C || rows < 0 ||
+  if (C <= 0 || C > dwcore::MAX_CHANNELS || rows < 0 ||
       reinterpret_cast<uintptr_t>(x) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   if (rows == 0) return 0;

@@ -34,14 +34,18 @@
 // each pixel read from L2 once, while the block turns the taps into
 // indices into the footprint; the bins then read their taps from shared
 // memory. A larger footprint (a large RoI, or one routed to a level finer
-// than its size) reads its taps from device memory, where the repeated
-// ones hit L1. Either way a thread owns one bin and 16 bytes of channels
-// (8 bf16): the 16 tap reads, 128 FMAs and the 16-byte store of a bin are
-// one thread's, and a warp's reads cover a pixel's channels side by side.
-// (Staging the footprint in channel chunks with cp.async of 16 bytes, and
-// not staging at all, both measured slower on the H100.) No atomics on
-// the output: the same inputs give the same bits on every run; the sums
-// run in the order of the bin-row kernel this one replaces.
+// than its size) reads its taps from device memory. Either way a thread
+// owns one bin and 16 bytes of channels (8 bf16): the 16 tap reads, 128
+// FMAs and the 16-byte store of a bin are one thread's, and a warp's
+// reads cover a pixel's channels side by side. On the H100
+// (tools/profiling/torch_roi_align_variants.py) staging only the whole
+// footprint beat not staging at all, and beat staging a larger RoI in
+// bands of bin rows (more barriers a RoI); sending the unstaged RoIs'
+// taps past L1 barely moved the time, so their reads from L2 are not what
+// holds the kernel. (Staging in channel chunks with cp.async of 16 bytes
+// was slower too.) No atomics on the output: the same inputs give the
+// same bits on every run; the sums run in the order of the bin-row kernel
+// this one replaces.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -49,6 +53,7 @@
 
 #include <climits>
 
+#include "device_cache.cuh"
 #include "roi_align_rotated.cuh"
 #include "vec_io.cuh"
 #include "wgmma_sm90.cuh"
@@ -120,8 +125,7 @@ template <typename T, int VE, int OUT, int SN>
 __global__ void __launch_bounds__(THREADS)
 roi_align_rotated_kernel(Pyramid pyr, const float* __restrict__ rois,
                          const int* __restrict__ lvls, T* __restrict__ out,
-                         int* __restrict__ footprint, int B, int C,
-                         int out_rt, int sn_rt, int max_rows) {
+                         int B, int C, int out_rt, int sn_rt, int max_rows) {
   const int out_size = OUT ? OUT : out_rt;
   const int sn = SN ? SN : sn_rt;
   const int per_bin = sn * sn, n_bins = out_size * out_size;
@@ -204,8 +208,6 @@ roi_align_rotated_kernel(Pyramid pyr, const float* __restrict__ rois,
   const int P = misc[2];
   const bool staged = VE * sizeof(T) == 16 &&
                       (size_t)P * C * sizeof(T) <= STAGE_BYTES;
-  if (footprint != nullptr && tid == 0)
-    footprint[n] = staged ? P : 4 * n_samples;
   if (staged && tid < 32) {
     if (tid == 0) mbar_expect_tx(bar, (uint32_t)(P * C * sizeof(T)));
     __syncwarp();
@@ -248,47 +250,39 @@ roi_align_rotated_kernel(Pyramid pyr, const float* __restrict__ rois,
 
 template <typename T, int VE, int OUT, int SN>
 int launch_k(const Pyramid& pyr, const float* rois, const int* lvls,
-             void* out, int* footprint, int B, int C, int N, int out_size,
-             int sample_num, int max_rows, cudaStream_t stream) {
+             void* out, int B, int C, int N, int out_size, int sample_num,
+             int max_rows, cudaStream_t stream) {
   constexpr auto kern = roi_align_rotated_kernel<T, VE, OUT, SN>;
-  static bool smem_set = false;
-  if (!smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, 227 * 1024);
-    if (err != cudaSuccess) return (int)err;
-    smem_set = true;
-  }
   const size_t smem =
       smem_bytes(out_size * out_size * sample_num * sample_num, max_rows);
+  const int err = devcache::set_smem<kern>(smem);
+  if (err != 0) return err;
   kern<<<N, THREADS, smem, stream>>>(pyr, rois, lvls, static_cast<T*>(out),
-                                     footprint, B, C, out_size, sample_num,
-                                     max_rows);
+                                     B, C, out_size, sample_num, max_rows);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int VE>
 int launch(const Pyramid& pyr, const float* rois, const int* lvls, void* out,
-           int* footprint, int B, int C, int N, int out_size, int sample_num,
-           int max_rows, cudaStream_t stream) {
+           int B, int C, int N, int out_size, int sample_num, int max_rows,
+           cudaStream_t stream) {
   if (out_size == 7 && sample_num == 2)
-    return launch_k<T, VE, 7, 2>(pyr, rois, lvls, out, footprint, B, C, N,
-                                 out_size, sample_num, max_rows, stream);
-  return launch_k<T, VE, 0, 0>(pyr, rois, lvls, out, footprint, B, C, N,
-                               out_size, sample_num, max_rows, stream);
+    return launch_k<T, VE, 7, 2>(pyr, rois, lvls, out, B, C, N, out_size,
+                                 sample_num, max_rows, stream);
+  return launch_k<T, VE, 0, 0>(pyr, rois, lvls, out, B, C, N, out_size,
+                               sample_num, max_rows, stream);
 }
 
 }  // namespace
 
 // feats: n_levels pointers (B, h[l], w[l], C), contiguous, 16-byte aligned;
-// C even. footprint: null, or (N,) int32 that receives, in pixels of C
-// channels, what each RoI read of its level: its footprint if staged,
-// else its 4 out^2 sample_num^2 taps.
+// C even.
 extern "C" int sm3det_roi_align_rotated(
     const void* f0, const void* f1, const void* f2, const void* f3, int h0,
     int h1, int h2, int h3, int w0, int w1, int w2, int w3, float s0, float s1,
-    float s2, float s3, const float* rois, const int* lvls, void* out,
-    int* footprint, int B, int C, int N, int out_size, int sample_num,
-    int bf16, cudaStream_t stream) {
+    float s2, float s3, const float* rois, const int* lvls, void* out, int B,
+    int C, int N, int out_size, int sample_num, int bf16,
+    cudaStream_t stream) {
   const int n_samples = out_size * out_size * sample_num * sample_num;
   if (n_samples < 1 || n_samples > MAX_ROI_SAMPLES || (C & 1) || C <= 0)
     return (int)cudaErrorInvalidValue;
@@ -310,8 +304,8 @@ extern "C" int sm3det_roi_align_rotated(
   if (smem_bytes(n_samples, max_rows) > 227 * 1024)
     return (int)cudaErrorInvalidValue;
 #define SM3DET_ALIGN(T, VE)                                                  \
-  return launch<T, VE>(pyr, rois, lvls, out, footprint, B, C, N, out_size,   \
-                       sample_num, max_rows, stream)
+  return launch<T, VE>(pyr, rois, lvls, out, B, C, N, out_size, sample_num, \
+                       max_rows, stream)
   if (bf16) {
     if (aligned) SM3DET_ALIGN(__nv_bfloat16, 8);
     SM3DET_ALIGN(__nv_bfloat16, 2);

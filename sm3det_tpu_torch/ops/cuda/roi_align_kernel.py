@@ -60,12 +60,8 @@ def _geometry_args(levels, featmap_strides):
             + [1.0 / s for s in featmap_strides] + [0.0] * pad)
 
 
-def _launch(feats, rois, lvls, out_size, featmap_strides, sample_num,
-            footprint=None):
-    """One launch of the forward kernel; ``footprint``, an (N,) int32
-    tensor or None, receives what each RoI read of its level, in pixels of
-    C channels: its footprint where the kernel staged it, its 16 taps a
-    bin where it read them from device memory."""
+def _launch(feats, rois, lvls, out_size, featmap_strides, sample_num):
+    """One launch of the forward kernel."""
     _check_args(feats, rois, out_size, featmap_strides, sample_num)
     dev = rois.device
     n_lvl = len(featmap_strides)
@@ -81,28 +77,12 @@ def _launch(feats, rois, lvls, out_size, featmap_strides, sample_num,
         rc = lib.sm3det_roi_align_rotated(
             *[f.data_ptr() for f in levels], *[None] * (MAX_LEVELS - n_lvl),
             *_geometry_args(levels, featmap_strides),
-            rois.data_ptr(), lvls.data_ptr(), out.data_ptr(),
-            build.ptr(footprint), bsz, ch, n, out_size, sample_num,
-            int(dtype == torch.bfloat16), build.stream_ptr(dev))
+            rois.data_ptr(), lvls.data_ptr(), out.data_ptr(), bsz, ch, n,
+            out_size, sample_num, int(dtype == torch.bfloat16),
+            build.stream_ptr(dev))
         build.check(rc, "roi_align_rotated")
         build.LAUNCHES["roi_align_rotated"] += 1
     return out
-
-
-def roi_align_rotated_footprint(feats, rois, out_size: int = 7,
-                                featmap_strides=(4, 8, 16, 32),
-                                sample_num: int = 2,
-                                finest_scale: int = 56) -> torch.Tensor:
-    """What the forward kernel reads of its level for each RoI, in pixels
-    of C channels (``_launch``'s ``footprint``): (N,) int32, from one
-    launch on CUDA tensors. A measurement of the kernel's L2 traffic reads
-    it; the model never calls it."""
-    build.require_cuda(rois, "rois")
-    rois = rois.detach()
-    lvls = route_levels(rois.float(), finest_scale, len(featmap_strides))
-    fp = torch.zeros(rois.shape[0], device=rois.device, dtype=torch.int32)
-    _launch(feats, rois, lvls, out_size, featmap_strides, sample_num, fp)
-    return fp
 
 
 def roi_align_rotated_pyramid_bwd(g, rois, lvls, level_shapes, dtype,

@@ -27,11 +27,14 @@ def route_levels(rois: torch.Tensor, finest_scale: int = 56,
     return torch.clamp(lvls, 0, num_levels - 1).to(torch.int32)
 
 
-def _align_one_level(feat, rois, out_size, stride, sample_num):
-    """feat (B, H, W, C); rois (n, 6), all on this level -> (n, out, out,
-    C) fp32. Pixel centres are at half-integers (mmcv's ``aligned=True``)
-    and the angle turns clockwise (``clockwise=True``)."""
-    hgt, wid = feat.shape[1], feat.shape[2]
+def sample_taps(rois, hgt, wid, out_size, stride, sample_num):
+    """The bilinear taps of every sample of ``rois`` (n, 6) on a level of
+    ``hgt`` x ``wid`` pixels: rows ``y0 <= y1``, columns ``x0 <= x1``
+    (int64, clipped to the level), fractions ``ly``, ``lx`` and ``keep``
+    (0 for a sample outside the level), each (n, out, g, out, g) for bin
+    row, sample row, bin column, sample column. Pixel centres are at
+    half-integers (mmcv's ``aligned=True``) and the angle turns clockwise
+    (``clockwise=True``)."""
     inv = 1.0 / stride
     cx = rois[:, 1] * inv - 0.5
     cy = rois[:, 2] * inv - 0.5
@@ -62,8 +65,16 @@ def _align_one_level(feat, rois, out_size, stride, sample_num):
     x1 = torch.clamp(x0 + 1, max=wid - 1)
     ly = y - y0.to(y.dtype)
     lx = x - x0.to(x.dtype)
+    return y0, x0, y1, x1, ly, lx, (~oob).to(y.dtype)
+
+
+def _align_one_level(feat, rois, out_size, stride, sample_num):
+    """feat (B, H, W, C); rois (n, 6), all on this level -> (n, out, out,
+    C) fp32."""
+    hgt, wid = feat.shape[1], feat.shape[2]
+    y0, x0, y1, x1, ly, lx, keep = sample_taps(rois, hgt, wid, out_size,
+                                               stride, sample_num)
     hy, hx = 1.0 - ly, 1.0 - lx
-    keep = (~oob).to(y.dtype)
     flat = feat.reshape(-1, feat.shape[-1])
     base = rois[:, 0].long()[:, None, None, None, None] * (hgt * wid)
 
