@@ -32,6 +32,12 @@ Phases (any failure exits non-zero):
    (median and quartiles), peak memory, every loss and the launches of
    every kernel in one step.
 
+Phase 3 holds the NMS's kernels (the IoU kernels' mask mode, which packs
+the decisions ``iou > thr`` into 32-bit words, and the greedy keep scan)
+bit for bit against their plain versions at the main path's shapes, and
+4c again on the joint forward's own NMS inputs, beside the matrix modes on
+the same inputs; 4c and 5b count the host synchronisations of one joint
+forward and one train step (``torch.cuda.set_sync_debug_mode("warn")``).
 Phase 3 also holds rows 9, 2 and 10 against their plain versions at
 ConvNeXt-L's and -XL's widest stages (C = 1536, 2048), row 7 on the joint
 forward's own proposals in 4c, and logs an estimate of what row 7 reads
@@ -108,22 +114,66 @@ def cuda_ms(torch, fn, iters=10, warmup=2):
     return s.elapsed_time(e) / iters
 
 
-def device_ms(torch, fn, iters=10, warmup=2):
+def device_ms(torch, fn, iters=10, warmup=2, tries=3):
     """Mean device time of ``iters`` calls: the summed durations of the
     CUDA kernels ``torch.profiler`` records, without the host's gaps
     between them (at the small shapes the host's launches, not the
-    kernels, set the CUDA-event time of a forward + backward)."""
+    kernels, set the CUDA-event time of a forward + backward). The
+    profiler now and then records no CUDA event at all: such a trace is
+    taken again, up to ``tries`` times, and then the time is None (not
+    measured), never 0."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = [ev.time_range.elapsed_us() for ev in prof.events()
+              if ev.device_type == torch.autograd.DeviceType.CUDA]
+        if us:
+            return sum(us) / 1e3 / iters
+        log("[time]   torch.profiler recorded no CUDA event; tracing again")
+    return None
+
+
+def ms_str(v):
+    """A time for the log; None is a device time the profiler missed."""
+    return "not measured" if v is None else f"{v:.4f} ms"
+
+
+def host_syncs(torch, fn):
+    """Run ``fn`` once under ``torch.cuda.set_sync_debug_mode("warn")`` and
+    count the synchronising calls by site: the innermost frame of the port
+    (``sm3det_tpu_torch/...:line (function)``), else the warning's own."""
+    import traceback
+    import warnings
+    sites = {}
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" not in str(message):
+            return
+        site = f"{filename}:{lineno}"
+        for fr in reversed(traceback.extract_stack()[:-1]):
+            if "sm3det_tpu_torch" in fr.filename:
+                rel = fr.filename[fr.filename.index("sm3det_tpu_torch"):]
+                site = f"{rel}:{fr.lineno} ({fr.name})"
+                break
+        sites[site] = sites.get(site, 0) + 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
             fn()
-        torch.cuda.synchronize()
-    us = sum(ev.time_range.elapsed_us() for ev in prof.events()
-             if ev.device_type == torch.autograd.DeviceType.CUDA)
-    return us / 1e3 / iters
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sites
 
 
 def bound_ms(nbytes, work):
@@ -157,8 +207,11 @@ class KernelRecord:
         self.extra = {}         # further per-forward sums, e.g. ffn_ms
 
     def add_extra(self, n, **values):
+        """Add ``n`` times each value; a None (not measured) makes the sum
+        None: it is left unknown rather than counted as 0."""
         for k, v in values.items():
-            self.extra[k] = self.extra.get(k, 0.0) + n * v
+            old = self.extra.get(k, 0.0)
+            self.extra[k] = None if v is None or old is None else old + n * v
 
     def add(self, n, ms, plain_ms, bound, kind, lib_ms):
         self.ms += n * ms
@@ -170,7 +223,8 @@ class KernelRecord:
 
     def add_device(self, n, ms, lib_ms):
         k, lib = self.device or (0.0, 0.0)
-        self.device = (k + n * ms, lib + n * lib_ms)
+        self.device = tuple(None if a is None or v is None else a + n * v
+                            for a, v in ((k, ms), (lib, lib_ms)))
 
     def json(self, launches):
         rec = {"name": self.name, "route": "cuda", "source": self.source,
@@ -288,6 +342,7 @@ def main():
     from sm3det_tpu_torch.ops.cuda import convnext_block_kernel as cbk
     from sm3det_tpu_torch.ops.cuda import hbb_iou_kernel as hik
     from sm3det_tpu_torch.ops.cuda import moe_groupgemm_kernel as mgk
+    from sm3det_tpu_torch.ops.cuda import nms_keep_kernel as nkk
     from sm3det_tpu_torch.ops.cuda import roi_align_kernel as rak
     from sm3det_tpu_torch.ops.cuda import rotated_iou_kernel as rik
     from sm3det_tpu_torch.ops import nms as nms_mod
@@ -360,6 +415,21 @@ def main():
             "rotated_iou_banded",
             "sm3det_tpu_torch/ops/cuda/csrc/rotated_iou.cu",
             "sm3det_tpu/ops/pallas/rotated_iou_kernel.py:118", None),
+        "hbb_nms_mask": KernelRecord(
+            "hbb_nms_mask", "sm3det_tpu_torch/ops/cuda/csrc/hbb_iou.cu",
+            "sm3det_tpu/ops/pallas/hbb_iou_kernel.py:29", None),
+        "rotated_nms_mask": KernelRecord(
+            "rotated_nms_mask",
+            "sm3det_tpu_torch/ops/cuda/csrc/rotated_iou.cu",
+            "sm3det_tpu/ops/pallas/rotated_iou_kernel.py:102", None),
+        "rotated_nms_mask_banded": KernelRecord(
+            "rotated_nms_mask_banded",
+            "sm3det_tpu_torch/ops/cuda/csrc/rotated_iou.cu",
+            "sm3det_tpu/ops/pallas/rotated_iou_kernel.py:118", None),
+        "nms_keep": KernelRecord(
+            "nms_keep", "sm3det_tpu_torch/ops/cuda/csrc/nms_keep.cu",
+            "sm3det_tpu/ops/nms.py:135 (jnp greedy_keep; no Pallas kernel)",
+            None),
         "roi_align_rotated": KernelRecord(
             "roi_align_rotated",
             "sm3det_tpu_torch/ops/cuda/csrc/roi_align_rotated.cu",
@@ -489,7 +559,7 @@ def main():
                 log(f"[time]   fused_layernorm {shape}: kernel {ms:.4f} ms, "
                     f"plain {pms:.4f} ms, library {lms:.4f} ms, bound "
                     f"{b:.4f} ms ({k}); device time only: kernel "
-                    f"{dev_ms:.4f} ms, library {dev_lms:.4f} ms")
+                    f"{ms_str(dev_ms)}, library {ms_str(dev_lms)}")
 
             hid = 4 * c
             w1 = rnd(c, hid, scale=c ** -0.5).to(dtype)
@@ -694,7 +764,9 @@ def main():
             failures.append(name)
         recs[name].err = max(recs[name].err, err)
         del ref, diff, skipped, mask
-        if class_offset:
+        # the plain triu matrix at 4000 boxes runs on no path any more (the
+        # aug_test merge takes the mask mode): a check only
+        if class_offset or name == "rotated_iou":
             continue
         ms = cuda_ms(torch, lambda: rik.rotated_iou(boxes, boxes, **kw),
                      iters=5)
@@ -706,6 +778,200 @@ def main():
         log(f"[time]   {name} {tuple(boxes.shape)} triu: kernel {ms:.4f} ms, "
             f"plain {pms:.4f} ms, bound {b:.4f} ms ({k})")
         del got
+
+    # the plain matrix mode where a path runs it: the train step's R-CNN
+    # assigner, one launch an R-CNN image, its gts and proposals against
+    # its gts (bit for bit on the defined pairs)
+    n_assign = TRAIN[1] + TRAIN[2]
+    cands = rotated_boxes(1, TRAIN_GTS + N_PROPOSALS)[0]
+    gts = cands[:TRAIN_GTS]
+    got = rik.rotated_iou(cands, gts)
+    ref = rik.rotated_iou_ref(cands, gts)
+    real = (cands[:, 2] * cands[:, 3]) > 0
+    mask = real[:, None] == real[None, :TRAIN_GTS]
+    diff = (got - ref).abs() * mask
+    err = diff.max().item()
+    ok = bool(torch.isfinite(got).all()) and err == 0.0
+    log(f"[kernel] rotated_iou            float32   {tuple(cands.shape)} x "
+        f"{tuple(gts.shape)} (the R-CNN assigner): max abs err {err:.3e} on "
+        f"{int(mask.sum())} defined pairs, {int((ref * mask > 0.5).sum())} "
+        f"pairs over IoU 0.5; bit-equal required {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("rotated_iou assigner")
+    recs["rotated_iou"].err = max(recs["rotated_iou"].err, err)
+    ms = cuda_ms(torch, lambda: rik.rotated_iou(cands, gts), iters=5)
+    pms = cuda_ms(torch, lambda: rik.rotated_iou_ref(cands, gts), iters=2,
+                  warmup=1)
+    b, k = bound_ms((cands.numel() + gts.numel() + got.numel()) * 4,
+                    [(got.numel() * ROT_IOU_FLOPS, "float32")])
+    recs["rotated_iou"].add(n_assign, ms, pms, b, k, 0.0)
+    log(f"[time]   rotated_iou {tuple(cands.shape)} x {tuple(gts.shape)} "
+        f"(the assigner, {n_assign} a train step): kernel {ms:.4f} ms, plain "
+        f"{pms:.4f} ms, bound {b:.4f} ms ({k})")
+    del cands, gts, got, ref, diff, mask
+
+    # ---- the NMS: suppression bits (mask mode) and the keep scan ----------
+    def nms_mask_case(name, what, boxes, thr, groups=None, matrix=False):
+        """A mask kernel against its plain version on ``boxes`` (bit for bit
+        on the pairs whose IoU is defined), timed beside its bound and, with
+        ``matrix``, the matrix mode on the same input. The bound counts the
+        pairs these boxes need decided: j > i, and one group below the
+        inert group where there are groups. Returns the kernel's words and
+        the times."""
+        bsz, n = boxes.shape[:2]
+        if name == "hbb_nms_mask":
+            def run():
+                return hik.hbb_nms_mask(boxes, thr)
+
+            def plain():
+                return hik.hbb_nms_mask_ref(boxes, thr)
+
+            def mat():
+                return hik.hbb_iou(boxes, boxes, triu=True)
+            ok, flops = None, 12
+        else:
+            def run():
+                return rik.rotated_nms_mask(boxes, thr, groups)
+
+            def plain():        # an image at a time: the plain IoU's memory
+                return torch.cat([rik.rotated_nms_mask_ref(
+                    boxes[i:i + 1], thr,
+                    None if groups is None else groups[i:i + 1])
+                    for i in range(bsz)])
+
+            def mat():
+                return rik.rotated_iou(boxes, boxes, triu=True,
+                                       groups1=groups, groups2=groups)
+            ok, flops = defined_pairs(boxes), ROT_IOU_FLOPS
+        got, ref = run(), plain()
+        a, r = nkk.unpack_bits(got, n), nkk.unpack_bits(ref, n)
+        if ok is not None:
+            a, r = a & ok, r & ok
+        same = torch.equal(a, r)
+        up = torch.triu(torch.ones(n, n, dtype=torch.bool, device=dev), 1)
+        if groups is None:
+            pairs = bsz * n * (n - 1) // 2
+        else:
+            g = groups.long()
+            pairs = int((up & (g[:, :, None] == g[:, None, :])
+                         & (g[:, :, None] < rik.INERT_GROUP)).sum())
+        log(f"[kernel] {name:22s} bits      {what} {tuple(boxes.shape)}, thr "
+            f"{thr}: bit-equal to the plain version {same} on "
+            f"{'all' if ok is None else int(ok.sum())} pairs, "
+            f"{int(r.sum())} bits set, {pairs} pairs to decide "
+            f"{'ok' if same else 'FAIL'}")
+        if not same:
+            failures.append(f"{name} {what}")
+        del a, r, ref, up
+        t = {"ms": cuda_ms(torch, run, iters=5),
+             "device_ms": device_ms(torch, run, iters=5),
+             "plain_ms": cuda_ms(torch, plain, iters=2, warmup=1)}
+        t["bound"], t["kind"] = bound_ms(
+            boxes.numel() * 4 + got.numel() * 4
+            + (0 if groups is None else groups.numel() * 4),
+            [(pairs * flops, "float32")])
+        line = (f"[time]   {name} {what} {tuple(boxes.shape)}: kernel "
+                f"{t['ms']:.4f} ms, device {ms_str(t['device_ms'])}, plain "
+                f"{t['plain_ms']:.4f} ms, bound {t['bound']:.4f} ms "
+                f"({t['kind']})")
+        if matrix:
+            t["matrix_ms"] = cuda_ms(torch, mat, iters=5)
+            t["matrix_device_ms"] = device_ms(torch, mat, iters=5)
+            line += (f"; the matrix mode on the same input {t['matrix_ms']:.4f}"
+                     f" ms, device {ms_str(t['matrix_device_ms'])}")
+        log(line)
+        return got, t
+
+    def nms_keep_case(what, mask, elig):
+        """The keep scan against its plain version (exact, and two runs
+        bit-equal), timed beside its bound: the words the scan needs read
+        once (row i's words from its diagonal word i // 32 rightwards, as
+        the kernel stages them), eligible in, keep out; the ORs of the kept
+        rows' words as operations."""
+        def run():
+            return nkk.nms_keep(mask, elig)
+        got, again = run(), run()
+        ref = nkk.nms_keep_ref(mask, elig)
+        same = torch.equal(got, ref) and torch.equal(got, again)
+        n = elig.shape[-1]
+        kept = torch.nonzero(got)[:, 1]
+        ors = int((mask.shape[-1] - 1 - kept // 32).sum())
+        log(f"[kernel] nms_keep               bool      {what} "
+            f"{tuple(mask.shape)}: equal to the plain version and across two "
+            f"runs {same}; {int(got.sum())} kept of {int(elig.sum())} "
+            f"eligible {'ok' if same else 'FAIL'}")
+        if not same:
+            failures.append(f"nms_keep {what}")
+        t = {"ms": cuda_ms(torch, run, iters=5),
+             "device_ms": device_ms(torch, run, iters=5),
+             "plain_ms": cuda_ms(torch, lambda: nkk.nms_keep_ref(mask, elig),
+                                 iters=2, warmup=1)}
+        # row i needs words i // 32 .. W - 1: sum_i (W - i // 32) an image
+        w = mask.shape[-1]
+        words = sum(min(32, n - 32 * c) * (w - c) for c in range(w))
+        bsz = elig.numel() // max(n, 1)
+        # word ORs counted at the fp32 rate (integer operations, same units)
+        t["bound"], t["kind"] = bound_ms(bsz * words * 4 + 2 * elig.numel(),
+                                         [(ors, "float32")])
+        log(f"[time]   nms_keep {what} {tuple(mask.shape)} (n {n}): kernel "
+            f"{t['ms']:.4f} ms, device {ms_str(t['device_ms'])}, plain "
+            f"{t['plain_ms']:.4f} ms, bound {t['bound']:.4f} ms "
+            f"({t['kind']})")
+        return t
+
+    def record_main(name, t, n):
+        """Add a case at the main path's shapes, ``n`` launches of it a
+        joint forward, to the record's totals."""
+        recs[name].add(n, t["ms"], t["plain_ms"], t["bound"], t["kind"], 0.0)
+        recs[name].add_extra(n, device_ms=t["device_ms"])
+
+    def some_hbb(bsz, n):
+        xy = torch.rand(bsz, n, 2, generator=gen, device=dev) * 760
+        wh = 4 + torch.rand(bsz, n, 2, generator=gen, device=dev) * 120
+        return torch.cat([xy, xy + wh], -1)
+
+    # SAR (the GFL NMS, 8 images, thr 0.6) and RPN (8 images x 5 levels,
+    # thr 0.8) masks, and their keeps
+    for what, bsz, thr, elig_p in (("SAR", N_IMGS, 0.6, 0.9),
+                                   ("RPN", rb, 0.8, 1.0)):
+        hb = some_hbb(bsz, nb)
+        words, t = nms_mask_case("hbb_nms_mask", what, hb, thr)
+        record_main("hbb_nms_mask", t, 1)
+        elig = torch.rand(bsz, nb, generator=gen, device=dev) < elig_p
+        record_main("nms_keep", nms_keep_case(what, words, elig), 1)
+        del hb, words
+    # the aug_test merge (2 x 2000, not banded); the R-CNN's multiclass NMS
+    # (26 sorted classes, an inert tail), also at the class offsets
+    ab = rotated_boxes(1, 2 * N_PROPOSALS)
+    words, t = nms_mask_case("rotated_nms_mask", "aug_test merge", ab, 0.1)
+    record_main("rotated_nms_mask", t, 1)
+    for class_offset, bsz in ((0, N_IMGS), (4000, 2)):
+        rcb = rotated_boxes(bsz, N_PROPOSALS)
+        groups = torch.sort(torch.randint(
+            0, 26, (bsz, N_PROPOSALS), generator=gen, device=dev),
+            dim=-1).values.int()
+        rcb[..., :2] += (groups * class_offset)[..., None]
+        groups[:, -N_PROPOSALS // 8:] = rik.INERT_GROUP
+        what = f"R-CNN, class offset {class_offset}"
+        if class_offset:
+            got = rik.rotated_nms_mask(rcb, 0.1, groups)
+            ref = torch.cat([rik.rotated_nms_mask_ref(
+                rcb[i:i + 1], 0.1, groups[i:i + 1]) for i in range(bsz)])
+            ok = defined_pairs(rcb)
+            same = torch.equal(nkk.unpack_bits(got, N_PROPOSALS) & ok,
+                               nkk.unpack_bits(ref, N_PROPOSALS) & ok)
+            log(f"[kernel] rotated_nms_mask_banded bits      {what} "
+                f"{tuple(rcb.shape)}: bit-equal to the plain version {same} "
+                f"{'ok' if same else 'FAIL'}")
+            if not same:
+                failures.append(f"rotated_nms_mask_banded {what}")
+            continue
+        words, t = nms_mask_case("rotated_nms_mask_banded", what, rcb, 0.1,
+                                 groups)
+        record_main("rotated_nms_mask_banded", t, 1)
+        elig = groups < rik.INERT_GROUP
+        record_main("nms_keep", nms_keep_case("R-CNN", words, elig), 1)
+    del ab, rcb, words, elig
 
     # ---- pyramid rotated RoI align at the joint forward's shapes ----------
     n_rois = (JOINT[1] + JOINT[2]) * N_PROPOSALS
@@ -776,7 +1042,7 @@ def main():
             log(f"[time]   roi_align_rotated ({n_rois}, 7, 7, 256) bf16: "
                 f"kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {b:.4f} ms "
                 f"({k}); device time only (the kernel and route_levels' "
-                f"ops) {dev_ms:.4f} ms")
+                f"ops) {ms_str(dev_ms)}")
             align_reads("synthetic", feats, rois)
         del got, feats
     # ---- the train step's kernels ----------------------------------------
@@ -905,8 +1171,8 @@ def main():
                 f"backward: {ms:.4f} ms (forward kernel {fwd_ms:.4f}, "
                 f"backward kernels {bwd_ms:.4f}), plain {pms:.4f} ms, "
                 f"library {lms:.4f} ms, bound {b:.4f} ms ({k}); device "
-                f"time only: kernels {dev_ms:.4f} ms, library {dev_lms:.4f} "
-                f"ms")
+                f"time only: kernels {ms_str(dev_ms)}, library "
+                f"{ms_str(dev_lms)}")
             del ins, g_out, saved
 
     # ConvNeXt-L's and -XL's widest stages (C = 1536, 2048; off the main
@@ -1114,21 +1380,31 @@ def main():
             # the NMS compares IoU > 0.1 and the host's IoU differs from
             # the card's in the last bits (sinf/cosf): a candidate pair
             # within 1e-5 of the threshold may decide either way. Then the
-            # kernel must still agree with its plain version run on the
-            # card, where both see the same sinf/cosf
-            kernel_iou = nms_mod.rotated_iou
-            nms_mod.rotated_iou = rik.rotated_iou_ref
+            # mask kernel must still agree with its plain version run on
+            # the card, where both see the same sinf/cosf: the NMS's mask
+            # function is swapped for the plain one, whose route launches
+            # no mask kernel
+            kernel_mask = nms_mod.rotated_nms_mask
+            nms_mod.rotated_nms_mask = rik.rotated_nms_mask_ref
+            build.reset_launches()
             try:
                 det_p = model.get_bboxes_rcnn(*args, shape)
             finally:
-                nms_mod.rotated_iou = kernel_iou
+                nms_mod.rotated_nms_mask = kernel_mask
+            torch.cuda.synchronize()
+            plain_route = dict(build.LAUNCHES)
             ok = n_valid > 0 and all(
-                torch.equal(a, b) for a, b in zip(det_d, det_p))
+                torch.equal(a, b) for a, b in zip(det_d, det_p)) and \
+                plain_route["rotated_nms_mask_banded"] == 0 and \
+                plain_route["nms_keep"] == 1
             log(f"[e2e fp32] rgb detections from the same logits: card and "
                 f"host differ ({int(det_d[2].sum())} against {n_valid} "
                 f"valid): a near-tie at the IoU threshold between the "
-                f"devices; the kernel against the plain IoU on the card: "
-                f"equal {ok} {'ok' if ok else 'FAIL'}")
+                f"devices; the mask kernel against the plain mask on the "
+                f"card (that run's launches: rotated_nms_mask_banded "
+                f"{plain_route['rotated_nms_mask_banded']}, nms_keep "
+                f"{plain_route['nms_keep']}): equal {ok} "
+                f"{'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append("e2e rgb detections")
     del model, host, feats_d, feats_h, x_d, x_h, rpn_d, rpn_h, rf_d, rf_h
@@ -1152,10 +1428,12 @@ def main():
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"[e2e bf16] sar: launches in one forward: {sar_launches}")
     want = {"fused_convnext_block": 11, "dwconv_ln": 18,
-            "moe_ffn_grouped": 7, "fused_layernorm": 8, "hbb_iou": 1,
+            "moe_ffn_grouped": 7, "fused_layernorm": 8, "hbb_iou": 0,
             "rotated_iou": 0, "rotated_iou_banded": 0,
             "roi_align_rotated": 0, "roi_align_rotated_bwd": 0,
-            "fused_dwconv_ln_train": 0, "fused_dwconv_ln_train_bwd": 0}
+            "fused_dwconv_ln_train": 0, "fused_dwconv_ln_train_bwd": 0,
+            "hbb_nms_mask": 1, "rotated_nms_mask": 0,
+            "rotated_nms_mask_banded": 0, "nms_keep": 1}
     for k, v in sar_launches.items():
         if v != want[k]:
             failures.append(f"sar launches {k}={v}")
@@ -1224,12 +1502,15 @@ def main():
     launches = dict(build.LAUNCHES)
     joint_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"[joint bf16] launches in one forward: {launches}")
-    # hbb_iou: the SAR NMS, and the RPN NMS of 8 images x 5 levels in one
+    # hbb_nms_mask: the SAR NMS, and the RPN NMS of 8 images x 5 levels in
+    # one; rotated_nms_mask_banded: the R-CNN NMS; a keep scan each
     want = {"fused_convnext_block": 11, "dwconv_ln": 18,
-            "moe_ffn_grouped": 7, "fused_layernorm": 8, "hbb_iou": 2,
-            "rotated_iou": 0, "rotated_iou_banded": 1,
+            "moe_ffn_grouped": 7, "fused_layernorm": 8, "hbb_iou": 0,
+            "rotated_iou": 0, "rotated_iou_banded": 0,
             "roi_align_rotated": 1, "roi_align_rotated_bwd": 0,
-            "fused_dwconv_ln_train": 0, "fused_dwconv_ln_train_bwd": 0}
+            "fused_dwconv_ln_train": 0, "fused_dwconv_ln_train_bwd": 0,
+            "hbb_nms_mask": 2, "rotated_nms_mask": 0,
+            "rotated_nms_mask_banded": 1, "nms_keep": 3}
     for k, v in launches.items():
         if v != want[k]:
             log(f"[joint bf16] launches of {k}: {v}, expected {want[k]}")
@@ -1310,8 +1591,57 @@ def main():
     align_reads("proposals", x, rois_j)
     del x, rpn, props, rf, logits, deltas, s_cls, s_reg, got, ref, again
 
+    # the NMS kernels on the joint forward's own inputs: one forward with
+    # the NMS's mask and keep functions recording what they are given
+    nms_fns = {k: getattr(nms_mod, k)
+               for k in ("hbb_nms_mask", "rotated_nms_mask", "nms_keep")}
+    seen = []
+
+    def recording(k):
+        def fn(*a, **kw):
+            seen.append((k, a, kw))
+            return nms_fns[k](*a, **kw)
+        return fn
+    for k in nms_fns:
+        setattr(nms_mod, k, recording(k))
+    try:
+        joint()
+    finally:
+        for k, fn in nms_fns.items():
+            setattr(nms_mod, k, fn)
+    stage_of = ["SAR", "RPN", "R-CNN"]
+    masks = [c for c in seen if c[0] != "nms_keep"]
+    keeps = [c for c in seen if c[0] == "nms_keep"]
+    log(f"[joint bf16] the NMS's inputs recorded from one forward: "
+        f"{[(k, tuple(a[0].shape)) for k, a, _ in seen]}")
+    if len(masks) != 3 or len(keeps) != 3:
+        failures.append(f"joint NMS calls {[k for k, _, _ in seen]}")
+    for what, (k, a, kw), (_, ka, _) in zip(stage_of, masks, keeps):
+        boxes, thr = a[0], a[1]
+        groups = a[2] if len(a) > 2 else kw.get("groups")
+        name = k + ("_banded" if groups is not None else "")
+        _, t = nms_mask_case(name, f"joint forward's {what} input", boxes,
+                             thr, groups, matrix=True)
+        recs[name].add_extra(1, joint_input_ms=t["ms"],
+                             joint_input_device_ms=t["device_ms"],
+                             joint_input_plain_ms=t["plain_ms"],
+                             joint_input_bound_ms=t["bound"])
+        matrix = "rotated_iou_banded" if groups is not None else "hbb_iou"
+        recs[matrix].add_extra(1, joint_input_ms=t["matrix_ms"],
+                               joint_input_device_ms=t["matrix_device_ms"])
+        tk = nms_keep_case(f"joint forward's {what} input", *ka)
+        recs["nms_keep"].add_extra(1, joint_input_ms=tk["ms"],
+                                   joint_input_device_ms=tk["device_ms"],
+                                   joint_input_plain_ms=tk["plain_ms"],
+                                   joint_input_bound_ms=tk["bound"])
+    del seen, masks, keeps
+    joint_syncs = host_syncs(torch, joint)
+    log(f"[joint bf16] host synchronisations in one forward "
+        f"(set_sync_debug_mode('warn')): {sum(joint_syncs.values())}; "
+        f"by site: {joint_syncs}")
+
     # test-time augmentation on one RGB image: the merge of the two
-    # variants' detections runs the un-banded rotated IoU kernel
+    # variants' detections runs the un-banded rotated mask kernel
     model.aug_test(rgb_i[:1], "rgb")
     torch.cuda.synchronize()
     build.reset_launches()
@@ -1320,13 +1650,13 @@ def main():
     aug_launches = dict(build.LAUNCHES)
     ok = a_dets.shape == (1, N_PROPOSALS, 6) and \
         bool(torch.isfinite(a_dets).all()) and int(a_valid.sum()) > 0 and \
-        aug_launches["rotated_iou"] >= 1
+        aug_launches["rotated_nms_mask"] >= 1
     log(f"[aug bf16] aug_test('rgb'), 1 image, 2 flips: dets "
         f"{tuple(a_dets.shape)}, {int(a_valid.sum())} valid; launches "
         f"{aug_launches} {'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append("aug_test")
-    launches["rotated_iou"] = aug_launches["rotated_iou"]
+    launches["rotated_nms_mask"] = aug_launches["rotated_nms_mask"]
     if failures:
         fail(f"full-width joint run failed: {failures}")
 
@@ -1463,10 +1793,19 @@ def main():
         failures.append("train parameters did not move")
     if not (warm_ones and on_later):
         failures.append("DLA multipliers")
-    for k in ("hbb_iou", "rotated_iou", "roi_align_rotated",
+    for k in ("hbb_nms_mask", "nms_keep", "rotated_iou", "roi_align_rotated",
               "roi_align_rotated_bwd", "fused_dwconv_ln_train"):
         if train_launches[k] <= 0:
             failures.append(f"train launches {k}={train_launches[k]}")
+    # phase 3 times the assigner's IoU at one launch an R-CNN image
+    if train_launches["rotated_iou"] != TRAIN[1] + TRAIN[2]:
+        failures.append(f"train launches rotated_iou="
+                        f"{train_launches['rotated_iou']}, expected "
+                        f"{TRAIN[1] + TRAIN[2]}")
+    train_syncs = host_syncs(torch, one_step)
+    log(f"[train bf16] host synchronisations in one step "
+        f"(set_sync_debug_mode('warn')): {sum(train_syncs.values())}; "
+        f"by site: {train_syncs}")
     # the 18 ConvNeXt-T blocks: one forward and one backward each
     for k in ("fused_dwconv_ln_train", "fused_dwconv_ln_train_bwd"):
         if train_launches[k] != 18:
@@ -1474,20 +1813,24 @@ def main():
                             f"expected 18")
     if failures:
         fail(f"flagship train step failed: {failures}")
-    launches["roi_align_rotated_bwd"] = train_launches["roi_align_rotated_bwd"]
-    launches["fused_dwconv_ln_train"] = train_launches["fused_dwconv_ln_train"]
+    for k in ("rotated_iou", "roi_align_rotated_bwd", "fused_dwconv_ln_train"):
+        launches[k] = train_launches[k]
 
     log(json.dumps({
         "kernels": [recs[k].json(launches[k]) for k in recs],
-        "launches_from": "simple_test_joint [8:4:4]; rotated_iou from "
-                         "aug_test('rgb') on 1 image; roi_align_rotated_bwd "
-                         "and fused_dwconv_ln_train from one flagship train "
-                         "step",
+        "launches_from": "simple_test_joint [8:4:4]; rotated_nms_mask "
+                         "from aug_test('rgb') on 1 image; rotated_iou (the "
+                         "R-CNN assigner), roi_align_rotated_bwd and "
+                         "fused_dwconv_ln_train from one flagship train "
+                         "step; hbb_iou and rotated_iou_banded (matrix "
+                         "modes) run on no path",
         "train_step_launches": train_launches,
         "train_images_per_s": train_ips, "train_step_ms": train_dt * 1e3,
         "train_peak_gib": train_peak_gib, "train_losses": metrics,
         "joint_images_per_s": joint_ips, "joint_ms": joint_dt * 1e3,
         "joint_peak_gib": joint_peak_gib, "joint_stage_ms": stages,
+        "joint_host_syncs": sum(joint_syncs.values()),
+        "train_host_syncs": sum(train_syncs.values()),
         "sar_images_per_s": sar_ips, "sar_peak_gib": peak_gib,
         "card": smi}))
     log(json.dumps({"ok": True, "device": {

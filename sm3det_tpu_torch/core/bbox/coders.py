@@ -5,6 +5,7 @@ RPN) and ``DeltaXYWHAOBBoxCoder`` (Oriented R-CNN), each with its
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -14,15 +15,25 @@ from ...ops.box_convert import norm_angle, obb2poly, obb2xyxy, poly2obb
 PI = math.pi
 
 
+@functools.lru_cache(maxsize=64)
+def _constant(values: tuple, dtype, device) -> torch.Tensor:
+    """A coder's means or stds as a tensor, made once a dtype and device: a
+    copy from the host to the card waits for the card, so it is not made
+    on every decode. Made outside inference mode, so that a later train
+    step may save it for its backward."""
+    with torch.inference_mode(False):
+        return torch.as_tensor(values, dtype=dtype, device=device)
+
+
 def _normalize(deltas, means, stds):
-    means = torch.as_tensor(means, dtype=deltas.dtype, device=deltas.device)
-    stds = torch.as_tensor(stds, dtype=deltas.dtype, device=deltas.device)
+    means = _constant(tuple(means), deltas.dtype, deltas.device)
+    stds = _constant(tuple(stds), deltas.dtype, deltas.device)
     return (deltas - means) / stds
 
 
 def _denormalize(deltas, means, stds):
-    means = torch.as_tensor(means, dtype=deltas.dtype, device=deltas.device)
-    stds = torch.as_tensor(stds, dtype=deltas.dtype, device=deltas.device)
+    means = _constant(tuple(means), deltas.dtype, deltas.device)
+    stds = _constant(tuple(stds), deltas.dtype, deltas.device)
     return deltas * stds + means
 
 
@@ -70,18 +81,21 @@ class DeltaXYWHAOBBoxCoder:
 
     def decode(self, rois, deltas, max_shape=None, wh_ratio_clip=16 / 1000):
         d = _denormalize(deltas, self.means, self.stds)
-        dx, dy, dw, dh, da = (d[..., i] for i in range(5))
+        dx, dy, da = d[..., 0], d[..., 1], d[..., 4]
         if self.norm_factor:
             da = da * (self.norm_factor * PI)
         max_ratio = abs(math.log(wh_ratio_clip))
-        dw = torch.clamp(dw, -max_ratio, max_ratio)
-        dh = torch.clamp(dh, -max_ratio, max_ratio)
         px, py, pw, ph, pa = (rois[..., i] for i in range(5))
-        gw = pw * torch.exp(dw)
-        gh = ph * torch.exp(dh)
+        # (w, h) and (dx * pw, dy * ph) as pairs: the same operations on
+        # each entry as one by one
+        gwh = rois[..., 2:4] * torch.exp(
+            torch.clamp(d[..., 2:4], -max_ratio, max_ratio))
+        gw, gh = gwh[..., 0], gwh[..., 1]
         if self.proj_xy:
-            gx = dx * pw * torch.cos(pa) - dy * ph * torch.sin(pa) + px
-            gy = dx * pw * torch.sin(pa) + dy * ph * torch.cos(pa) + py
+            u = d[..., 0:2] * rois[..., 2:4]
+            cos_a, sin_a = torch.cos(pa), torch.sin(pa)
+            gx = u[..., 0] * cos_a - u[..., 1] * sin_a + px
+            gy = u[..., 0] * sin_a + u[..., 1] * cos_a + py
         else:
             gx = px + pw * dx
             gy = py + ph * dy
@@ -143,30 +157,22 @@ class MidpointOffsetCoder:
     def decode(self, rois, deltas, max_shape=None, wh_ratio_clip=16 / 1000):
         """``max_shape`` is accepted and unused, as in the reference."""
         d = _denormalize(deltas, self.means, self.stds)
-        dx, dy, dw, dh, da, db = (d[..., i] for i in range(6))
         max_ratio = abs(math.log(wh_ratio_clip))
-        dw = torch.clamp(dw, -max_ratio, max_ratio)
-        dh = torch.clamp(dh, -max_ratio, max_ratio)
-        px = (rois[..., 0] + rois[..., 2]) * 0.5
-        py = (rois[..., 1] + rois[..., 3]) * 0.5
-        pw = rois[..., 2] - rois[..., 0]
-        ph = rois[..., 3] - rois[..., 1]
-        gw = pw * torch.exp(dw)
-        gh = ph * torch.exp(dh)
-        gx = px + pw * dx
-        gy = py + ph * dy
-        x1 = gx - gw * 0.5
-        y1 = gy - gh * 0.5
-        x2 = gx + gw * 0.5
-        y2 = gy + gh * 0.5
-        da = torch.clamp(da, -0.5, 0.5)
-        db = torch.clamp(db, -0.5, 0.5)
-        ga = gx + da * gw
-        _ga = gx - da * gw
-        gb = gy + db * gh
-        _gb = gy - db * gh
-        polys = torch.stack([ga, y1, x2, gb, _ga, y2, x1, _gb], dim=-1)
-        center = torch.stack([gx, gy] * 4, dim=-1)
+        # each step on the (x, y) pair at once: every entry goes through
+        # the same operations as when x and y are taken one by one
+        p1, p2 = rois[..., 0:2], rois[..., 2:4]
+        pxy = (p1 + p2) * 0.5
+        pwh = p2 - p1
+        gwh = pwh * torch.exp(torch.clamp(d[..., 2:4], -max_ratio, max_ratio))
+        gxy = pxy + pwh * d[..., 0:2]
+        half = gwh * 0.5
+        lo, hi = gxy - half, gxy + half                # (x1, y1), (x2, y2)
+        off = torch.clamp(d[..., 4:6], -0.5, 0.5) * gwh
+        ab, _ab = gxy + off, gxy - off                 # (ga, gb), (_ga, _gb)
+        polys = torch.stack([ab[..., 0], lo[..., 1], hi[..., 0], ab[..., 1],
+                             _ab[..., 0], hi[..., 1], lo[..., 0], _ab[..., 1]],
+                            dim=-1)
+        center = gxy.repeat((1,) * (gxy.dim() - 1) + (4,))
         cp = polys - center
         diag = torch.sqrt(cp[..., 0::2] ** 2 + cp[..., 1::2] ** 2)
         diag = torch.clamp(diag, min=1e-6)

@@ -10,6 +10,7 @@ image.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Sequence
 
@@ -139,6 +140,14 @@ def gfl_loss(cls_scores, bbox_preds, gt_bboxes, gt_labels, gt_mask,
             "loss_dfl": loss_weights[2] * l_dfl / total_w}
 
 
+@functools.lru_cache(maxsize=16)
+def _level_strides(counts: tuple, strides: tuple, dtype, device):
+    """(sum(counts), 1): each candidate's level stride, made once."""
+    return torch.cat([torch.full((k, 1), float(st), dtype=dtype,
+                                 device=device)
+                      for k, st in zip(counts, strides)])
+
+
 def gfl_get_bboxes(cls_scores, bbox_preds,
                    anchor_generator: AnchorGenerator, num_classes: int,
                    img_shape, reg_max: int = 16,
@@ -147,29 +156,37 @@ def gfl_get_bboxes(cls_scores, bbox_preds,
                    iou_thr: float = 0.6, max_per_img: int = 100):
     """Static test-time decode + NMS (mmdet ``GFLHead.get_bboxes``).
 
+    The top ``nms_pre`` anchors of each level by their best class score
+    are the candidates; they are decoded together after the selection (the
+    integral and the decode work anchor by anchor, so this gives the values
+    of decoding every anchor, with a fifth of the launches).
+
     Returns batched (dets (B, max_per_img, 5) xyxy+score, labels, valid).
     """
     dev = cls_scores[0].device
     b = cls_scores[0].shape[0]
     featmap_sizes = [tuple(s.shape[1:3]) for s in cls_scores]
     anchors_l = anchor_generator.grid_anchors(featmap_sizes, device=dev)
-    coder = DistancePointBBoxCoder()
-    cand_boxes, cand_scores = [], []
+    cand_anchors, cand_reg, cand_scores, counts = [], [], [], []
     for lvl, (cls_s, reg_s) in enumerate(zip(cls_scores, bbox_preds)):
-        a = anchors_l[lvl]
         scores = torch.sigmoid(cls_s.reshape(b, -1, num_classes))
-        dist = integral(reg_s.reshape(b, -1, 4 * (reg_max + 1)), reg_max) \
-            * strides[lvl]
-        centers = torch.stack([(a[:, 0] + a[:, 2]) / 2,
-                               (a[:, 1] + a[:, 3]) / 2], dim=-1)
-        boxes = coder.decode(centers[None], dist, max_shape=img_shape)
         k = min(nms_pre, scores.shape[1])
         _, top_idx = _topk_scores(scores.max(dim=-1).values, k)
-        cand_boxes.append(torch.gather(
-            boxes, 1, top_idx[..., None].expand(-1, -1, 4)))
+        cand_anchors.append(anchors_l[lvl][top_idx])
+        cand_reg.append(torch.gather(
+            reg_s.reshape(b, -1, 4 * (reg_max + 1)), 1,
+            top_idx[..., None].expand(-1, -1, 4 * (reg_max + 1))))
         cand_scores.append(torch.gather(
             scores, 1, top_idx[..., None].expand(-1, -1, num_classes)))
-    boxes = torch.cat(cand_boxes, dim=1)
+        counts.append(k)
+    a = torch.cat(cand_anchors, dim=1)
+    reg = torch.cat(cand_reg, dim=1)
+    dist = integral(reg, reg_max) * _level_strides(
+        tuple(counts), tuple(strides), reg.dtype, dev)
+    centers = torch.stack([(a[..., 0] + a[..., 2]) / 2,
+                           (a[..., 1] + a[..., 3]) / 2], dim=-1)
+    boxes = DistancePointBBoxCoder().decode(centers, dist,
+                                            max_shape=img_shape)
     scores = torch.cat(cand_scores, dim=1)
     pad = torch.zeros(scores.shape[:2] + (1,), dtype=scores.dtype,
                       device=dev)

@@ -101,8 +101,10 @@ def rpn_get_proposals(cls_scores, bbox_preds,
 
     The RPN's NMS is per level, so the levels are padded to a common K
     (score -inf, never kept) and all (image, level) pairs go through one
-    batched NMS: one IoU launch and one greedy pass. The proposals are not
-    clipped to the image, as in the reference.
+    batched NMS: one mask launch and one keep launch. The candidates of all
+    levels are decoded together (the decode is elementwise, so this gives
+    the per-level values with a fifth of the launches). The proposals are
+    not clipped to the image, as in the reference.
     """
     dev = cls_scores[0].device
     b = cls_scores[0].shape[0]
@@ -110,30 +112,39 @@ def rpn_get_proposals(cls_scores, bbox_preds,
     anchors_l = anchor_generator.grid_anchors(featmap_sizes, device=dev)
     sizes = [s[0].numel() for s in cls_scores]
     kmax = max(min(nms_pre, n) for n in sizes)
-    boxes_lv, scores_lv = [], []
+    anchors_lv, deltas_lv, scores_lv = [], [], []
     for lvl, (cls_s, reg_s) in enumerate(zip(cls_scores, bbox_preds)):
         scores = torch.sigmoid(cls_s.reshape(b, -1))
         deltas = reg_s.reshape(b, -1, 6)
         k = min(nms_pre, sizes[lvl])
         top_vals, top_idx = _topk_scores(scores, k)
-        obbs = coder.decode(anchors_l[lvl][top_idx], _take(deltas, top_idx))
+        anchors, deltas = anchors_l[lvl][top_idx], _take(deltas, top_idx)
         if k < kmax:
             top_vals = torch.cat([top_vals, top_vals.new_full(
                 (b, kmax - k), float("-inf"))], dim=1)
-            obbs = torch.cat([obbs, obbs.new_zeros((b, kmax - k, 5))], dim=1)
-        boxes_lv.append(obbs)
+            anchors = torch.cat([anchors, anchors.new_zeros(
+                (b, kmax - k, 4))], dim=1)
+            deltas = torch.cat([deltas, deltas.new_zeros(
+                (b, kmax - k, 6))], dim=1)
+        anchors_lv.append(anchors)
+        deltas_lv.append(deltas)
         scores_lv.append(top_vals)
-    n_lvl = len(boxes_lv)
-    obbs_lv = torch.stack(boxes_lv, dim=1).reshape(b * n_lvl, kmax, 5)
+    n_lvl = len(scores_lv)
     scores_lv = torch.stack(scores_lv, dim=1).reshape(b * n_lvl, kmax)
+    obbs_lv = coder.decode(
+        torch.stack(anchors_lv, dim=1).reshape(b * n_lvl, kmax, 4),
+        torch.stack(deltas_lv, dim=1).reshape(b * n_lvl, kmax, 6))
+    # the padding's boxes are zeros (its scores are -inf: never kept)
+    obbs_lv = torch.where(torch.isneginf(scores_lv)[..., None], 0.0,
+                          obbs_lv)
     keep_n = min(max_per_img, kmax)
     _, idx, valid = nms(obb2xyxy(obbs_lv), scores_lv, iou_thr,
                         max_out=keep_n, score_thr=float("-inf"))
-    safe = torch.where(idx >= 0, idx, torch.zeros_like(idx))
+    safe = torch.where(idx >= 0, idx, 0)
     obbs = torch.where(valid[..., None], _take(obbs_lv, safe),
-                       obbs_lv.new_zeros(())).reshape(b, n_lvl * keep_n, 5)
-    scores = torch.where(valid, _take(scores_lv, safe), scores_lv.new_full(
-        (), float("-inf"))).reshape(b, n_lvl * keep_n)
+                       0.0).reshape(b, n_lvl * keep_n, 5)
+    scores = torch.where(valid, _take(scores_lv, safe),
+                         float("-inf")).reshape(b, n_lvl * keep_n)
     if scores.shape[1] < max_per_img:          # degenerate tiny configs
         pad = max_per_img - scores.shape[1]
         scores = torch.cat([scores, scores.new_full(
@@ -141,7 +152,6 @@ def rpn_get_proposals(cls_scores, bbox_preds,
         obbs = torch.cat([obbs, obbs.new_zeros((b, pad, 5))], dim=1)
     top_s, top_i = _topk_scores(scores, max_per_img)
     valid = torch.isfinite(top_s)
-    out_obbs = torch.where(valid[..., None], _take(obbs, top_i),
-                           obbs.new_zeros(()))
-    out_scores = torch.where(valid, top_s, top_s.new_zeros(()))
+    out_obbs = torch.where(valid[..., None], _take(obbs, top_i), 0.0)
+    out_scores = torch.where(valid, top_s, 0.0)
     return out_obbs, out_scores, valid

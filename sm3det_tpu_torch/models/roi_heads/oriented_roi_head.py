@@ -77,8 +77,7 @@ def roi_head_get_bboxes(cls_logits, reg_pred, rois, roi_valid,
     batch ((B, N, ...)). Returns (dets (.., max_per_img, 6), labels,
     valid)."""
     scores = torch.softmax(cls_logits, dim=-1)
-    scores = torch.where(roi_valid[..., None], scores,
-                         scores.new_zeros(()))
+    scores = torch.where(roi_valid[..., None], scores, 0.0)
     obbs = coder.decode(rois, reg_pred, max_shape=img_shape)
     return multiclass_nms_rotated(
         obbs, scores, score_thr=score_thr, iou_thr=iou_thr,

@@ -37,7 +37,9 @@ LAUNCHES = {"dwconv_ln": 0, "fused_convnext_block": 0,
             "moe_ffn_grouped": 0, "hbb_iou": 0, "fused_layernorm": 0,
             "rotated_iou": 0, "rotated_iou_banded": 0,
             "roi_align_rotated": 0, "roi_align_rotated_bwd": 0,
-            "fused_dwconv_ln_train": 0, "fused_dwconv_ln_train_bwd": 0}
+            "fused_dwconv_ln_train": 0, "fused_dwconv_ln_train_bwd": 0,
+            "hbb_nms_mask": 0, "rotated_nms_mask": 0,
+            "rotated_nms_mask_banded": 0, "nms_keep": 0}
 
 _lib = None
 
@@ -63,6 +65,12 @@ _SIGNATURES = {
     "sm3det_ffn_fused": [_P, _P, _I] + [_P] * 7 + [_I] * 5 + [_P],
     # boxes1, boxes2, out, B, N, M, triu, eps, stream
     "sm3det_hbb_iou": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # boxes, out words, B, N, thr, eps, stream
+    "sm3det_hbb_nms_mask": [_P, _P, _I, _I, _F, _F, _P],
+    # boxes, groups (null: not banded), out words, B, N, thr, stream
+    "sm3det_rotated_nms_mask": [_P, _P, _P, _I, _I, _F, _P],
+    # mask words, eligible, keep, B, N, stream
+    "sm3det_nms_keep": [_P, _P, _P, _I, _I, _P],
     # x, scale, bias, out, rows, C, in_bf16, out_bf16, bf16 mask of
     # (scale, bias), eps, stream
     "sm3det_layernorm": [_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I,

@@ -1,4 +1,5 @@
-// Pairwise IoU of rotated boxes (cx, cy, w, h, theta), batched over images.
+// Pairwise IoU of rotated boxes (cx, cy, w, h, theta), batched over images:
+// as a matrix, or as the packed suppression bits of greedy NMS.
 //
 // Replaces: sm3det_tpu/ops/pallas/rotated_iou_kernel.py::_iou_block_kernel
 //   and ::_iou_block_kernel_banded (box_iou_rotated_pallas), the
@@ -12,19 +13,29 @@
 // -1e-4 px, so a shared boundary counts once. iou = inter / max(union,
 // 1e-8) where union > 1e-8, else 0. Every operation is rounded on its own
 // (exact_math.cuh), in the order of the plain version, because the NMS
-// compares the result with a threshold.
+// compares the result with a threshold. Both modes call one pair function
+// (pair_iou).
 //
-// triu: a tile strictly below the diagonal of tiles is written as zeros,
-// uncomputed (score-ordered greedy NMS reads the strict upper triangle).
-// Banded (groups1/groups2 given, ascending per image): a tile is computed
-// only where the group ranges of its rows and of its columns overlap and
+// Matrix mode (sm3det_rotated_iou). triu: a tile strictly below the
+// diagonal of tiles is written as zeros, uncomputed. Banded
+// (groups1/groups2 given, ascending per image): a tile is computed only
+// where the group ranges of its rows and of its columns overlap and
 // neither side is all inert (group >= 1 << 20); other tiles are zeros.
 // Rows and columns past N, M count as inert.
 //
+// Mask mode (sm3det_rotated_nms_mask): the self-IoU of N boxes, compared
+// with thr in registers and packed by a warp ballot into (B, N, W) 32-bit
+// words, W = ceil(N / 32): bit j % 32 of word j / 32 of row i is set iff
+// j > i, j < N, iou(i, j) > thr and, banded, both groups are equal and
+// below the inert group. A tile's 32 columns are exactly one word. Tiles
+// below the diagonal or outside the band write their zero words
+// uncomputed (128 bytes, against the matrix's 4 KB of zeros); inside a
+// computed tile, pairs whose bit is 0 by position or group skip the
+// clipping.
+//
 // Bound on the H100: operations. A computed pair costs ~650 fp32
-// operations, 96 of them IEEE divisions, against 4 bytes written; a
-// skipped tile costs its 4 KB of zeros. At (8, 2000, 2000) banded by 26
-// classes most tiles are skipped and the output write dominates.
+// operations, 96 of them IEEE divisions, against 4 bytes written (the
+// matrix) or 1 bit (the mask).
 //
 // Design: nothing of the TPU layout is kept (no (5, N) transpose, no
 // 128-lane tiles). A block owns a 32 x 32 tile of one image (grid z). Its
@@ -33,9 +44,9 @@
 // and sqrtf run per box and not per pair. Then one thread per pair, four
 // pairs a thread: a warp shares its row box (a broadcast read) and reads
 // 32 column boxes at an odd stride (no bank conflict), and stores 32
-// consecutive floats. The small tile makes the band and the triangle
-// tight: at 26 classes of ~77 candidates a 128-wide tile would compute
-// four times the pairs.
+// consecutive floats, or one ballot word. The small tile makes the band
+// and the triangle tight: at 26 classes of ~77 candidates a 128-wide tile
+// would compute four times the pairs.
 
 #include <cuda_runtime.h>
 
@@ -113,19 +124,33 @@ __device__ __forceinline__ float clip_contrib(const float (&s)[GEOM],
   return total;
 }
 
+__device__ __forceinline__ float pair_iou(const float (&q1)[GEOM],
+                                          const float (&q2)[GEOM]) {
+  const float inter = fmaxf(
+      exact::add(clip_contrib(q1, q2, 1e-4f), clip_contrib(q2, q1, -1e-4f)),
+      0.f);
+  const float uni = exact::sub(exact::add(q1[20], q2[20]), inter);
+  return uni > EPS ? exact::div(inter, fmaxf(uni, EPS)) : 0.f;
+}
+
+// MASK: boxes2 is boxes1, groups2 is groups1, out holds (B, N, W) words
+template <bool MASK>
 __global__ void __launch_bounds__(THREADS)
 rotated_iou_kernel(const float* __restrict__ boxes1,
                    const float* __restrict__ boxes2,
                    const int* __restrict__ groups1,
-                   const int* __restrict__ groups2, float* __restrict__ out,
-                   int N, int M, int triu) {
+                   const int* __restrict__ groups2, void* __restrict__ out,
+                   int N, int M, int triu, float thr) {
   __shared__ float s1[TILE][GEOM];
   __shared__ float s2[TILE][GEOM];
   __shared__ int bounds[4];  // min, max of the row groups; of the columns
+  __shared__ int gs[2][TILE];  // the row and column groups (mask mode)
   const int bi = blockIdx.y, bj = blockIdx.x, b = blockIdx.z;
   const int i0 = bi * TILE, j0 = bj * TILE;
   const int tid = threadIdx.x;
-  float* ob = out + (size_t)b * N * M;
+  const int W = (N + TILE - 1) / TILE;
+  float* ob = static_cast<float*>(out) + (size_t)b * N * M;
+  unsigned* mb = static_cast<unsigned*>(out) + (size_t)b * N * W;
 
   bool need = !(triu && bj < bi);
   if (need && groups1 != nullptr) {
@@ -139,6 +164,7 @@ rotated_iou_kernel(const float* __restrict__ boxes1,
       const int v = idx < lim ? g[idx] : INERT_GROUP;
       const int lo = __reduce_min_sync(0xffffffffu, v);
       const int hi = __reduce_max_sync(0xffffffffu, v);
+      if (MASK) gs[row ? 0 : 1][lane] = v;
       if (lane == 0) {
         bounds[row ? 0 : 2] = lo;
         bounds[row ? 1 : 3] = hi;
@@ -150,6 +176,10 @@ rotated_iou_kernel(const float* __restrict__ boxes1,
   }
 
   if (!need) {
+    if (MASK) {
+      if (tid < TILE && i0 + tid < N) mb[(size_t)(i0 + tid) * W + bj] = 0u;
+      return;
+    }
     for (int idx = tid; idx < TILE * TILE; idx += THREADS) {
       const int gi = i0 + idx / TILE, gj = j0 + idx % TILE;
       if (gi < N && gj < M) ob[(size_t)gi * M + gj] = 0.f;
@@ -173,8 +203,27 @@ rotated_iou_kernel(const float* __restrict__ boxes1,
   __syncthreads();
 
   for (int idx = tid; idx < TILE * TILE; idx += THREADS) {
+    // a warp holds one row r and its 32 columns c
     const int r = idx / TILE, c = idx % TILE;
     const int gi = i0 + r, gj = j0 + c;
+    if (MASK) {
+      if (gi >= N) continue;  // uniform across the warp
+      bool bit = gj > gi && gj < N;
+      if (groups1 != nullptr)
+        bit = bit && gs[0][r] == gs[1][c] && gs[0][r] < INERT_GROUP;
+      if (bit) {
+        float q1[GEOM], q2[GEOM];
+#pragma unroll
+        for (int k = 0; k < GEOM; ++k) {
+          q1[k] = s1[r][k];
+          q2[k] = s2[c][k];
+        }
+        bit = pair_iou(q1, q2) > thr;
+      }
+      const unsigned word = __ballot_sync(0xffffffffu, bit);
+      if (c == 0) mb[(size_t)gi * W + bj] = word;
+      continue;
+    }
     if (gi >= N || gj >= M) continue;
     float q1[GEOM], q2[GEOM];
 #pragma unroll
@@ -182,12 +231,7 @@ rotated_iou_kernel(const float* __restrict__ boxes1,
       q1[k] = s1[r][k];
       q2[k] = s2[c][k];
     }
-    const float inter = fmaxf(
-        exact::add(clip_contrib(q1, q2, 1e-4f), clip_contrib(q2, q1, -1e-4f)),
-        0.f);
-    const float uni = exact::sub(exact::add(q1[20], q2[20]), inter);
-    ob[(size_t)gi * M + gj] =
-        uni > EPS ? exact::div(inter, fmaxf(uni, EPS)) : 0.f;
+    ob[(size_t)gi * M + gj] = pair_iou(q1, q2);
   }
 }
 
@@ -202,7 +246,19 @@ extern "C" int sm3det_rotated_iou(const float* boxes1, const float* boxes2,
   if ((groups1 == nullptr) != (groups2 == nullptr))
     return (int)cudaErrorInvalidValue;
   dim3 grid((M + TILE - 1) / TILE, (N + TILE - 1) / TILE, B);
-  rotated_iou_kernel<<<grid, THREADS, 0, stream>>>(boxes1, boxes2, groups1,
-                                                   groups2, out, N, M, triu);
+  rotated_iou_kernel<false><<<grid, THREADS, 0, stream>>>(
+      boxes1, boxes2, groups1, groups2, out, N, M, triu, 0.f);
+  return (int)cudaGetLastError();
+}
+
+// boxes (B, N, 5) fp32; groups (B, N) int32 ascending, or nullptr (not
+// banded); out (B, N, ceil(N / 32)) words
+extern "C" int sm3det_rotated_nms_mask(const float* boxes, const int* groups,
+                                       unsigned* out, int B, int N, float thr,
+                                       cudaStream_t stream) {
+  const int W = (N + TILE - 1) / TILE;
+  dim3 grid(W, W, B);
+  rotated_iou_kernel<true><<<grid, THREADS, 0, stream>>>(
+      boxes, boxes, groups, groups, out, N, N, 1, thr);
   return (int)cudaGetLastError();
 }

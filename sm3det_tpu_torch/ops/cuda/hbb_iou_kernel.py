@@ -1,10 +1,13 @@
 """Pairwise horizontal-box IoU: CUDA kernel (``csrc/hbb_iou.cu``) and its
-plain PyTorch version.
+plain PyTorch version, as a matrix (``hbb_iou``) or as the packed
+suppression bits of greedy NMS (``hbb_nms_mask``).
 
 Counterpart of ``sm3det_tpu/ops/pallas/hbb_iou_kernel.py::hbb_iou_pallas``
 (mmdet ``bbox_overlaps`` iou mode, eps 1e-6). ``triu=True`` gives zeros in
 every 128x128 tile strictly below the diagonal of tiles, as the TPU kernel
-does; score-ordered greedy NMS reads only the strict upper triangle.
+does. The NMS reads only the strict upper triangle of the score-ordered
+self-IoU, compared with its threshold: the mask mode keeps just those
+decisions, 32 to an int32 word (``nms_keep_kernel.pack_bits``).
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from . import build
+from .nms_keep_kernel import pack_bits
 
 BLK = 128
 
@@ -78,3 +82,52 @@ def hbb_iou(boxes1: torch.Tensor, boxes2: torch.Tensor, triu: bool = False,
     if boxes1.device.type == "cpu":
         return hbb_iou_ref(boxes1, boxes2, triu, eps)
     raise ValueError(f"hbb_iou: unsupported device {boxes1.device}")
+
+
+def hbb_nms_mask_ref(boxes: torch.Tensor, thr: float,
+                     eps: float = 1e-6) -> torch.Tensor:
+    """Plain version: (..., N, 4) -> (..., N, ceil(N / 32)) int32, bit
+    ``j % 32`` of word ``j // 32`` of row ``i`` set iff ``j > i`` and
+    ``iou(i, j) > thr`` (compared in fp32, as ``iou > thr`` does)."""
+    iou = hbb_iou_ref(boxes, boxes, eps=eps)
+    n = iou.shape[-1]
+    upper = torch.triu(torch.ones(n, n, dtype=torch.bool, device=iou.device),
+                       1)
+    return pack_bits((iou > thr) & upper)
+
+
+def _launch_mask(boxes: torch.Tensor, thr: float, eps: float) -> torch.Tensor:
+    squeeze = boxes.dim() == 2
+    b = boxes.float().contiguous()
+    if squeeze:
+        b = b[None]
+    if b.dim() != 3 or b.shape[-1] != 4:
+        raise ValueError(f"bad box shape {tuple(boxes.shape)}")
+    if b.data_ptr() % 16:
+        b = b.clone()               # the kernel reads a box as one float4
+    bsz, n = b.shape[:2]
+    out = torch.empty((bsz, n, -(-n // 32)), device=b.device,
+                      dtype=torch.int32)
+    if out.numel():
+        lib = build.load_library()
+        rc = lib.sm3det_hbb_nms_mask(b.data_ptr(), out.data_ptr(), bsz, n,
+                                     thr, eps, build.stream_ptr(b.device))
+        build.check(rc, "hbb_nms_mask")
+        build.LAUNCHES["hbb_nms_mask"] += 1
+    return out[0] if squeeze else out
+
+
+def hbb_nms_mask(boxes: torch.Tensor, thr: float,
+                 eps: float = 1e-6) -> torch.Tensor:
+    """Suppression bits of the score-ordered boxes (N, 4) or (B, N, 4):
+    (N, W) or (B, N, W) int32, W = ceil(N / 32), as :func:`hbb_nms_mask_ref`.
+
+    A CUDA tensor goes through the kernel (one launch for the batch), a CPU
+    tensor through :func:`hbb_nms_mask_ref`.
+    """
+    if boxes.is_cuda:
+        build.forbid_grad("hbb_nms_mask", boxes)
+        return _launch_mask(boxes, thr, eps)
+    if boxes.device.type == "cpu":
+        return hbb_nms_mask_ref(boxes, thr, eps)
+    raise ValueError(f"hbb_nms_mask: unsupported device {boxes.device}")

@@ -13,6 +13,11 @@ are 0 either way.
 
 Tiles are ``TILE`` = 32 wide here (128 on the TPU): the triangle and the
 band follow the kernel's tile.
+
+``rotated_nms_mask`` is the mask mode the NMS calls: the score-ordered
+self-IoU compared with the threshold, 32 decisions to an int32 word
+(``nms_keep_kernel.pack_bits``), with the same tile skipping; there the
+plain version and the kernel both define cross-group and inert pairs as 0.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import torch
 
 from ..rotated_iou import box_iou_rotated
 from . import build
+from .nms_keep_kernel import pack_bits
 
 TILE = 32
 # group id of entries whose rows and columns are never read (padding,
@@ -119,3 +125,62 @@ def rotated_iou(boxes1: torch.Tensor, boxes2: torch.Tensor,
     if boxes1.device.type == "cpu":
         return rotated_iou_ref(boxes1, boxes2, triu, groups1, groups2)
     raise ValueError(f"rotated_iou: unsupported device {boxes1.device}")
+
+
+def rotated_nms_mask_ref(boxes: torch.Tensor, thr: float,
+                         groups=None) -> torch.Tensor:
+    """Plain version: (..., N, 5) -> (..., N, ceil(N / 32)) int32, bit
+    ``j % 32`` of word ``j // 32`` of row ``i`` set iff ``j > i``,
+    ``iou(i, j) > thr`` (fp32) and, with ``groups`` (..., N), both boxes are
+    in one group below ``INERT_GROUP``."""
+    bits = rotated_iou_ref(boxes, boxes) > thr
+    n = bits.shape[-1]
+    bits &= torch.triu(torch.ones(n, n, dtype=torch.bool,
+                                  device=bits.device), 1)
+    if groups is not None:
+        g = groups.to(torch.int64)
+        bits &= (g[..., :, None] == g[..., None, :]) & \
+            (g[..., :, None] < INERT_GROUP)
+    return pack_bits(bits)
+
+
+def _launch_mask(boxes, thr, groups):
+    dev = boxes.device
+    squeeze = boxes.dim() == 2
+    b = boxes.float().contiguous()
+    if squeeze:
+        b = b[None]
+    if b.dim() != 3 or b.shape[-1] != 5:
+        raise ValueError(f"bad box shape {tuple(boxes.shape)}")
+    bsz, n = b.shape[:2]
+    g = None
+    if groups is not None:
+        build.require_cuda(groups, "groups", dev)
+        g = groups.to(torch.int32).reshape(bsz, n).contiguous()
+    out = torch.empty((bsz, n, -(-n // TILE)), device=dev, dtype=torch.int32)
+    if out.numel():
+        name = "rotated_nms_mask" + ("_banded" if g is not None else "")
+        lib = build.load_library()
+        rc = lib.sm3det_rotated_nms_mask(b.data_ptr(), build.ptr(g),
+                                         out.data_ptr(), bsz, n, thr,
+                                         build.stream_ptr(dev))
+        build.check(rc, name)
+        build.LAUNCHES[name] += 1
+    return out[0] if squeeze else out
+
+
+def rotated_nms_mask(boxes: torch.Tensor, thr: float,
+                     groups=None) -> torch.Tensor:
+    """Suppression bits of the score-ordered boxes (N, 5) or (B, N, 5),
+    optionally banded by ``groups`` (ascending a row, int): (N, W) or
+    (B, N, W) int32, W = ceil(N / 32), as :func:`rotated_nms_mask_ref`.
+
+    A CUDA tensor goes through the kernel (one launch for the batch), a CPU
+    tensor through :func:`rotated_nms_mask_ref`.
+    """
+    if boxes.is_cuda:
+        build.forbid_grad("rotated_nms_mask", boxes)
+        return _launch_mask(boxes, thr, groups)
+    if boxes.device.type == "cpu":
+        return rotated_nms_mask_ref(boxes, thr, groups)
+    raise ValueError(f"rotated_nms_mask: unsupported device {boxes.device}")

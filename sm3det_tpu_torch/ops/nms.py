@@ -3,22 +3,24 @@
 Port of ``sm3det_tpu/ops/nms.py`` (all but ``soft_nms``): every function
 returns fixed-size outputs with a validity mask. Each function takes one
 image (``(N, 4)`` or ``(N, 5)`` boxes) or a batch (``(B, N, ...)``); a batch
-is one suppression-matrix launch and one greedy pass for all its images.
+is one suppression-mask launch and one keep launch for all its images.
 
-The suppression matrix comes from ``ops/cuda/hbb_iou_kernel.hbb_iou`` or
-``ops/cuda/rotated_iou_kernel.rotated_iou`` with ``triu=True``: the kernel
-on a CUDA tensor, its plain version on a CPU tensor. Greedy keep decisions
-come from the blocked-exact algorithm (``greedy_keep``), equal to
-sequential greedy NMS. Ties in score keep the lower index first, as JAX's
-stable sorts do.
+The suppression decisions ``iou > thr`` of the score-ordered boxes come as
+packed bits from ``ops/cuda/hbb_iou_kernel.hbb_nms_mask`` or
+``ops/cuda/rotated_iou_kernel.rotated_nms_mask``, and the keep mask from
+``ops/cuda/nms_keep_kernel.nms_keep``, equal to sequential greedy NMS: the
+kernels on a CUDA tensor, their plain versions on a CPU tensor. On the
+card the functions here make no host synchronisation. Ties in score keep
+the lower index first, as JAX's stable sorts do.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .cuda.hbb_iou_kernel import hbb_iou
-from .cuda.rotated_iou_kernel import INERT_GROUP, rotated_iou
+from .cuda.hbb_iou_kernel import hbb_nms_mask
+from .cuda.nms_keep_kernel import greedy_keep, nms_keep  # noqa: F401
+from .cuda.rotated_iou_kernel import INERT_GROUP, rotated_nms_mask
 
 NEG_INF = -1e10
 
@@ -56,85 +58,27 @@ def bbox_overlaps(boxes1, boxes2, mode: str = "iou", aligned: bool = False,
     return inter / torch.clamp(union, min=eps)
 
 
-def _fixpoint_keep(supf: torch.Tensor, eligible: torch.Tensor):
-    """Greedy keep on a strictly upper-triangular (B, n, n) float
-    suppression matrix by fixpoint iteration: after sweep t every decision
-    i <= t is exact. Each sweep checks convergence on the host."""
-    n = supf.shape[-1]
-    keep, prev = eligible, torch.zeros_like(eligible)
-    it = 0
-    while it < n and bool((keep != prev).any()):
-        suppressed = (keep.to(supf.dtype).unsqueeze(-2) @ supf) \
-            .squeeze(-2) > 0.5
-        keep, prev = eligible & ~suppressed, keep
-        it += 1
-    return keep
-
-
-def greedy_keep(sup: torch.Tensor, eligible: torch.Tensor,
-                block: int = 256) -> torch.Tensor:
-    """Greedy-NMS keep mask from a score-ordered suppression matrix.
-
-    ``sup[..., j, i]`` is True if box j (higher score) suppresses box i;
-    only the strict upper triangle is read. Blocks of ``block`` rows are
-    resolved in score order: a small fixpoint inside the block, then one
-    (block, N) product propagates the block's suppression to every later
-    box. Equal to sequential greedy NMS. (N, N) or (B, N, N).
-    """
-    squeeze = sup.dim() == 2
-    if squeeze:
-        sup, eligible = sup[None], eligible[None]
-    n = sup.shape[-1]
-    dev = sup.device
-    if n <= block:
-        tri = torch.triu(torch.ones(n, n, dtype=torch.bool, device=dev), 1)
-        keep = _fixpoint_keep((sup & tri).float(), eligible)
-        return keep[0] if squeeze else keep
-    pad = (-n) % block
-    if pad:
-        sup = torch.nn.functional.pad(sup, (0, pad, 0, pad))
-        eligible = torch.nn.functional.pad(eligible, (0, pad))
-    tri_b = torch.triu(torch.ones(block, block, dtype=torch.bool,
-                                  device=dev), 1)
-    alive = eligible
-    keeps = []
-    for r0 in range(0, n + pad, block):
-        rows = sup[:, r0:r0 + block, :]
-        sub = rows[:, :, r0:r0 + block]
-        keep_b = _fixpoint_keep((sub & tri_b).float(),
-                                alive[:, r0:r0 + block])
-        # within the block, lower-triangle entries can only clear alive
-        # columns that are never read again (blocks go in row order)
-        suppressed = (keep_b.float().unsqueeze(-2) @ rows.float()) \
-            .squeeze(-2) > 0.5
-        alive = alive & ~suppressed
-        keeps.append(keep_b)
-    keep = torch.cat(keeps, dim=-1)[:, :n]
-    return keep[0] if squeeze else keep
-
-
 def _finalize(boxes_sorted, scores_sorted, order, keep, max_out):
     """Pack kept entries first, padded to max_out, in score order. Batched
     (B, n, ...)."""
     b, n = keep.shape
     dev = keep.device
     rank = torch.cumsum(keep.long(), dim=-1) - 1
-    slot = torch.where(keep, rank, torch.full_like(rank, n))
+    slot = torch.where(keep, rank, n)
     inv = torch.full((b, max(max_out, n) + 1), n, dtype=torch.long,
                      device=dev)
     inv.scatter_(1, slot, torch.arange(n, device=dev).expand(b, n))
     inv[:, n] = n                       # clear the scratch slot
     take = inv[:, :max_out]
     valid = take < n
-    take_safe = torch.where(valid, take, torch.zeros_like(take))
-    out_idx = torch.where(valid, torch.gather(order, 1, take_safe),
-                          torch.full_like(take, -1))
+    take_safe = torch.where(valid, take, 0)
+    out_idx = torch.where(valid, torch.gather(order, 1, take_safe), -1)
     out_boxes = torch.gather(
         boxes_sorted, 1,
         take_safe[..., None].expand(-1, -1, boxes_sorted.shape[-1])) \
         * valid[..., None]
     out_scores = torch.where(valid, torch.gather(scores_sorted, 1, take_safe),
-                             torch.zeros((), device=dev))
+                             0.0)
     return out_boxes, out_scores, out_idx, valid
 
 
@@ -166,8 +110,7 @@ def nms(boxes, scores, iou_threshold: float, max_out: int,
     boxes_s = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4))
     scores_s = torch.gather(scores, 1, order)
     eligible = scores_s > score_thr
-    iou = hbb_iou(boxes_s, boxes_s, triu=True)
-    keep = greedy_keep(iou > iou_threshold, eligible)
+    keep = nms_keep(hbb_nms_mask(boxes_s, iou_threshold), eligible)
     ob, os_, oi, ov = _finalize(boxes_s, scores_s, order, keep, max_out)
     return torch.cat([ob, os_[..., None]], dim=-1), oi, ov
 
@@ -182,10 +125,10 @@ def batched_nms(boxes, scores, idxs, iou_threshold: float, max_out: int,
     offsets = idxs.to(boxes.dtype) * (2.0 * max_coord[:, None])
     dets, oi, ov = nms(boxes + offsets[..., None], scores, iou_threshold,
                        max_out, score_thr)
-    safe = torch.where(oi >= 0, oi, torch.zeros_like(oi))
+    safe = torch.where(oi >= 0, oi, 0)
     out_boxes = torch.where(
         ov[..., None], torch.gather(boxes, 1, safe[..., None].expand(
-            -1, -1, 4)), torch.zeros((), device=boxes.device))
+            -1, -1, 4)), 0.0)
     return torch.cat([out_boxes, dets[..., 4:5]], dim=-1), oi, ov
 
 
@@ -213,13 +156,11 @@ def multiclass_nms(multi_bboxes, multi_scores, score_thr: float,
     else:
         cand_boxes = torch.gather(multi_bboxes, 1, box_idx[..., None].expand(
             -1, -1, 4))
-    cand_scores = torch.where(top_scores > score_thr, top_scores,
-                              torch.full((), NEG_INF, device=scores.device))
+    cand_scores = torch.where(top_scores > score_thr, top_scores, NEG_INF)
     dets, oi, ov = batched_nms(cand_boxes, cand_scores, cls_idx, iou_thr,
                                max_num, score_thr=score_thr)
-    safe = torch.where(oi >= 0, oi, torch.zeros_like(oi))
-    labels = torch.where(ov, torch.gather(cls_idx, 1, safe),
-                         torch.full_like(safe, -1))
+    safe = torch.where(oi >= 0, oi, 0)
+    labels = torch.where(ov, torch.gather(cls_idx, 1, safe), -1)
     return dets, labels, ov
 
 
@@ -250,23 +191,19 @@ def nms_rotated(boxes, scores, iou_threshold: float, max_out: int,
     scores_s = _take(scores, order)
     eligible = scores_s > score_thr
     if groups is None:
-        iou = rotated_iou(boxes_s, boxes_s, triu=True)
-        keep = greedy_keep(iou > iou_threshold, eligible)
+        keep = nms_keep(rotated_nms_mask(boxes_s, iou_threshold), eligible)
     else:
         n = boxes.shape[1]
         groups_s = _take(groups, order).long()
-        g_eff = torch.where(eligible, groups_s,
-                            torch.full_like(groups_s, INERT_GROUP))
+        g_eff = torch.where(eligible, groups_s, INERT_GROUP)
         # group-major permutation; the index keeps score order in a group
-        g_key = torch.where(eligible, groups_s,
-                            torch.full_like(groups_s, 1 << 15))
+        g_key = torch.where(eligible, groups_s, 1 << 15)
         perm = torch.sort(
             g_key * n + torch.arange(n, device=boxes.device), dim=-1).indices
         boxes_p = _take(boxes_s, perm)
         g_p = _take(g_eff, perm).int()
-        iou = rotated_iou(boxes_p, boxes_p, triu=True, groups1=g_p,
-                          groups2=g_p)
-        keep_g = greedy_keep(iou > iou_threshold, _take(eligible, perm))
+        keep_g = nms_keep(rotated_nms_mask(boxes_p, iou_threshold, g_p),
+                          _take(eligible, perm))
         keep = torch.zeros_like(keep_g).scatter_(1, perm, keep_g)
     ob, os_, oi, ov = _finalize(boxes_s, scores_s, order, keep, max_out)
     return torch.cat([ob, os_[..., None]], dim=-1), oi, ov
@@ -296,8 +233,7 @@ def multiclass_nms_rotated(multi_bboxes, multi_scores, score_thr: float,
                            top_idx)
     else:
         cand_boxes = _take(multi_bboxes, box_idx)
-    cand_scores = torch.where(top_scores > score_thr, top_scores,
-                              torch.full((), NEG_INF, device=scores.device))
+    cand_scores = torch.where(top_scores > score_thr, top_scores, NEG_INF)
     max_coord = cand_boxes[..., :2].abs().amax(dim=(-2, -1)) + \
         cand_boxes[..., 2:4].amax(dim=(-2, -1)) + 1.0            # (B,)
     offset = cls_idx.to(cand_boxes.dtype) * (2.0 * max_coord[:, None])
@@ -305,10 +241,9 @@ def multiclass_nms_rotated(multi_bboxes, multi_scores, score_thr: float,
                          cand_boxes[..., 2:]], dim=-1)
     dets, oi, ov = nms_rotated(shifted, cand_scores, iou_thr, max_num,
                                score_thr=score_thr, groups=cls_idx)
-    safe = torch.where(oi >= 0, oi, torch.zeros_like(oi))
-    out_boxes = torch.where(ov[..., None], _take(cand_boxes, safe),
-                            torch.zeros((), device=scores.device))
-    labels = torch.where(ov, _take(cls_idx, safe), torch.full_like(safe, -1))
+    safe = torch.where(oi >= 0, oi, 0)
+    out_boxes = torch.where(ov[..., None], _take(cand_boxes, safe), 0.0)
+    labels = torch.where(ov, _take(cls_idx, safe), -1)
     return torch.cat([out_boxes, dets[..., 5:6]], dim=-1), labels, ov
 
 
@@ -324,9 +259,8 @@ def aug_multiclass_nms_rotated(dets_list, labels_list, valid_list,
     horizontal variant. Returns (dets (max_out, box_dim + 1), labels,
     valid).
     """
-    neg = torch.full((), NEG_INF, device=dets_list[0].device)
     boxes = torch.cat([d[..., :box_dim] for d in dets_list], dim=-2)
-    scores = torch.cat([torch.where(v, d[..., box_dim], neg)
+    scores = torch.cat([torch.where(v, d[..., box_dim], NEG_INF)
                         for d, v in zip(dets_list, valid_list)], dim=-1)
     labels = torch.cat(list(labels_list), dim=-1)
     off = labels.to(boxes.dtype) * 2e4
@@ -338,12 +272,11 @@ def aug_multiclass_nms_rotated(dets_list, labels_list, valid_list,
         dets, idx, valid = nms_rotated(shifted, scores, iou_thr, max_out)
     # masked-out inputs carry NEG_INF scores: never valid outputs
     valid = valid & (dets[..., box_dim] > NEG_INF / 2)
-    safe = torch.where(idx >= 0, idx, torch.zeros_like(idx))
+    safe = torch.where(idx >= 0, idx, 0)
     out_b = torch.where(
         valid[..., None],
         torch.gather(boxes, -2, safe[..., None].expand(
-            safe.shape + (box_dim,))), torch.zeros((), device=boxes.device))
-    out_l = torch.where(valid, torch.gather(labels, -1, safe),
-                        torch.full_like(safe, -1))
+            safe.shape + (box_dim,))), 0.0)
+    out_l = torch.where(valid, torch.gather(labels, -1, safe), -1)
     return torch.cat([out_b, dets[..., box_dim:box_dim + 1]], dim=-1), \
         out_l, valid

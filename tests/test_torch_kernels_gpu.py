@@ -27,8 +27,10 @@ from sm3det_tpu_torch.ops.cuda import build
 from sm3det_tpu_torch.ops.cuda import convnext_block_kernel as cbk
 from sm3det_tpu_torch.ops.cuda import hbb_iou_kernel as hik
 from sm3det_tpu_torch.ops.cuda import moe_groupgemm_kernel as mgk
+from sm3det_tpu_torch.ops.cuda import nms_keep_kernel as nkk
 from sm3det_tpu_torch.ops.cuda import roi_align_kernel as rak
 from sm3det_tpu_torch.ops.cuda import rotated_iou_kernel as rik
+from sm3det_tpu_torch.ops import nms as nms_mod
 from sm3det_tpu_torch.ops.roi_align_rotated import (
     roi_align_rotated_pyramid, route_levels)
 
@@ -474,6 +476,186 @@ def test_rotated_iou_banded_kernel(cuda, b, n, classes, triu):
     assert float((got.abs() * skipped).max()) == 0.0
 
 
+# ---- the NMS's suppression bits and keep scan ------------------------------
+
+# the main path's shapes (SAR b = 8, RPN b = 40 image-levels, n = 2000;
+# the aug_test merge n = 4000) and the edges of a word
+MASK_SHAPES = [(b, n) for n in (1, 31, 33, 2000, 4000) for b in (1, 8, 40)]
+
+
+def _hbb_boxes(gen, b, n, device):
+    """xyxy boxes in clusters, exact duplicates and a few of no size."""
+    ctr = torch.rand(b, max(n // 16, 1), 2, generator=gen,
+                     device=device) * 700
+    pick = torch.randint(0, ctr.shape[1], (b, n), generator=gen,
+                         device=device)
+    xy = torch.gather(ctr, 1, pick[..., None].expand(-1, -1, 2)) \
+        + torch.randn(b, n, 2, generator=gen, device=device) * 20
+    wh = 2 + torch.rand(b, n, 2, generator=gen, device=device) * 100
+    boxes = torch.cat([xy, xy + wh], -1)
+    boxes[:, 1::7] = boxes[:, 0::7][:, :boxes[:, 1::7].shape[1]]
+    boxes[:, 5::11, 2:] = boxes[:, 5::11, :2]
+    return boxes
+
+
+def _mask_bits(mask, n, ok=None):
+    bits = nkk.unpack_bits(mask, n)
+    return bits if ok is None else bits & ok
+
+
+@pytest.mark.parametrize("b,n", MASK_SHAPES)
+def test_hbb_nms_mask_kernel(cuda, b, n):
+    gen = torch.Generator(device=cuda).manual_seed(n + b)
+    boxes = _hbb_boxes(gen, b, n, cuda)
+    build.reset_launches()
+    got = hik.hbb_nms_mask(boxes, 0.6)
+    assert build.LAUNCHES["hbb_nms_mask"] == 1
+    assert build.LAUNCHES["hbb_iou"] == 0
+    ref = hik.hbb_nms_mask_ref(boxes, 0.6)
+    torch.cuda.synchronize()
+    assert got.shape == (b, n, -(-n // 32)) and got.dtype == torch.int32
+    assert torch.equal(got, ref)                       # bit for bit
+    if n >= 2000:
+        assert int(_mask_bits(ref, n).sum()) > b * n // 10
+    assert torch.equal(hik.hbb_nms_mask(boxes[-1], 0.6), got[-1])
+
+
+def test_hbb_nms_mask_at_the_threshold(cuda):
+    """Thresholds equal to IoUs that occur, and the floats beside them: the
+    kernel decides without dividing away from the threshold, and the
+    rounded quotient decides next to it; every bit as the plain
+    ``iou > thr``. Also thresholds where only the quotient decides: 0, a
+    negative one and one below the normal floats."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    boxes = _hbb_boxes(gen, 8, 2000, cuda)
+    iou = hik.hbb_iou_ref(boxes, boxes)
+    picks = iou[(iou > 0.05) & (iou < 0.95)]
+    picks = picks[torch.randint(0, picks.numel(), (6,), generator=gen,
+                                device=cuda)].cpu()
+    thrs = torch.cat([picks, torch.nextafter(picks, torch.ones_like(picks)),
+                      torch.nextafter(picks, torch.zeros_like(picks))])
+    for thr in thrs.tolist() + [0.0, -0.5, 1e-40]:
+        got = hik.hbb_nms_mask(boxes, thr)
+        ref = hik.hbb_nms_mask_ref(boxes, thr)
+        assert torch.equal(got, ref), thr
+
+
+@pytest.mark.parametrize("banded", [False, True])
+@pytest.mark.parametrize("b,n", MASK_SHAPES)
+def test_rotated_nms_mask_kernel(cuda, b, n, banded):
+    """Banded: 26 classes shifted apart by up to 1e5 px (the multi-class
+    NMS's offset, where fp32 steps by 0.008 px), the last eighth inert.
+    Pairs of one box of no size and one real have no defined IoU and are
+    left out."""
+    gen = torch.Generator(device=cuda).manual_seed(3 * n + b)
+    boxes = _rboxes(gen, b, n, cuda)
+    groups = None
+    if banded:
+        groups = torch.sort(torch.randint(0, 26, (b, n), generator=gen,
+                                          device=cuda), dim=-1).values.int()
+        boxes[..., :2] += (groups * 4000.0)[..., None]
+        groups[:, n - n // 8:] = rik.INERT_GROUP
+    name = "rotated_nms_mask" + ("_banded" if banded else "")
+    build.reset_launches()
+    got = rik.rotated_nms_mask(boxes, 0.1, groups)
+    assert build.LAUNCHES[name] == 1
+    assert sum(build.LAUNCHES.values()) == 1
+    ref = torch.cat([rik.rotated_nms_mask_ref(
+        boxes[i:i + 1], 0.1, None if groups is None else groups[i:i + 1])
+        for i in range(b)])
+    torch.cuda.synchronize()
+    assert got.shape == (b, n, -(-n // 32)) and got.dtype == torch.int32
+    ok = _both_real_or_both_empty(boxes)
+    assert torch.equal(_mask_bits(got, n, ok), _mask_bits(ref, n, ok))
+    if n >= 2000:
+        assert int(_mask_bits(ref, n, ok).sum()) > b * n // 20
+    if banded:                      # nothing across groups, nothing inert
+        bits = _mask_bits(got, n)
+        same = (groups[:, :, None] == groups[:, None, :]) & \
+            (groups[:, :, None] < rik.INERT_GROUP)
+        assert not bool((bits & ~same).any())
+
+
+# n = 30000 is past two staged steps in shared memory: rows read from
+# device memory
+KEEP_CASES = [(b, n, d) for b, n in ((1, 1), (8, 31), (40, 33), (8, 2000),
+                                     (40, 2000), (1, 4000))
+              for d in (0.001, 0.01, 0.3, "real")] + [(1, 30000, 0.001)]
+
+
+@pytest.mark.parametrize("b,n,density", KEEP_CASES)
+def test_nms_keep_kernel(cuda, b, n, density):
+    """Random bits, the lower triangle too (never read), or the hbb
+    kernel's own."""
+    gen = torch.Generator(device=cuda).manual_seed(n + b)
+    if density == "real":
+        mask = hik.hbb_nms_mask(_hbb_boxes(gen, b, n, cuda), 0.6)
+    else:
+        bits = torch.rand(b, n, n, generator=gen, device=cuda) < density
+        mask = nkk.pack_bits(bits)
+        del bits
+    elig = torch.rand(b, n, generator=gen, device=cuda) < 0.9
+    build.reset_launches()
+    keep = nkk.nms_keep(mask, elig)
+    again = nkk.nms_keep(mask, elig)
+    assert build.LAUNCHES["nms_keep"] == 2
+    ref = nkk.nms_keep_ref(mask, elig)
+    torch.cuda.synchronize()
+    assert keep.dtype == torch.bool and keep.shape == (b, n)
+    assert torch.equal(keep, ref)
+    assert torch.equal(keep, again)
+    assert not bool((keep & ~elig).any())
+
+
+def _nms_calls(gen, device):
+    """Each NMS function of ops/nms.py on inputs on the card, as the main
+    path calls them (batched, 2000 candidates)."""
+    b, n = 4, 2000
+    hbb = _hbb_boxes(gen, b, n, device)
+    obb = _rboxes(gen, b, n, device)
+    scores = torch.rand(b, n, generator=gen, device=device)
+    cls = torch.randint(0, 26, (b, n), generator=gen, device=device)
+    multi = torch.rand(b, n // 4, 27, generator=gen, device=device)
+    dets = [torch.cat([obb[:1], scores[:1, :, None]], -1)] * 2
+    return {
+        "nms": lambda: nms_mod.nms(hbb, scores, 0.6, 100, 0.05),
+        "batched_nms": lambda: nms_mod.batched_nms(hbb, scores, cls, 0.6,
+                                                   100),
+        "multiclass_nms": lambda: nms_mod.multiclass_nms(
+            hbb[:, :n // 4], multi, 0.05, 0.6, 100),
+        "nms_rotated": lambda: nms_mod.nms_rotated(obb, scores, 0.1, 2000),
+        "nms_rotated_grouped": lambda: nms_mod.nms_rotated(
+            obb, scores, 0.1, 2000, 0.05, groups=cls),
+        "multiclass_nms_rotated": lambda: nms_mod.multiclass_nms_rotated(
+            obb[:, :n // 4], multi, 0.05, 0.1, 2000),
+        "aug_multiclass_nms_rotated": lambda:
+            nms_mod.aug_multiclass_nms_rotated(
+                dets, [cls[:1]] * 2, [scores[:1] > 0.1] * 2, 0.1, 2000),
+    }
+
+
+def test_nms_functions_make_no_host_sync(cuda):
+    """Every NMS function runs under ``set_sync_debug_mode("error")``: a
+    synchronising call (``.item()``, ``bool()`` of a card tensor, a copy to
+    the host) would raise. The results equal an earlier run's."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    calls = _nms_calls(gen, cuda)
+    first = {k: fn() for k, fn in calls.items()}      # builds and warms up
+    torch.cuda.synchronize()
+    build.reset_launches()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        second = {k: fn() for k, fn in calls.items()}
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["nms_keep"] == len(calls)
+    for k in calls:
+        for a, c in zip(first[k], second[k]):
+            assert torch.equal(a, c), k
+        assert int(first[k][-1].sum()) > 0, k
+
+
 def _pyramid(gen, b, size, c, dtype, device):
     return [_rand(gen, b, size // s, size // s, c, dtype=dtype,
                   device=device) for s in (4, 8, 16, 32, 64)]
@@ -680,13 +862,15 @@ def test_sar_slice_bf16_goes_through_every_kernel(cuda):
     # atto: 2+2+6+2 blocks, one of them MoE; the stem, 3 downsample and 4
     # output LayerNorms
     assert build.LAUNCHES == {"dwconv_ln": 12, "fused_convnext_block": 11,
-                              "moe_ffn_grouped": 1, "hbb_iou": 1,
+                              "moe_ffn_grouped": 1, "hbb_iou": 0,
                               "fused_layernorm": 8, "rotated_iou": 0,
                               "rotated_iou_banded": 0,
                               "roi_align_rotated": 0,
                               "roi_align_rotated_bwd": 0,
                               "fused_dwconv_ln_train": 0,
-                              "fused_dwconv_ln_train_bwd": 0}
+                              "fused_dwconv_ln_train_bwd": 0,
+                              "hbb_nms_mask": 1, "rotated_nms_mask": 0,
+                              "rotated_nms_mask_banded": 0, "nms_keep": 1}
     assert dets.shape == (2, 10, 5) and bool(torch.isfinite(dets).all())
     assert int(valid.sum()) > 0
 
@@ -712,15 +896,18 @@ def test_joint_slice_bf16_goes_through_every_kernel(cuda):
     build.reset_launches()
     out = model.simple_test_joint(sar, rgb, ifr, img_shape=(64, 64))
     torch.cuda.synchronize()
-    # one backbone pass; the SAR NMS and the RPN NMS of 3 images x 5 levels
+    # one backbone pass; the SAR NMS and the RPN NMS of 3 images x 5
+    # levels (horizontal masks), the R-CNN NMS (banded mask); a keep each
     assert build.LAUNCHES == {"dwconv_ln": 12, "fused_convnext_block": 11,
-                              "moe_ffn_grouped": 1, "hbb_iou": 2,
+                              "moe_ffn_grouped": 1, "hbb_iou": 0,
                               "fused_layernorm": 8, "rotated_iou": 0,
-                              "rotated_iou_banded": 1,
+                              "rotated_iou_banded": 0,
                               "roi_align_rotated": 1,
                               "roi_align_rotated_bwd": 0,
                               "fused_dwconv_ln_train": 0,
-                              "fused_dwconv_ln_train_bwd": 0}
+                              "fused_dwconv_ln_train_bwd": 0,
+                              "hbb_nms_mask": 2, "rotated_nms_mask": 0,
+                              "rotated_nms_mask_banded": 1, "nms_keep": 3}
     for (dets, labels, valid), shape in zip(out, ((2, 10, 5), (2, 10, 6),
                                                   (1, 10, 6))):
         assert dets.shape == shape and bool(torch.isfinite(dets).all())
@@ -728,7 +915,8 @@ def test_joint_slice_bf16_goes_through_every_kernel(cuda):
     build.reset_launches()
     dets, _, valid = model.aug_test(rgb, "rgb", img_shape=(64, 64))
     torch.cuda.synchronize()
-    assert build.LAUNCHES["rotated_iou"] == 1          # the merge
+    assert build.LAUNCHES["rotated_nms_mask"] == 1     # the merge
+    assert build.LAUNCHES["rotated_iou"] == 0
     assert dets.shape == (2, 10, 6) and int(valid.sum()) > 0
 
 
@@ -847,11 +1035,13 @@ def test_bf16_train_step_goes_through_the_train_kernels(cuda):
     assert all(p.dtype == torch.float32 for p in state.params.values())
     assert max(float((p.detach() - q).abs().max())
                for p, q in zip(state.params.values(), p0)) > 0
-    # 12 atto blocks; rgb and infrared: one proposal NMS, one align
-    # forward and backward, one rotated IoU an image
+    # 12 atto blocks; rgb and infrared: one proposal NMS (mask and keep),
+    # one align forward and backward, one rotated IoU an image (assigner)
     assert build.LAUNCHES["fused_dwconv_ln_train"] == 12
     assert build.LAUNCHES["fused_dwconv_ln_train_bwd"] == 12
-    assert build.LAUNCHES["hbb_iou"] == 2
+    assert build.LAUNCHES["hbb_nms_mask"] == 2
+    assert build.LAUNCHES["nms_keep"] == 2
+    assert build.LAUNCHES["hbb_iou"] == 0
     assert build.LAUNCHES["rotated_iou"] == 2
     assert build.LAUNCHES["roi_align_rotated"] == 2
     assert build.LAUNCHES["roi_align_rotated_bwd"] == 2

@@ -50,7 +50,8 @@ sys.path.insert(0, str(ROOT))
 PORT_KERNELS = ("dwconv_ln_kernel", "dwconv_ln_bwd_stats_kernel",
                 "dwconv_ln_bwd_conv_kernel", "dwconv_ln_bwd_reduce_kernel",
                 "ffn_fused_kernel", "gemm_f32_kernel",
-                "hbb_iou_kernel", "layernorm_kernel", "rotated_iou_kernel",
+                "hbb_iou_kernel", "hbb_nms_mask_kernel", "nms_keep_kernel",
+                "layernorm_kernel", "rotated_iou_kernel",
                 "roi_align_rotated_kernel", "roi_align_rotated_bwd_kernel")
 
 
