@@ -44,7 +44,8 @@ forward's own proposals in 4c, and logs an estimate of what row 7 reads
 of the levels (the taps one by one against the staged footprints, from
 the plain geometry). It also holds the
 training kernels against their plain versions:
-the pyramid RoI align's feature gradient (``roi_align_rotated_bwd.cu``) and
+the pyramid RoI align's feature gradient (``roi_align_rotated_bwd.cu``, two
+launches bit-equal, on random, one-centre and long, thin RoIs) and
 the trainable dw7x7 + LN (``fused_dwconv_ln_train``: the forward kernel and
 the five gradients of the ``dwconv_ln_bwd.cu`` kernels, against autograd of
 the plain formulation and against the closed-form plain backward, and two
@@ -780,34 +781,38 @@ def main():
         del got
 
     # the plain matrix mode where a path runs it: the train step's R-CNN
-    # assigner, one launch an R-CNN image, its gts and proposals against
-    # its gts (bit for bit on the defined pairs)
-    n_assign = TRAIN[1] + TRAIN[2]
-    cands = rotated_boxes(1, TRAIN_GTS + N_PROPOSALS)[0]
-    gts = cands[:TRAIN_GTS]
+    # assigner, one launch an R-CNN branch for its images (TRAIN[1] = 2
+    # RGB images: their gts and proposals against their gts), bit for bit
+    # on the defined pairs
+    n_assign = 2                            # the RGB and infrared branches
+    cands = rotated_boxes(TRAIN[1], TRAIN_GTS + N_PROPOSALS)
+    gts = cands[:, :TRAIN_GTS]
     got = rik.rotated_iou(cands, gts)
     ref = rik.rotated_iou_ref(cands, gts)
-    real = (cands[:, 2] * cands[:, 3]) > 0
-    mask = real[:, None] == real[None, :TRAIN_GTS]
+    mask = defined_pairs(cands)[:, :, :TRAIN_GTS]
     diff = (got - ref).abs() * mask
     err = diff.max().item()
     ok = bool(torch.isfinite(got).all()) and err == 0.0
     log(f"[kernel] rotated_iou            float32   {tuple(cands.shape)} x "
-        f"{tuple(gts.shape)} (the R-CNN assigner): max abs err {err:.3e} on "
-        f"{int(mask.sum())} defined pairs, {int((ref * mask > 0.5).sum())} "
-        f"pairs over IoU 0.5; bit-equal required {'ok' if ok else 'FAIL'}")
+        f"{tuple(gts.shape)} (the R-CNN assigner, one launch a branch): max "
+        f"abs err {err:.3e} on {int(mask.sum())} defined pairs, "
+        f"{int((ref * mask > 0.5).sum())} pairs over IoU 0.5; bit-equal "
+        f"required {'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append("rotated_iou assigner")
     recs["rotated_iou"].err = max(recs["rotated_iou"].err, err)
     ms = cuda_ms(torch, lambda: rik.rotated_iou(cands, gts), iters=5)
+    dev_ms = device_ms(torch, lambda: rik.rotated_iou(cands, gts), iters=5)
     pms = cuda_ms(torch, lambda: rik.rotated_iou_ref(cands, gts), iters=2,
                   warmup=1)
     b, k = bound_ms((cands.numel() + gts.numel() + got.numel()) * 4,
                     [(got.numel() * ROT_IOU_FLOPS, "float32")])
     recs["rotated_iou"].add(n_assign, ms, pms, b, k, 0.0)
+    recs["rotated_iou"].add_extra(n_assign, device_ms=dev_ms)
     log(f"[time]   rotated_iou {tuple(cands.shape)} x {tuple(gts.shape)} "
-        f"(the assigner, {n_assign} a train step): kernel {ms:.4f} ms, plain "
-        f"{pms:.4f} ms, bound {b:.4f} ms ({k})")
+        f"(the assigner, {n_assign} a train step): kernel {ms:.4f} ms, "
+        f"device {ms_str(dev_ms)}, plain {pms:.4f} ms, bound {b:.4f} ms "
+        f"({k})")
     del cands, gts, got, ref, diff, mask
 
     # ---- the NMS: suppression bits (mask mode) and the keep scan ----------
@@ -1047,9 +1052,11 @@ def main():
         del got, feats
     # ---- the train step's kernels ----------------------------------------
     # row 8: the align's feature gradient at the train step's shapes (2
-    # images of a modality, 4 levels, 2 x rcnn_sample = 1024 RoIs), and the
-    # adversarial case of every RoI on one centre (every sample's taps
-    # collide in the atomics)
+    # images of a modality, 4 levels, 2 x rcnn_sample = 1024 RoIs), the
+    # adversarial case of every RoI on one centre (every RoI meets the same
+    # tiles, which sum them one after another) and long, thin RoIs (routed
+    # by area to fine levels, where they cross many tiles); two launches
+    # must give the same bits
     n_train_rois = 2 * DEFAULT_MODEL_CFG["rgb"]["rcnn_sample"]
     rois_t = some_rois(2, n_train_rois)
     crowd = rois_t.clone()
@@ -1057,41 +1064,65 @@ def main():
     crowd[:, 1:3] = 400.0
     crowd[:, 3:5] = 24 + torch.rand(n_train_rois, 2, generator=gen,
                                     device=dev) * 36
+    thin = rois_t.clone()
+    thin[:, 3] = IMG * (0.2 + 0.6 * torch.rand(n_train_rois, generator=gen,
+                                               device=dev))
+    thin[:, 4] = thin[:, 3] / (4 + 36 * torch.rand(
+        n_train_rois, generator=gen, device=dev))
     strides4 = (4, 8, 16, 32)
     shapes4 = [(2, IMG // st, IMG // st, 256) for st in strides4]
     bwd_steps = 2                      # one align backward per R-CNN branch
-    for case, rr in (("random", rois_t), ("all on one centre", crowd)):
+    for case, rr in (("random", rois_t), ("all on one centre", crowd),
+                     ("long and thin", thin)):
         lv = route_levels(rr)
         for dtype in (torch.float32, torch.bfloat16):
             isz = torch.tensor([], dtype=dtype).element_size()
             g_out = rnd(n_train_rois, 7, 7, 256, dtype=dtype)
-            got = rak.roi_align_rotated_pyramid_bwd(g_out, rr, lv, shapes4,
-                                                    dtype, strides4)
+
+            def bwd():
+                return rak.roi_align_rotated_pyramid_bwd(
+                    g_out, rr, lv, shapes4, dtype, strides4)
+            got, again = bwd(), bwd()
             ref = rak.roi_align_rotated_pyramid_bwd_ref(g_out, rr, lv,
                                                          shapes4, dtype,
                                                          strides4)
-            # fp32: atomics add in another order (1e-4 of the scale); bf16:
+            # fp32: another summation order (1e-4 of the scale); bf16:
             # both round the fp32 sum once (2^-6, as the other bf16 rows)
             for lvl, (a, b) in enumerate(zip(got, ref)):
                 check("roi_align_rotated_bwd", dtype,
                       (case, f"level {lvl}", tuple(a.shape)), a, b,
                       tol[dtype], main_path=dtype == torch.bfloat16)
-            del ref
-            if dtype != torch.bfloat16 or case != "random":
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            log(f"[kernel] roi_align_rotated_bwd {str(dtype)[6:]} {case}: "
+                f"two launches bit-equal {same} {'ok' if same else 'FAIL'}")
+            if not same:
+                failures.append(f"roi_align_rotated_bwd {dtype} {case} not "
+                                f"deterministic")
+            del ref, got, again
+            if dtype != torch.bfloat16:
                 continue
-            ms = cuda_ms(torch, lambda: rak.roi_align_rotated_pyramid_bwd(
-                g_out, rr, lv, shapes4, dtype, strides4), iters=5)
+            ms = cuda_ms(torch, bwd, iters=5)
+            if case != "random":
+                recs["roi_align_rotated_bwd"].extra[
+                    "crowded_ms" if case.startswith("all") else
+                    "long_thin_ms"] = ms
+                log(f"[time]   roi_align_rotated_bwd ({n_train_rois}, 7, 7, "
+                    f"256) bf16, {case}: kernel {ms:.4f} ms")
+                continue
             pms = cuda_ms(torch, lambda: rak.roi_align_rotated_pyramid_bwd_ref(
                 g_out, rr, lv, shapes4, dtype, strides4), iters=2, warmup=1)
+            dev_ms = device_ms(torch, bwd, iters=5)
             grad_bytes = sum(a * b * c * d for a, b, c, d in shapes4) * isz
             b, k = bound_ms(g_out.numel() * isz + rr.numel() * 4 + grad_bytes,
                             [(n_train_rois * 49 * 16 * 256 * 2, "float32")])
             recs["roi_align_rotated_bwd"].add(bwd_steps, ms, pms, b, k, 0.0)
+            recs["roi_align_rotated_bwd"].add_extra(bwd_steps,
+                                                    device_ms=dev_ms)
             log(f"[time]   roi_align_rotated_bwd ({n_train_rois}, 7, 7, 256)"
-                f" bf16 -> 4 levels of 2 images: kernel {ms:.4f} ms (zeroed "
-                f"fp32 buffers and the bf16 rounding included), plain "
+                f" bf16 -> 4 levels of 2 images: kernel {ms:.4f} ms (both "
+                f"launches and the wrapper), device {ms_str(dev_ms)}, plain "
                 f"{pms:.4f} ms, bound {b:.4f} ms ({k})")
-    del g_out, got
+    del g_out
 
     # row 10: the trainable dw7x7 + LN, forward and the five gradients,
     # against the plain fp32 formulation's autograd and the closed-form
@@ -1797,11 +1828,10 @@ def main():
               "roi_align_rotated_bwd", "fused_dwconv_ln_train"):
         if train_launches[k] <= 0:
             failures.append(f"train launches {k}={train_launches[k]}")
-    # phase 3 times the assigner's IoU at one launch an R-CNN image
-    if train_launches["rotated_iou"] != TRAIN[1] + TRAIN[2]:
+    # phase 3 times the assigner's IoU at one launch an R-CNN branch
+    if train_launches["rotated_iou"] != 2:
         failures.append(f"train launches rotated_iou="
-                        f"{train_launches['rotated_iou']}, expected "
-                        f"{TRAIN[1] + TRAIN[2]}")
+                        f"{train_launches['rotated_iou']}, expected 2")
     train_syncs = host_syncs(torch, one_step)
     log(f"[train bf16] host synchronisations in one step "
         f"(set_sync_debug_mode('warn')): {sum(train_syncs.values())}; "

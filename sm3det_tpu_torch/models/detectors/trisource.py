@@ -49,6 +49,7 @@ from ..dense_heads.oriented_rpn_head import (OrientedRPNHead,
 from ..necks.fpn import MultitaskFPN
 from ..roi_heads.oriented_roi_head import (RotatedShared2FCBBoxHead,
                                            bbox_head_loss,
+                                           candidate_gt_ious,
                                            extract_rotated_roi_feats,
                                            roi_head_get_bboxes,
                                            sample_rois_for_training)
@@ -473,10 +474,11 @@ class TriSourceDetector(nn.Module):
                 n_cand = data["gt_obbs"].shape[1] + proposals.shape[1]
                 rkeys = draw_sample_keys(n_cand, gen, (bsz,),
                                          proposals.device)
+                ious = candidate_gt_ious(proposals, data["gt_obbs"])
                 sampled = [sample_rois_for_training(
                     (rkeys[0][i], rkeys[1][i]), proposals[i], p_valid[i],
                     data["gt_obbs"][i], data["gt_labels"][i],
-                    data["gt_mask"][i], num=r["rcnn_sample"])
+                    data["gt_mask"][i], ious[i], num=r["rcnn_sample"])
                     for i in range(bsz)]
                 rois = torch.stack([sm["rois"] for sm in sampled])
             s = rois.shape[1]

@@ -85,20 +85,21 @@ def roi_head_get_bboxes(cls_logits, reg_pred, rois, roi_valid,
 
 
 def sample_rois_for_training(sample_keys, proposals, proposal_valid,
-                             gt_obbs, gt_labels, gt_mask, num: int = 512,
+                             gt_obbs, gt_labels, gt_mask, ious,
+                             num: int = 512,
                              pos_fraction: float = 0.25,
                              pos_iou_thr: float = 0.5,
                              neg_iou_thr: float = 0.5,
                              min_pos_iou: float = 0.5):
     """Assign and sample the RoIs of one image, the gts among the
     proposals. ``sample_keys``: (key_pos, key_neg), each (G + P,) uniform
-    keys. The IoU of every candidate with every gt is the rotated IoU (the
-    kernel on the card); padded gts and proposals are masked to -1 before
-    the assignment and ignored after. Returns dict(rois (num, 5), pos_mask,
-    neg_mask, gt_idx)."""
+    keys. ``ious`` (G + P, G): the rotated IoU of every candidate (the gts,
+    then the proposals) with every gt, the image's slice of
+    :func:`candidate_gt_ious`. Padded gts and proposals are masked to -1
+    before the assignment and ignored after. Returns dict(rois (num, 5),
+    pos_mask, neg_mask, gt_idx)."""
     props = torch.cat([gt_obbs, proposals], dim=0)
     prop_valid = torch.cat([gt_mask, proposal_valid], dim=0)
-    ious = rotated_iou(props, gt_obbs)
     ious = torch.where(prop_valid[:, None] & gt_mask[None, :], ious,
                        torch.full_like(ious, -1.0))
     assigned = max_iou_assign(
@@ -111,6 +112,14 @@ def sample_rois_for_training(sample_keys, proposals, proposal_valid,
     return {"rois": props[inds], "pos_mask": sample["pos_mask"],
             "neg_mask": sample["neg_mask"],
             "gt_idx": torch.clamp(assigned[inds].long() - 1, min=0)}
+
+
+def candidate_gt_ious(proposals, gt_obbs):
+    """The assigner's IoU for a batch of images: the candidates (the gts,
+    then the proposals; (B, G + P, 5)) against the gts (B, G, 5) ->
+    (B, G + P, G), one kernel launch on the card (the plain version on
+    the host)."""
+    return rotated_iou(torch.cat([gt_obbs, proposals], dim=1), gt_obbs)
 
 
 def bbox_head_loss(cls_logits, reg_pred, sampled, gt_obbs, gt_labels,

@@ -82,10 +82,11 @@ _SIGNATURES = {
     # B, C, N, out_size, sample_num, bf16, stream
     "sm3det_roi_align_rotated": [_P] * 4 + [_I] * 8 + [_F] * 4
     + [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # 4 fp32 gradient pointers, 4 heights, 4 widths, 4 x 1/stride, rois,
-    # lvls, g, B, C, N, out_size, sample_num, bf16, stream
+    # 4 gradient pointers, 4 heights, 4 widths, 4 x 1/stride, rois, lvls,
+    # g, stencil entries, bin boxes, RoI boxes (scratch), B, C, N,
+    # out_size, sample_num, g bf16, gradient bf16, stream
     "sm3det_roi_align_rotated_bwd": [_P] * 4 + [_I] * 8 + [_F] * 4
-    + [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    + [_P] * 6 + [_I] * 7 + [_P],
 }
 
 

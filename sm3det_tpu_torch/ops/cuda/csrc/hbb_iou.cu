@@ -10,7 +10,8 @@
 // fused multiply-add), so the result equals the PyTorch formulation bit
 // for bit. Both modes take inter and max(union, eps) from one device
 // function (pair_terms); the matrix mode divides, the mask mode decides
-// iou > thr exactly as the rounded quotient would (iou_above_sure).
+// iou > thr exactly as the rounded quotient would (iou_above_sure in
+// exact_math.cuh).
 //
 // Matrix mode (sm3det_hbb_iou): (B, N, M) fp32. With triu, every 128x128
 // tile strictly below the diagonal of tiles is written as zeros without
@@ -41,6 +42,8 @@
 
 #include <cuda_runtime.h>
 
+#include "exact_math.cuh"
+
 namespace {
 
 constexpr int BLK = 128;
@@ -64,26 +67,6 @@ __device__ __forceinline__ void pair_terms(float ax1, float ay1, float ax2,
   const float ih = fmaxf(__fsub_rn(fminf(ay2, by2), fmaxf(ay1, by1)), 0.f);
   inter = __fmul_rn(iw, ih);
   uni = fmaxf(__fsub_rn(__fadd_rn(area1, area2), inter), eps);
-}
-
-// __fdiv_rn(inter, uni) > thr, with uni > 0, decided without the division
-// where it can be (thr_normal: thr is a positive normal float). Let r =
-// fl(thr * uni). If inter > fl(r * (1 + 2^-21)), the exact quotient
-// exceeds thr * (1 + 2^-23) (each rounding moves a product by at most
-// 2^-24 of it), past the midpoint between thr and the next float, so the
-// rounded quotient is above thr. If inter < fl(r * (1 - 2^-21)), the exact
-// quotient is below thr, and so is its rounding (rounding is monotone and
-// thr is a float). Otherwise, or when r is not a normal float far from
-// overflow, or thr is not normal, the decision is "unsure" and the rounded
-// quotient decides.
-__device__ __forceinline__ bool iou_above_sure(float inter, float uni,
-                                               float thr, bool thr_normal,
-                                               bool& unsure) {
-  const float r = __fmul_rn(thr, uni);
-  const bool above = inter > __fmul_rn(r, 1.f + 0x1p-21f);
-  const bool below = inter < __fmul_rn(r, 1.f - 0x1p-21f);
-  unsure = !thr_normal || !(r >= 1e-30f && r <= 1e30f) || !(above || below);
-  return above && !unsure;
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -179,7 +162,8 @@ hbb_nms_mask_kernel(const float4* __restrict__ boxes,
           pair_terms(a.x, a.y, a.z, a.w, area, c.x, c.y, c.z, c.w,
                      areas[w * 32 + k], eps, inter, uni);
           bool u;
-          word |= (unsigned)iou_above_sure(inter, uni, thr, thr_normal, u)
+          word |= (unsigned)exact::iou_above_sure(inter, uni, thr,
+                                                   thr_normal, u)
                   << k;
           unsure |= (unsigned)u << k;
         }

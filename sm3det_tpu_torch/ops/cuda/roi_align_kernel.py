@@ -9,10 +9,12 @@ the exact sqrt-area rule (``ops/roi_align_rotated.route_levels``), without
 the TPU kernels' extent clamp and size buckets. The backward gives the
 features' gradient and none for the RoIs, as the reference op does.
 
-The backward kernel adds each sample's taps into an fp32 buffer per level
-with atomics, which commit in no fixed order: two runs on the card differ
-by fp32 rounding (the card tests allow 1e-4 of the gradient's scale in
-fp32 and 2^-6 in bf16, where the buffer is rounded once to bf16). On the
+The backward gathers: a first launch turns each RoI's samples into a
+stencil (per bin, the pixels its taps touch and their summed weights) and
+the box of pixels the RoI touches; a second sums, for each 8 x 8 pixel tile
+of a level, the stencils of the RoIs whose box meets it, in RoI order, in
+fp32, and writes the tile once in the feature dtype (zeros where no RoI
+touches it). No atomics: two runs on the card give the same bits. On the
 host the backward is autograd of the plain version.
 """
 
@@ -22,12 +24,15 @@ from typing import Sequence
 
 import torch
 
-from ..roi_align_rotated import roi_align_rotated_pyramid, route_levels
+from ..roi_align_rotated import (roi_align_rotated_pyramid,
+                                 route_levels, sample_taps)
 from . import build
 
 MAX_LEVELS = 4
-MAX_SAMPLES = 64      # out_size * sample_num^2, a bin row of the backward
-MAX_ROI_SAMPLES = 1024  # out_size^2 * sample_num^2, a RoI of the forward
+MAX_ROI_SAMPLES = 1024  # out_size^2 * sample_num^2, a RoI
+MAX_BWD_SAMPLE_NUM = 2  # the backward's stencil: 4 sample_num^2 <= 16 taps
+BWD_TAPS = 16           # a bin's entries in the backward's stencil
+BWD_TILE = 8            # the backward's output tiles: 8 x 8 pixels
 
 
 def _check_args(feats, rois, out_size, featmap_strides, sample_num):
@@ -89,36 +94,87 @@ def roi_align_rotated_pyramid_bwd(g, rois, lvls, level_shapes, dtype,
                                   featmap_strides=(4, 8, 16, 32),
                                   sample_num: int = 2):
     """Feature gradients of the pyramid align on the card: g (N, out, out,
-    C) -> per level (B, H_l, W_l, C) in ``dtype``. One launch of the
-    scatter kernel into zeroed fp32 buffers, then one rounding to
-    ``dtype``."""
+    C) -> per level (B, H_l, W_l, C) in ``dtype``, each written once by the
+    kernel. One launch of the stencil kernel and one of the tile kernel
+    (counted once); their scratch is sized from the shapes."""
     dev = g.device
     build.require_cuda(g, "g")
     build.require_cuda(rois, "rois", dev)
     if g.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"g must be fp32 or bf16, got {g.dtype}")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the gradient must be fp32 or bf16, got {dtype}")
     n_lvl = len(featmap_strides)
     n, out_size, _, ch = g.shape
-    if ch % 2 or out_size * sample_num * sample_num > MAX_SAMPLES \
-            or rois.shape != (n, 6) or len(level_shapes) < n_lvl:
+    if ch % 2 or not 1 <= sample_num <= MAX_BWD_SAMPLE_NUM \
+            or (out_size * sample_num) ** 2 > MAX_ROI_SAMPLES \
+            or rois.shape != (n, 6) or not 0 < n_lvl <= MAX_LEVELS \
+            or len(level_shapes) < n_lvl:
         raise ValueError(f"bad shapes: g {tuple(g.shape)}, rois "
-                         f"{tuple(rois.shape)}, {len(level_shapes)} levels")
-    bufs = [torch.zeros(tuple(s), device=dev, dtype=torch.float32)
-            for s in level_shapes[:n_lvl]]
-    if n:
-        g = g.contiguous()
-        rois = rois.float().contiguous()
-        lvls = lvls.to(torch.int32).contiguous()
-        lib = build.load_library()
-        rc = lib.sm3det_roi_align_rotated_bwd(
-            *[b.data_ptr() for b in bufs], *[None] * (MAX_LEVELS - n_lvl),
-            *_geometry_args(bufs, featmap_strides),
-            rois.data_ptr(), lvls.data_ptr(), g.data_ptr(),
-            bufs[0].shape[0], ch, n, out_size, sample_num,
-            int(g.dtype == torch.bfloat16), build.stream_ptr(dev))
-        build.check(rc, "roi_align_rotated_bwd")
-        build.LAUNCHES["roi_align_rotated_bwd"] += 1
-    return [b.to(dtype) for b in bufs]
+                         f"{tuple(rois.shape)}, {len(level_shapes)} levels, "
+                         f"sample_num {sample_num}")
+    grads = [torch.empty(tuple(s), device=dev, dtype=dtype)
+             for s in level_shapes[:n_lvl]]
+    for t in grads:
+        if t.shape[0] != grads[0].shape[0] or t.shape[-1] != ch \
+                or max(t.shape[1:3]) >= (1 << 15) - 1:
+            raise ValueError(f"levels must be (B, H, W, {ch}), H and W "
+                             f"below 32767")
+    g = g.contiguous()
+    if g.data_ptr() % (2 * g.element_size()):
+        g = g.clone()       # the kernel reads g by channel pairs at least
+    rois = rois.float().contiguous()
+    lvls = lvls.to(torch.int32).contiguous()
+    n_bins = out_size * out_size
+    entries = torch.empty((n, n_bins * BWD_TAPS, 2), device=dev,
+                          dtype=torch.int32)
+    bin_box = torch.empty((n, n_bins, 2), device=dev, dtype=torch.int32)
+    info = torch.empty((n, 4), device=dev, dtype=torch.int32)
+    lib = build.load_library()
+    rc = lib.sm3det_roi_align_rotated_bwd(
+        *[t.data_ptr() for t in grads], *[None] * (MAX_LEVELS - n_lvl),
+        *_geometry_args(grads, featmap_strides),
+        rois.data_ptr(), lvls.data_ptr(), g.data_ptr(), entries.data_ptr(),
+        bin_box.data_ptr(), info.data_ptr(), grads[0].shape[0], ch, n,
+        out_size, sample_num,
+        int(g.dtype == torch.bfloat16), int(dtype == torch.bfloat16),
+        build.stream_ptr(dev))
+    build.check(rc, "roi_align_rotated_bwd")
+    build.LAUNCHES["roi_align_rotated_bwd"] += 1
+    return grads
+
+
+def touched_boxes_ref(rois, lvls, level_shapes, featmap_strides=(4, 8, 16,
+                                                                 32),
+                      out_size: int = 7, sample_num: int = 2):
+    """Plain version of the backward's tile rule: per RoI the box ``(ymin,
+    ymax, xmin, xmax)`` (int64, on its level) of the pixels its taps of
+    non-zero weight touch, ``ymin = ymax = -1`` where there are none. The
+    tile kernel sums RoI n into a tile exactly where this box meets it."""
+    n = rois.shape[0]
+    box = torch.full((n, 4), -1, dtype=torch.int64, device=rois.device)
+    rois = rois.float()
+    for lvl, stride in enumerate(featmap_strides):
+        sel = torch.nonzero(lvls == lvl).squeeze(1)
+        if not sel.numel():
+            continue
+        hgt, wid = level_shapes[lvl][1], level_shapes[lvl][2]
+        y0, x0, y1, x1, ly, lx, keep = sample_taps(
+            rois[sel], hgt, wid, out_size, stride, sample_num)
+        hy, hx = 1.0 - ly, 1.0 - lx
+        ys = torch.stack([y0, y0, y1, y1], -1).flatten(1)
+        xs = torch.stack([x0, x1, x0, x1], -1).flatten(1)
+        wts = (torch.stack([hy * hx, hy * lx, ly * hx, ly * lx], -1)
+               * keep[..., None]).flatten(1)
+        on = wts != 0
+        big = torch.iinfo(torch.int64).max
+        box[sel, 0] = torch.where(on, ys, big).amin(1)
+        box[sel, 1] = torch.where(on, ys, -1).amax(1)
+        box[sel, 2] = torch.where(on, xs, big).amin(1)
+        box[sel, 3] = torch.where(on, xs, -1).amax(1)
+        none = ~on.any(1)
+        box[sel[none]] = -1
+    return box
 
 
 def roi_align_rotated_pyramid_bwd_ref(g, rois, lvls, level_shapes, dtype,
@@ -143,7 +199,7 @@ def roi_align_rotated_pyramid_bwd_ref(g, rois, lvls, level_shapes, dtype,
 
 class _PyramidAlign(torch.autograd.Function):
     """Forward: the kernel on the card, the plain version on the host.
-    Backward: the scatter kernel on the card, autograd of the plain version
+    Backward: the gather kernels on the card, autograd of the plain version
     on the host. Only the features get a gradient."""
 
     @staticmethod

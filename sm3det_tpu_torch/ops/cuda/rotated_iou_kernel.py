@@ -12,12 +12,21 @@ defines as 0: callers keep classes apart by a coordinate offset, so those
 are 0 either way.
 
 Tiles are ``TILE`` = 32 wide here (128 on the TPU): the triangle and the
-band follow the kernel's tile.
+band follow the kernel's tile. Inside a computed tile the kernel writes
++0 for a pair of boxes apart by more than a margin along one of their
+edge normals without clipping them (``rotated_iou.cu`` says why that is
+the clipping's own result) and sends the other pairs through the exact
+pair function, so every value equals the plain version's.
 
 ``rotated_nms_mask`` is the mask mode the NMS calls: the score-ordered
 self-IoU compared with the threshold, 32 decisions to an int32 word
 (``nms_keep_kernel.pack_bits``), with the same tile skipping; there the
 plain version and the kernel both define cross-group and inert pairs as 0.
+Every other pair goes through the exact pair function, so every bit
+equals the plain version's. (``rotated_iou.cu`` also holds a band that
+decides ``iou > thr`` without division where a bound on the pair
+function's rounding allows; it is built only by
+``tools/profiling/torch_rotated_iou_band.py``, which measured it slower.)
 """
 
 from __future__ import annotations

@@ -576,6 +576,98 @@ def test_rotated_nms_mask_kernel(cuda, b, n, banded):
         assert not bool((bits & ~same).any())
 
 
+def _edge_cases(device, n_cls=26, offset=0.0):
+    """Rotated boxes the separation test must leave to the exact pair
+    function, or decide right: pairs sharing an edge (axis-aligned and
+    rotated), pairs apart by gaps around the test's margin (0 to 0.1 px),
+    duplicates, boxes of no size or of tiny size, each group shifted by
+    ``offset`` px (the multi-class NMS's class offsets)."""
+    rows = []
+    for k, ang in enumerate((0.0, 0.3, -1.2, 1.5707964)):
+        x, y, w, h = 60.0 + 150 * k, 80.0, 30.0 + 7 * k, 12.0 + 3 * k
+        ca, sa = float(np.cos(ang)), float(np.sin(ang))
+        rows.append([x, y, w, h, ang])
+        rows.append([x + w * ca, y + w * sa, w, h, ang])        # shares an edge
+        rows.append([x - h * sa, y + h * ca, w, h, ang])        # the other one
+        for gap in (0.0, 1e-4, 1e-3, 2e-3, 1e-2, 0.1):
+            rows.append([x + (w + gap) * ca, y + (w + gap) * sa + 300, w, h,
+                         ang])
+            rows.append([x, y + 300, w, h, ang])
+        rows.append([x, y, w, h, ang])                          # duplicate
+        rows.append([x + 5, y, 0.0, h, ang])                    # no width
+        rows.append([x, y + 5, 1e-3, 1e-3, ang])                # tiny
+    boxes = torch.tensor(rows, device=device, dtype=torch.float32)
+    groups = (torch.arange(boxes.shape[0], device=device) * n_cls
+              // boxes.shape[0]).int()
+    boxes[:, :2] += (groups.float() * offset)[:, None]
+    return boxes, groups
+
+
+@pytest.mark.parametrize("offset", [0.0, 4000.0])
+def test_rotated_nms_mask_at_the_threshold(cuda, offset):
+    """Rows 5 and 6's mask mode decides most pairs without the pair
+    function (boxes apart by more than a margin have IoU +0) and the rest
+    with it. Thresholds equal to IoUs that occur, and the floats beside
+    them, on clustered boxes with class offsets, boxes of no size, and
+    boxes sharing an edge or apart by gaps around the margin: every bit,
+    and the keeps, as the plain version's; thresholds where only the
+    comparison with 0 decides (0, negative) too."""
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    boxes = _rboxes(gen, 4, 1000, cuda)
+    edge, egroups = _edge_cases(cuda, offset=offset)
+    groups = torch.sort(torch.randint(0, 26, (4, 1000), generator=gen,
+                                      device=cuda), dim=-1).values.int()
+    boxes[..., :2] += (groups * offset)[..., None]
+    boxes[:, :edge.shape[0]] = edge
+    groups[:, :edge.shape[0]] = egroups
+    groups = torch.sort(groups, dim=-1).values
+    ok = _both_real_or_both_empty(boxes)
+    iou = rik.rotated_iou_ref(boxes, boxes)
+    picks = iou[ok & (iou > 0.02) & (iou < 0.98)]
+    picks = picks[torch.randint(0, picks.numel(), (5,), generator=gen,
+                                device=cuda)].cpu()
+    thrs = torch.cat([picks, torch.nextafter(picks, torch.ones_like(picks)),
+                      torch.nextafter(picks, torch.zeros_like(picks))])
+    n = boxes.shape[1]
+    # boxes of no size are not eligible: the undefined pairs reach no keep
+    elig = (torch.rand(4, n, generator=gen, device=cuda) < 0.9) & \
+        (boxes[..., 2] * boxes[..., 3] > 0)
+    for thr in thrs.tolist() + [0.1, 0.0, -0.5]:
+        for grp in (None, groups):
+            got = rik.rotated_nms_mask(boxes, thr, grp)
+            ref = rik.rotated_nms_mask_ref(boxes, thr, grp)
+            assert torch.equal(_mask_bits(got, n, ok), _mask_bits(ref, n, ok)
+                               ), (thr, grp is None)
+            keep = nkk.nms_keep(got, elig)
+            assert torch.equal(keep, nkk.nms_keep(ref, elig)), thr
+
+
+def test_rotated_iou_assigner_batched(cuda):
+    """The R-CNN assigner's matrix mode at its batched train-step shape:
+    the gts and 2000 proposals of 2 images against their 16 gts, one
+    launch, every IoU equal to the plain version's (the assigner thresholds
+    them and takes their argmax), boxes apart from their gts decided +0
+    without the pair function; and each image's slice equal to a launch of
+    that image alone."""
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    cands = _rboxes(gen, 2, 16 + 2000, cuda, span=800.0)
+    cands[:, 16:200] = cands[:, :16].repeat(1, 12, 1)[:, :184] + \
+        torch.randn(2, 184, 5, generator=gen, device=cuda) * 4
+    edge, _ = _edge_cases(cuda)
+    cands[:, 300:300 + edge.shape[0]] = edge
+    gts = cands[:, :16]
+    build.reset_launches()
+    got = rik.rotated_iou(cands, gts)
+    assert build.LAUNCHES["rotated_iou"] == 1
+    ref = rik.rotated_iou_ref(cands, gts)
+    torch.cuda.synchronize()
+    ok = _both_real_or_both_empty(cands)[:, :, :16]
+    assert torch.equal(got * ok, ref * ok)
+    assert int(((ref > 0.5) & ok).sum()) > 16
+    for i in range(2):
+        assert torch.equal(rik.rotated_iou(cands[i], gts[i]), got[i])
+
+
 # n = 30000 is past two staged steps in shared memory: rows read from
 # device memory
 KEEP_CASES = [(b, n, d) for b, n in ((1, 1), (8, 31), (40, 33), (8, 2000),
@@ -720,28 +812,63 @@ def test_roi_align_rotated_footprints(cuda, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", ["random", "one_centre"])
+@pytest.mark.parametrize("case", ["random", "one_centre", "long_thin"])
 @pytest.mark.parametrize("b,n,size,c", [(1, 50, 128, 32), (2, 1024, 800, 256)])
 def test_roi_align_rotated_bwd_kernel(cuda, dtype, case, b, n, size, c):
-    """Row 8: the scatter kernel against autograd of the plain align. fp32
-    atomics add in no fixed order (1e-4 of the scale); bf16 rounds the fp32
-    sum once (2^-6). ``one_centre``: every RoI on one point, so every
-    sample's taps collide."""
+    """Row 8: the gather kernels against autograd of the plain align, and
+    two launches bit-equal (every element summed in one fixed order, no
+    atomics). fp32: 1e-4 of the scale (another summation order); bf16:
+    both round the fp32 sum once (2^-6). ``one_centre``: every RoI on one
+    point, so every RoI meets the same tiles; ``long_thin``: RoIs of aspect
+    up to 1:40, routed by area to fine levels where they cross many
+    tiles."""
     gen = torch.Generator(device=cuda).manual_seed(n + 1)
     rois = _rois(gen, b, n, size, cuda)
     if case == "one_centre":
         rois[:, 0] = 0.0
         rois[:, 1:3] = size / 2
         rois[:, 3:5] = 24 + torch.rand(n, 2, generator=gen, device=cuda) * 36
+    elif case == "long_thin":
+        rois[:, 3] = size * (0.2 + 0.6 * torch.rand(n, generator=gen,
+                                                    device=cuda))
+        rois[:, 4] = rois[:, 3] / (4 + 36 * torch.rand(n, generator=gen,
+                                                       device=cuda))
     lvls = route_levels(rois)
     shapes = [(b, size // s, size // s, c) for s in (4, 8, 16, 32)]
     g = _rand(gen, n, 7, 7, c, dtype=dtype)
     build.reset_launches()
     got = rak.roi_align_rotated_pyramid_bwd(g, rois, lvls, shapes, dtype)
-    assert build.LAUNCHES["roi_align_rotated_bwd"] == 1
+    again = rak.roi_align_rotated_pyramid_bwd(g, rois, lvls, shapes, dtype)
+    assert build.LAUNCHES["roi_align_rotated_bwd"] == 2
     ref = rak.roi_align_rotated_pyramid_bwd_ref(g, rois, lvls, shapes, dtype)
-    for a, r in zip(got, ref):
+    for a, a2, r in zip(got, again, ref):
         _check(a, r, dtype)
+        assert torch.equal(a, a2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,offset", [(34, 0), (6, 0), (256, 2), (256, 1)])
+def test_roi_align_rotated_bwd_unaligned(cuda, dtype, c, offset):
+    """Row 8 off the train step's layout: C not a multiple of 8 (g rows
+    copied by cp.async in channel pairs, partial lanes, gradient stored
+    by pairs) and g an offset view of a larger buffer (rows not 16-byte
+    aligned; an odd offset is copied by the wrapper first), against the
+    plain version with the tolerance of the test above, two launches
+    bit-equal."""
+    gen = torch.Generator(device=cuda).manual_seed(c + offset)
+    b, n, size = 1, 50, 128
+    rois = _rois(gen, b, n, size, cuda)
+    lvls = route_levels(rois)
+    shapes = [(b, size // s, size // s, c) for s in (4, 8, 16, 32)]
+    flat = _rand(gen, n * 49 * c + offset, dtype=dtype)
+    g = flat[offset:].view(n, 7, 7, c)
+    assert g.data_ptr() % 16 or c % 8
+    got = rak.roi_align_rotated_pyramid_bwd(g, rois, lvls, shapes, dtype)
+    again = rak.roi_align_rotated_pyramid_bwd(g, rois, lvls, shapes, dtype)
+    ref = rak.roi_align_rotated_pyramid_bwd_ref(g, rois, lvls, shapes, dtype)
+    for a, a2, r in zip(got, again, ref):
+        _check(a, r, dtype)
+        assert torch.equal(a, a2)
 
 
 def test_roi_align_autograd_on_the_card(cuda):

@@ -46,13 +46,14 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 
-# the __global__ functions of sm3det_tpu_torch/ops/cuda/csrc/*.cu
+# the __global__ functions of sm3det_tpu_torch/ops/cuda/csrc/*.cu (the
+# align backward's are stencil_kernel and tile_kernel)
 PORT_KERNELS = ("dwconv_ln_kernel", "dwconv_ln_bwd_stats_kernel",
                 "dwconv_ln_bwd_conv_kernel", "dwconv_ln_bwd_reduce_kernel",
                 "ffn_fused_kernel", "gemm_f32_kernel",
                 "hbb_iou_kernel", "hbb_nms_mask_kernel", "nms_keep_kernel",
                 "layernorm_kernel", "rotated_iou_kernel",
-                "roi_align_rotated_kernel", "roi_align_rotated_bwd_kernel")
+                "roi_align_rotated_kernel", "stencil_kernel", "tile_kernel")
 
 
 def stage_of(name, module):
