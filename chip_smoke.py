@@ -30,7 +30,20 @@ Phases (any failure exits non-zero):
    (``DEFAULT_MODEL_CFG``, [4:2:2] x 800^2, bf16 policy, DLA switching on
    after two warmup steps, AdamW), warmed up, then 10 timed steps: images/s
    (median and quartiles), peak memory, every loss and the launches of
-   every kernel in one step.
+   every kernel in one step;
+6. evaluation entry point: the flagship built from
+   ``configs/sm3det_convnext_t.py`` through the port's config, registry
+   and ``build_detector`` (bf16, random weights from seed 0), saved with
+   ``save_params``; then ``sm3det_tpu_torch.tools.test``'s ``main``
+   in-process on synthetic 1024^2 images (resized to 800^2), batch 8:
+   (a) SAR COCO ``bbox`` over 32 images, RGB mAP over 32, SAR mAP over 16
+   (images/s, the host pipeline's images/s alone, host syncs a batch in
+   the loop, peak memory, metrics, launches); (b) ``eval_rbbox_map`` on
+   the card (rows 5 and 4 in matrix mode) against the host's plain
+   version on those detections: every AP bit-equal, and the gts given
+   back as detections mAP 1.0; (c) ``--format-only`` on 8 patch-named
+   images of two base images: the zip, and the card's merge equal to the
+   host's; (d) ``inference_detector_by_patches`` of a 2048^2 image.
 
 Phase 3 holds the NMS's kernels (the IoU kernels' mask mode, which packs
 the decisions ``iou > thr`` into 32-bit words, and the greedy keep scan)
@@ -314,6 +327,359 @@ def subtree_norms(torch, names, grads):
         top = n.split(".")[0]
         sq[top] = sq.get(top, 0.0) + float(g.double().pow(2).sum())
     return {k: v ** 0.5 for k, v in sq.items()}
+
+
+EVAL_CFG = "configs/sm3det_convnext_t.py"
+EVAL_IMG = 1024            # synthetic eval images, resized to img_size 800
+EVAL_WORK = "work_dirs/chip_smoke"   # gitignored; removed at the end
+
+
+def syncs_in_loop(torch, fn):
+    """Run ``fn`` under ``torch.cuda.set_sync_debug_mode("warn")``: (its
+    result, synchronisations in all, those made inside ``stream_eval`` (the
+    loop and the forwards it runs))."""
+    import traceback
+    import warnings
+    counts = {"all": 0, "loop": 0}
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" not in str(message):
+            return
+        counts["all"] += 1
+        if any(fr.name == "stream_eval" and fr.filename.endswith(
+                "eval_loop.py") for fr in traceback.extract_stack()):
+            counts["loop"] += 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return out, counts["all"], counts["loop"]
+
+
+class PatchNamed:
+    """A dataset whose image ids are DOTA patch names."""
+
+    def __init__(self, ds, names):
+        self.ds, self.names = ds, names
+        self.CLASSES = ds.CLASSES
+
+    def __len__(self):
+        return len(self.names)
+
+    def get_raw(self, idx):
+        return dict(self.ds.get_raw(idx), img_id=self.names[idx])
+
+
+def phase6(torch, dev, smi, build):
+    """6. The eval entry point (``sm3det_tpu_torch.tools.test``) on the
+    card; returns (failures, record for the JSON line)."""
+    import os
+    import shutil
+
+    import numpy as np
+
+    from sm3det_tpu_torch.apis.inference import \
+        inference_detector_by_patches
+    from sm3det_tpu_torch.core.evaluation import eval_map as em
+    from sm3det_tpu_torch.core.patch.split_merge import \
+        merge_det_by_patch_ids
+    from sm3det_tpu_torch.data.datasets import SyntheticDetDataset
+    from sm3det_tpu_torch.models.builder import build_detector
+    from sm3det_tpu_torch.ops.cuda import hbb_iou_kernel as hik
+    from sm3det_tpu_torch.ops.cuda import rotated_iou_kernel as rik
+    from sm3det_tpu_torch.tools import test as cli
+    from sm3det_tpu_torch.train.checkpoint import load_params, save_params
+    from sm3det_tpu_torch.utils.config import Config
+
+    failures, rec = [], {}
+    t_phase = time.perf_counter()
+    cfg = Config.fromfile(EVAL_CFG)
+    nc = cfg.num_classes
+    os.makedirs(EVAL_WORK, exist_ok=True)
+    ckpt = os.path.join(EVAL_WORK, "flagship_bf16.pth")
+
+    # (a) the flagship from the config, bf16, random weights from seed 0;
+    # the GFL prior bias at 0 and fc_cls scaled so that there are
+    # detections (as 4b and 4c); saved, then reloaded by the CLI
+    t0 = time.perf_counter()
+    model = build_detector(cfg.model, device=dev, compute_dtype="bfloat16",
+                           seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    with torch.no_grad():
+        model.sar_bbox_head.gfl_cls.bias.fill_(0.0)
+        imgs = torch.rand(2, 800, 800, 3, generator=gen, device=dev)
+        x = model.neck_rcnn(model.extract_feat(imgs))
+        props, _, _ = model.get_proposals(*model.head_rpn(x, "rgb"))
+        logits, _ = model.rgb_roi_head(model.roi_feats(x, props))
+        model.rgb_roi_head.fc_cls.weight.mul_(
+            3.0 / logits.float().std().item())
+    save_params(ckpt, model)
+    del model, imgs, x, props, logits
+    torch.cuda.empty_cache()
+    log(f"[eval] flagship from {EVAL_CFG} (bf16, seed 0) built and saved "
+        f"in {time.perf_counter() - t0:.1f} s ({os.path.getsize(ckpt) / 2**20:.0f}"
+        f" MiB)")
+
+    launches, loaded = {}, [None]
+
+    def run(sub, n, extra=(), ds=None):
+        ds = ds or SyntheticDetDataset(
+            n=n, img_size=EVAL_IMG, num_classes=nc,
+            box_type="hbb" if sub == "sar" else "obb", seed=7)
+        argv = [EVAL_CFG, ckpt, "--subdataset", sub, "--num-images", str(n),
+                "--batch-size", "8"] + list(extra)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        out, n_sync, n_loop = syncs_in_loop(
+            torch, lambda: cli.main(argv, dataset=ds, model=loaded[0]))
+        torch.cuda.synchronize()
+        got = dict(build.LAUNCHES)
+        loaded[0] = out["model"]
+        st = out["stats"]
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        per_batch = n_loop / max(st["batches"], 1)
+        n_det = sum(len(d) for img in out["det_results"] for d in img)
+        log(f"[eval] {' '.join(argv[2:])}: {out['img_per_s']:.2f} images/s "
+            f"(host clock, after warm-up; {n} x {EVAL_IMG}^2 -> "
+            f"{cfg.img_size}^2); host pipeline alone "
+            f"{st['host_images_per_s']:.2f} images/s; waited "
+            f"{st['queue_wait_s']:.3f} s for the host, "
+            f"{st['event_wait_s']:.3f} s on {st['event_waits']} events; host "
+            f"syncs {n_loop} in the loop ({per_batch:.2f} a batch of "
+            f"{st['batches']}), {n_sync} in all; peak memory {peak:.2f} GiB; "
+            f"{n_det} detections; card {smi}")
+        log(f"[eval]   launches: {got}")
+        log(f"[eval]   metrics: {out['metrics']}")
+        key = sub + ("_format" if "--format-only" in extra else
+                     "_mAP" if extra else "")
+        rec[key] = dict(
+            images=n, images_per_s=out["img_per_s"],
+            host_images_per_s=st["host_images_per_s"],
+            queue_wait_s=st["queue_wait_s"],
+            event_wait_s=st["event_wait_s"], batches=st["batches"],
+            loop_syncs=n_loop, loop_syncs_per_batch=per_batch,
+            all_syncs=n_sync, peak_gib=peak, detections=n_det,
+            metrics={k: v for k, v in (out["metrics"] or {}).items()
+                     if isinstance(v, (int, float, str))})
+        if n_det == 0:
+            failures.append(f"eval {key}: no detections")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        return out, got
+
+    t0 = time.perf_counter()
+    sar, got = run("sar", 32)
+    m = sar["metrics"]
+    if not (0.0 <= m["bbox_mAP"] <= 1.0 and m["bbox_mAP_copypaste"]):
+        failures.append("eval sar: bbox metrics")
+    for k in ("fused_convnext_block", "dwconv_ln", "moe_ffn_grouped",
+              "fused_layernorm", "hbb_nms_mask", "nms_keep"):
+        if got[k] <= 0:
+            failures.append(f"eval sar launches {k}={got[k]}")
+    rgb, got = run("rgb", 32)
+    rec["rotated_iou_banded_launches"] = got["rotated_iou_banded"]
+    for k in ("fused_convnext_block", "dwconv_ln", "moe_ffn_grouped",
+              "fused_layernorm", "hbb_nms_mask", "rotated_nms_mask_banded",
+              "nms_keep", "roi_align_rotated", "rotated_iou_banded"):
+        if got[k] <= 0:
+            failures.append(f"eval rgb launches {k}={got[k]}")
+    if got["rotated_iou"] or got["hbb_iou"]:
+        failures.append(f"eval rgb: unexpected matrix launches {got}")
+    if not np.isfinite(rgb["metrics"]["mAP"]):
+        failures.append("eval rgb: mAP not finite")
+    sar_map, got = run("sar", 16, ("--cfg-options", "evaluation.metric=mAP"))
+    rec["hbb_iou_launches"] = got["hbb_iou"]
+    if got["hbb_iou"] <= 0:
+        failures.append(f"eval sar mAP launches hbb_iou={got['hbb_iou']}")
+    model = loaded[0]
+    log(f"[eval] (a) four CLI runs: {time.perf_counter() - t0:.1f} s")
+
+    # (b) the card's eval against the host's on identical inputs
+    calls = [0]
+    real_chunk = em._chunk_ious
+
+    def counting(*a, **kw):
+        calls[0] += 1
+        return real_chunk(*a, **kw)
+    em._chunk_ious = counting
+    try:
+        for name, src, box_dim, kernel in (
+                ("rgb", rgb, 5, "rotated_iou_banded"),
+                ("sar mAP", sar_map, 4, "hbb_iou")):
+            dets, anns = src["det_results"], src["annotations"]
+            res = {}
+            for where in ("cuda", "cpu"):
+                calls[0] = 0
+                build.reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res[where] = em.eval_rbbox_map(dets, anns, box_dim=box_dim,
+                                               logger=None, device=where)
+                torch.cuda.synchronize()
+                res[where + "_s"] = time.perf_counter() - t0
+                res[where + "_calls"] = calls[0]
+                res[where + "_launches"] = build.LAUNCHES[kernel]
+            same = res["cuda"] == res["cpu"]
+            n_pairs = sum(len(d) * int(np.sum(a["labels"] == c))
+                          for img, a in zip(dets, anns)
+                          for c, d in enumerate(img))
+            log(f"[eval] (b) {name} eval_rbbox_map, {len(dets)} images, "
+                f"{n_pairs} same-class det x gt pairs: card "
+                f"{res['cuda_s'] * 1e3:.1f} ms ({res['cuda_calls']} IoU "
+                f"call(s), {res['cuda_launches']} {kernel} launch(es)); host "
+                f"{res['cpu_s'] * 1e3:.1f} ms ({res['cpu_calls']} IoU calls "
+                f"of the plain version); every AP bit-equal {same}: card "
+                f"mAP {res['cuda']['mAP']!r}, host {res['cpu']['mAP']!r}")
+            rec[f"eval_{kernel}"] = dict(
+                images=len(dets), pairs=n_pairs,
+                card_ms=res["cuda_s"] * 1e3, host_ms=res["cpu_s"] * 1e3,
+                card_launches=res["cuda_launches"],
+                card_calls=res["cuda_calls"], host_calls=res["cpu_calls"],
+                equal=same)
+            if not same or res["cuda_launches"] != res["cuda_calls"]:
+                failures.append(f"eval card against host: {name}")
+            # the kernel alone at this eval's shape: its one chunk, padded
+            gts = [[a["bboxes"][a["labels"] == c] for c in range(nc)]
+                   for a in anns]
+            items = next(em.chunks(dets, gts, em.MAX_PAIRS["cuda"]))
+            arrs = em.pack_chunk(items, box_dim)
+            d, g, dg, gg = (torch.from_numpy(v).to(dev) for v in arrs[:4])
+            same_g = (dg[:, :, None] == gg[:, None, :]) & \
+                (dg[:, :, None] < rik.INERT_GROUP)
+            if box_dim == 5:
+                def kfn():
+                    return rik.rotated_iou(d, g, groups1=dg, groups2=gg)
+
+                def pfn():
+                    return rik.rotated_iou_ref(d, g, groups1=dg, groups2=gg)
+                work = int(same_g.sum()) * ROT_IOU_FLOPS
+                nbytes = 4 * (d.numel() + g.numel() + dg.numel() +
+                              gg.numel() + same_g.numel())
+                k_out, p_out = kfn(), pfn()
+                exact = torch.equal(k_out[same_g], p_out[same_g])
+            else:
+                def kfn():
+                    return hik.hbb_iou(d, g)
+
+                def pfn():
+                    return hik.hbb_iou_ref(d, g)
+                work = same_g.numel() * 12
+                nbytes = 4 * (d.numel() + g.numel() + same_g.numel())
+                exact = torch.equal(kfn()[same_g], pfn()[same_g])
+            k_ms = cuda_ms(torch, kfn, iters=10)
+            p_ms = cuda_ms(torch, pfn, iters=3, warmup=1)
+            b_ms, b_by = bound_ms(nbytes, [(work, "float32")])
+            log(f"[eval] (b) {kernel} alone on the chunk {tuple(d.shape)} x "
+                f"{tuple(g.shape)}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} "
+                f"ms (CUDA events), bound {b_ms:.4f} ms ({b_by}); the "
+                f"defined pairs bit-equal {exact}")
+            rec[f"eval_{kernel}"].update(
+                shape=[list(d.shape), list(g.shape)], kernel_ms=k_ms,
+                plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                kernel_equal=exact)
+            if not exact:
+                failures.append(f"eval {kernel} against its plain version")
+            # the gts given back as detections (score 1): mAP 1
+            gt_dets = [[np.concatenate(
+                [a["bboxes"][a["labels"] == c],
+                 np.ones((int(np.sum(a["labels"] == c)), 1), np.float32)],
+                1) for c in range(nc)] for a in anns]
+            perfect = em.eval_rbbox_map(gt_dets, anns, box_dim=box_dim,
+                                        logger=None, device=dev)
+            log(f"[eval] (b) {name}: the gts as detections give mAP "
+                f"{perfect['mAP']!r}")
+            if perfect["mAP"] != 1.0:
+                failures.append(f"eval {name}: gts as detections")
+    finally:
+        em._chunk_ious = real_chunk
+
+    # (c) --format-only on rgb: 8 patches of two base images, merged on
+    # the card, against the host's plain merge of the same detections. The
+    # R-CNN keeps 300 detections an image here (the model's cfg, as the
+    # --cfg-options would set it on a model the tool builds), so that the
+    # host's plain mask (a dense N^2 IoU) takes seconds, not minutes
+    names = [f"P000{b}__1.0__{x}___{y}" for b in (1, 2)
+             for x in (0, 824) for y in (0, 824)]
+    ds = PatchNamed(SyntheticDetDataset(n=8, img_size=EVAL_IMG,
+                                        num_classes=nc, seed=8), names)
+    sub_dir = os.path.join(EVAL_WORK, "submission")
+    rcnn_max = model.cfg["rgb"]["rcnn_max"]
+    model.cfg["rgb"]["rcnn_max"] = 300
+    fmt, got = run("rgb", 8, ("--format-only", "--submission-dir", sub_dir,
+                              "--cfg-options", "model.rgb.rcnn_max=300"),
+                   ds=ds)
+    model.cfg["rgb"]["rcnn_max"] = rcnn_max
+    zip_ok = os.path.exists(os.path.join(sub_dir, "submission.zip"))
+    t0 = time.perf_counter()
+    host = merge_det_by_patch_ids(fmt["img_ids"], fmt["det_results"], nc,
+                                  device="cpu")
+    host_s = time.perf_counter() - t0
+    build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = merge_det_by_patch_ids(fmt["img_ids"], fmt["det_results"], nc,
+                                  device=dev)
+    card_s = time.perf_counter() - t0
+    merge_launches = dict(build.LAUNCHES)
+    same = card.keys() == host.keys() == fmt["merged"].keys() and all(
+        np.array_equal(card[b][c], host[b][c]) and
+        np.array_equal(fmt["merged"][b][c], host[b][c])
+        for b in host for c in range(nc))
+    n_in = sum(len(d) for img in fmt["det_results"] for d in img)
+    n_out = sum(len(d) for b in host for d in host[b])
+    log(f"[eval] (c) --format-only: zip written {zip_ok}; {n_in} patch "
+        f"detections merged into {n_out} in {len(host)} images; card "
+        f"{card_s * 1e3:.1f} ms ({merge_launches['rotated_nms_mask_banded']} "
+        f"banded mask, {merge_launches['nms_keep']} keep launches), host "
+        f"{host_s * 1e3:.1f} ms; card merge equals the host's {same}")
+    rec["merge"] = dict(detections_in=n_in, detections_out=n_out,
+                        card_ms=card_s * 1e3, host_ms=host_s * 1e3,
+                        equal=same)
+    if not (zip_ok and same and n_out > 0):
+        failures.append("eval --format-only merge")
+
+    # (d) a 2048^2 image by patches of 1024 (step 824): 9 windows, batches
+    # of 4
+    load_params(ckpt, model)          # the saved weights, read back
+    rng = np.random.RandomState(9)
+    big = (rng.rand(2048, 2048, 3) * 255).astype(np.uint8)
+    n_patches = [0]
+
+    def infer(batch):
+        n_patches[0] += batch.shape[0]
+        return model.simple_test_rgb(torch.from_numpy(batch).to(dev),
+                                     img_shape=(1024, 1024))
+    infer(np.zeros((4, 1024, 1024, 3), np.float32))       # warm-up
+    n_patches[0] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    merged = inference_detector_by_patches(infer, big, nc, batch_size=4,
+                                           device=dev)
+    torch.cuda.synchronize()
+    patch_s = time.perf_counter() - t0
+    n_big = sum(len(d) for d in merged)
+    log(f"[eval] (d) inference_detector_by_patches, 2048^2: 9 windows of "
+        f"1024^2 (step 824) in {n_patches[0]} batch slots of 4, "
+        f"{patch_s * 1e3:.1f} ms, {n_big} merged detections")
+    rec["by_patches"] = dict(windows=9, slots=n_patches[0],
+                             ms=patch_s * 1e3, detections=n_big)
+    if n_big == 0 or not all(np.isfinite(d).all() for d in merged):
+        failures.append("eval by patches")
+    del model, loaded[0]
+    shutil.rmtree(EVAL_WORK, ignore_errors=True)
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[eval] phase 6 wall time {rec['phase_s']:.1f} s")
+    return failures, rec, launches
+
 
 
 def main():
@@ -1846,14 +2212,31 @@ def main():
     for k in ("rotated_iou", "roi_align_rotated_bwd", "fused_dwconv_ln_train"):
         launches[k] = train_launches[k]
 
+    # ---- 6. the evaluation entry point -------------------------------------
+    del model, state, train_step, fbatch, p0, mult_log
+    torch.cuda.empty_cache()
+    eval_failures, eval_rec, eval_launches = phase6(torch, dev, smi, build)
+    if eval_failures:
+        fail(f"evaluation entry point failed: {eval_failures}")
+    launches["rotated_iou_banded"] = eval_rec["rotated_iou_banded_launches"]
+    launches["hbb_iou"] = eval_rec["hbb_iou_launches"]
+    for k in ("rotated_iou_banded", "hbb_iou"):
+        e = eval_rec[f"eval_{k}"]
+        recs[k].extra.update(eval_shape=e["shape"], eval_ms=e["kernel_ms"],
+                             eval_plain_ms=e["plain_ms"],
+                             eval_bound_ms=e["bound_ms"],
+                             eval_bound_by=e["bound_by"])
+
     log(json.dumps({
         "kernels": [recs[k].json(launches[k]) for k in recs],
         "launches_from": "simple_test_joint [8:4:4]; rotated_nms_mask "
                          "from aug_test('rgb') on 1 image; rotated_iou (the "
                          "R-CNN assigner), roi_align_rotated_bwd and "
                          "fused_dwconv_ln_train from one flagship train "
-                         "step; hbb_iou and rotated_iou_banded (matrix "
-                         "modes) run on no path",
+                         "step; rotated_iou_banded (matrix mode) from the "
+                         "eval entry point's rgb mAP over 32 images, "
+                         "hbb_iou (matrix mode) from its SAR mAP over 16",
+        "eval": eval_rec, "eval_launches": eval_launches,
         "train_step_launches": train_launches,
         "train_images_per_s": train_ips, "train_step_ms": train_dt * 1e3,
         "train_peak_gib": train_peak_gib, "train_losses": metrics,

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no file of ``sm3det_tpu_torch``, nor
-``chip_smoke.py`` or the port's profiling script, imports JAX, its libraries
-or the JAX package, and importing every module of the port loads no JAX."""
+``chip_smoke.py`` or the port's profiling scripts
+(``tools/profiling/torch_*.py``), imports JAX, its libraries or the JAX
+package, and importing every module of the port loads no JAX."""
 
 import ast
 import subprocess
@@ -9,8 +10,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 BANNED = {"jax", "jaxlib", "flax", "optax", "orbax", "sm3det_tpu"}
-SCRIPTS = [ROOT / "chip_smoke.py",
-           ROOT / "tools" / "profiling" / "torch_sar_profile.py"]
+SCRIPTS = [ROOT / "chip_smoke.py"] + sorted(
+    (ROOT / "tools" / "profiling").glob("torch_*.py"))
 
 
 def _port_files():

@@ -1175,3 +1175,114 @@ def test_bf16_train_step_goes_through_the_train_kernels(cuda):
     for k in ("dwconv_ln", "fused_convnext_block", "moe_ffn_grouped",
               "fused_layernorm"):
         assert build.LAUNCHES[k] == 0, k
+
+
+# ---- the eval's IoU: row 5's grouped matrix mode at eval shapes -------------
+
+def _eval_blocks(gen, b, n, g, classes, device):
+    """Detections (b, n, 5) near gts (b, g, 5), both sorted by a class of
+    ``classes`` with some classes absent, padded to full size with
+    INERT_GROUP rows; per image a different fill, one image with no
+    detections where b > 1."""
+    dets = torch.zeros(b, n, 5, device=device)
+    gts = torch.zeros(b, g, 5, device=device)
+    dg = torch.full((b, n), rik.INERT_GROUP, dtype=torch.int32,
+                    device=device)
+    gg = torch.full((b, g), rik.INERT_GROUP, dtype=torch.int32,
+                    device=device)
+    present = torch.randperm(classes, generator=torch.Generator(
+        device="cpu").manual_seed(n * 7 + g))[:max(classes // 2, 1)]
+    for i in range(b):
+        nd = 0 if (b > 1 and i == 1) else max(n - 3 * i, 1)
+        ng = max(g - i, 1)
+        gt = _rboxes(gen, 1, ng, device, span=600.0)[0]
+        gt[:, 2:4] = gt[:, 2:4].clamp(min=4.0)
+        gts[i, :ng] = gt
+        gc = present[torch.randint(0, len(present), (ng,), generator=gen,
+                                   device=device).cpu()].to(device)
+        gc, order = torch.sort(gc)
+        gts[i, :ng] = gt[order]
+        gg[i, :ng] = gc.int()
+        if nd:
+            pick = torch.randint(0, ng, (nd,), generator=gen, device=device)
+            d = gts[i, pick] + torch.randn(nd, 5, generator=gen,
+                                           device=device) * \
+                torch.tensor([3.0, 3.0, 2.0, 2.0, 0.05], device=device)
+            d[:, 2:4] = d[:, 2:4].clamp(min=1.0)
+            dc, order = torch.sort(gg[i, pick])
+            dets[i, :nd] = d[order]
+            dg[i, :nd] = dc
+    return dets, gts, dg, gg
+
+
+@pytest.mark.parametrize("n", [1, 37, 2000])
+@pytest.mark.parametrize("g", [1, 5, 300])
+def test_rotated_iou_grouped_at_eval_shapes(cuda, n, g):
+    gen = torch.Generator(device=cuda).manual_seed(n + 10 * g)
+    dets, gts, dg, gg = _eval_blocks(gen, 3, n, g, 26, cuda)
+    build.reset_launches()
+    got = rik.rotated_iou(dets, gts, groups1=dg, groups2=gg)
+    assert build.LAUNCHES["rotated_iou_banded"] == 1
+    ref = rik.rotated_iou_ref(dets, gts, groups1=dg, groups2=gg)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == (3, n, g)
+    same = (dg[:, :, None] == gg[:, None, :]) & \
+        (dg[:, :, None] < rik.INERT_GROUP)
+    assert int(same.sum()) > 0
+    assert torch.equal(got[same], ref[same])        # bit for bit
+    if n > 1:
+        assert float(ref[same].max()) > 0.3         # real overlaps
+
+
+def _eval_case(seed, n_img=16, nc=6):
+    """Per image a per-class list of rotated detections near the gts and
+    the annotations (with ignore gts on even images), in numpy."""
+    rng = np.random.RandomState(seed)
+    dets, anns = [], []
+    for i in range(n_img):
+        k = rng.randint(1, 12)
+        gts = np.stack([rng.uniform(50, 700, k), rng.uniform(50, 700, k),
+                        rng.uniform(10, 80, k), rng.uniform(6, 40, k),
+                        rng.uniform(-1.5, 1.5, k)], -1).astype(np.float32)
+        labels = rng.randint(0, nc, k)
+        ann = dict(bboxes=gts, labels=labels)
+        if i % 2 == 0:
+            ann["bboxes_ignore"] = gts[:1] + 200
+            ann["labels_ignore"] = labels[:1]
+        per_class = []
+        for c in range(nc):
+            src = gts[labels == c]
+            d = np.concatenate([
+                np.repeat(src, 3, 0) + rng.normal(0, 2, (3 * len(src), 5)) *
+                [1, 1, 1, 1, 0.03],
+                np.stack([rng.uniform(50, 700, 2), rng.uniform(50, 700, 2),
+                          rng.uniform(10, 80, 2), rng.uniform(6, 40, 2),
+                          rng.uniform(-1.5, 1.5, 2)], -1)]).astype(np.float32)
+            d[:, 2:4] = np.maximum(d[:, 2:4], 1.0)
+            per_class.append(np.concatenate(
+                [d, rng.rand(len(d), 1).astype(np.float32)], 1))
+        dets.append(per_class)
+        anns.append(ann)
+    return dets, anns
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_eval_rbbox_map_on_the_card_equals_the_host(cuda, seed):
+    from sm3det_tpu_torch.core.evaluation.eval_map import eval_rbbox_map
+    dets, anns = _eval_case(seed)
+    build.reset_launches()
+    card = eval_rbbox_map(dets, anns, logger=None, device=cuda)
+    assert build.LAUNCHES["rotated_iou_banded"] == 1     # one chunk
+    host = eval_rbbox_map(dets, anns, logger=None, device="cpu")
+    assert card == host
+    assert 0.1 < card["mAP50"] <= 1.0
+    hb = [[np.concatenate([d[:, :2] - 10, d[:, :2] + 10, d[:, 5:]], 1)
+           for d in img] for img in dets]
+    hann = [dict(bboxes=np.concatenate([a["bboxes"][:, :2] - 10,
+                                        a["bboxes"][:, :2] + 10], 1),
+                 labels=a["labels"]) for a in anns]
+    build.reset_launches()
+    card4 = eval_rbbox_map(hb, hann, box_dim=4, logger=None, device=cuda)
+    assert build.LAUNCHES["hbb_iou"] == 1
+    assert card4 == eval_rbbox_map(hb, hann, box_dim=4, logger=None,
+                                   device="cpu")
