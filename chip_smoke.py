@@ -43,7 +43,21 @@ Phases (any failure exits non-zero):
    version on those detections: every AP bit-equal, and the gts given
    back as detections mAP 1.0; (c) ``--format-only`` on 8 patch-named
    images of two base images: the zip, and the card's merge equal to the
-   host's; (d) ``inference_detector_by_patches`` of a 2048^2 image.
+   host's; (d) ``inference_detector_by_patches`` of a 2048^2 image;
+7. train entry point: ``sm3det_tpu_torch.tools.train``'s ``main``
+   in-process: (a) ``configs/sm3det_convnext_t.py --synthetic-data`` at
+   full width in bf16, [2:1:1] x 800^2, 30 iterations with a checkpoint at
+   20 and an eval pass at 30 (train images/s after 2 warm iterations, the
+   host pipeline's images/s alone, the loop's wait for batches, peak
+   memory, the checkpoint's size and seconds, the launches of every
+   kernel of the path; the host pipeline's stages timed one by one in
+   one thread), then ``--resume-from iter_20``: the loaded state
+   equal to the file bit for bit, and 5 more iterations with finite
+   losses and the host synchronisations counted by part (the loop's own
+   at most one a log line); (b) ``configs/convergence_synth.py`` in bf16
+   for 600 iterations, each eval's mAP50 per modality beside the JAX
+   package's bf16 and fp32 records: finite losses, the last window's
+   total loss below the first's, the final SAR mAP50 at least 0.5.
 
 Phase 3 holds the NMS's kernels (the IoU kernels' mask mode, which packs
 the decisions ``iou > thr`` into 32-bit words, and the greedy keep scan)
@@ -678,6 +692,349 @@ def phase6(torch, dev, smi, build):
     torch.cuda.empty_cache()
     rec["phase_s"] = time.perf_counter() - t_phase
     log(f"[eval] phase 6 wall time {rec['phase_s']:.1f} s")
+    return failures, rec, launches
+
+
+TRAIN_CFG = "configs/sm3det_convnext_t.py"
+TRAIN_WORK = "work_dirs/chip_smoke_train"   # gitignored; removed at the end
+TRAIN_ITERS = 30
+TRAIN_WARM = 2             # iterations left out of the timed window
+CONV_CFG = "configs/convergence_synth.py"
+CONV_ITERS = 600
+CONV_SAR_GATE = 0.5        # the final SAR mAP50 must reach this
+# the JAX package's convergence records for CONV_CFG (600 iterations on a
+# TPU, held-out draws; PARITY.md): the bf16 run and the fp32 run
+CONV_RECORDS = (("bf16", "docs/evidence/convergence_bf16_eval.txt"),
+                ("fp32", "docs/evidence/convergence_synth_eval.txt"))
+# the kernels each run of the train entry point must launch
+TRAIN_KERNELS = ("hbb_nms_mask", "nms_keep", "rotated_iou",
+                 "roi_align_rotated", "roi_align_rotated_bwd",
+                 "fused_dwconv_ln_train", "fused_dwconv_ln_train_bwd")
+EVAL_HOOK_KERNELS = ("fused_convnext_block", "dwconv_ln", "moe_ffn_grouped",
+                     "fused_layernorm", "rotated_nms_mask_banded",
+                     "rotated_iou_banded")
+
+
+def syncs_by_part(torch, fn):
+    """Run ``fn`` under ``torch.cuda.set_sync_debug_mode("warn")``: (its
+    result, synchronisations by the part of the train entry point that
+    made them: ``step`` (inside ``train_step``), ``checkpoint``, ``eval``
+    (the eval hooks), ``loop`` (``run_training`` itself: the batch's copy,
+    the metrics' fetch) and ``other`` (set-up and loading, other threads);
+    the step's by site, as ``host_syncs`` names them)."""
+    import traceback
+    import warnings
+    parts = dict(step=0, checkpoint=0, eval=0, loop=0, other=0)
+    step_sites = {}
+
+    def part(stack):
+        names = [(fr.name, fr.filename) for fr in stack]
+        if any(n == "train_step" for n, _ in names):
+            return "step"
+        if any(n == "save_train_state" for n, _ in names):
+            return "checkpoint"
+        if any(n == "run" and f.endswith("train.py") for n, f in names):
+            return "eval"
+        if any(n == "run_training" for n, _ in names):
+            return "loop"
+        return "other"
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" not in str(message):
+            return
+        stack = traceback.extract_stack()[:-1]
+        where = part(stack)
+        parts[where] += 1
+        if where == "step":
+            fr = next((f for f in reversed(stack)
+                       if "sm3det_tpu_torch" in f.filename), None)
+            site = f"{filename}:{lineno}" if fr is None else (
+                f"{fr.filename[fr.filename.index('sm3det_tpu_torch'):]}:"
+                f"{fr.lineno} ({fr.name})")
+            step_sites[site] = step_sites.get(site, 0) + 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return out, parts, step_sites
+
+
+def read_records():
+    """{name: {iteration: (sar, rgb, ifr) mAP50}} of CONV_RECORDS."""
+    import re
+    out = {}
+    for name, path in CONV_RECORDS:
+        rec = {}
+        with open(path) as f:
+            for line in f:
+                m = re.match(r"eval\[(\w+)\] @ (\d+): \{'mAP50': ([0-9.e-]+)",
+                             line)
+                if m:
+                    rec.setdefault(int(m.group(2)), {})[m.group(1)] = \
+                        float(m.group(3))
+        out[name] = {it: tuple(v.get(k) for k in ("sar", "rgb", "ifr"))
+                     for it, v in rec.items()}
+    return out
+
+
+def host_stage_ms(cfg_path, n=12):
+    """The train pipeline's host stages, one thread, over the first ``n``
+    samples of each modality of the synthetic datasets the train tool
+    builds for ``cfg_path``: {modality: {stage: ms an image}, with
+    ``rotated`` (the images rotated) and ``rotate_ms_each``}."""
+    import numpy as np
+
+    from sm3det_tpu_torch.data import transforms as T
+    from sm3det_tpu_torch.data.loader import PipelineCfg
+    from sm3det_tpu_torch.tools import train as tool
+    from sm3det_tpu_torch.utils.config import Config
+
+    cfg = Config.fromfile(cfg_path)
+    out = {}
+    for key, ds in zip(("sar", "rgb", "ifr"),
+                       tool.build_datasets(cfg, synthetic=True)):
+        p = PipelineCfg.from_config(cfg.data[key], img_size=cfg.img_size,
+                                    version=cfg.angle_version)
+        ms = dict(read=0.0, resize=0.0, flip=0.0, rotate=0.0,
+                  normalize_pad=0.0)
+        rotated = 0
+        for i in range(n):
+            rng = np.random.RandomState(i)
+            t0 = time.perf_counter()
+            raw = ds.get_raw(i)
+            t1 = time.perf_counter()
+            img, obbs, hbbs, _ = T.resize(raw["img"], (p.img_size,) * 2,
+                                          raw.get("obbs"), raw.get("hbbs"))
+            t2 = time.perf_counter()
+            img, obbs, hbbs, _ = T.random_flip(
+                rng, img, obbs, hbbs, prob=p.flip_prob, version=p.version,
+                direction=p.flip_directions)
+            t3 = time.perf_counter()
+            if p.rotate_ratio > 0 and obbs is not None:
+                before = img
+                img, _, _ = T.poly_random_rotate(
+                    rng, img, obbs, raw["labels"],
+                    rotate_ratio=p.rotate_ratio,
+                    angles_range=p.angles_range,
+                    rect_classes=p.rect_classes, version=p.version)
+                rotated += img is not before
+            t4 = time.perf_counter()
+            T.pad_to(T.normalize(img, p.mean, p.std), (p.img_size,) * 2)
+            t5 = time.perf_counter()
+            for k, a, b in (("read", t0, t1), ("resize", t1, t2),
+                            ("flip", t2, t3), ("rotate", t3, t4),
+                            ("normalize_pad", t4, t5)):
+                ms[k] += (b - a) * 1e3
+        rec = {k: v / n for k, v in ms.items()}
+        rec["rotated"] = rotated
+        rec["rotate_ms_each"] = ms["rotate"] / rotated if rotated else None
+        out[key] = rec
+    return out
+
+
+def phase7(torch, dev, smi, build):
+    """7. The train entry point (``sm3det_tpu_torch.tools.train``) on the
+    card: (a) the flagship from its config, full width, bf16, 30
+    iterations with a checkpoint, an eval pass and a resume; (b) the
+    convergence config for CONV_ITERS iterations against the JAX
+    package's records. Returns (failures, record, launches)."""
+    import os
+    import shutil
+
+    import numpy as np
+
+    from sm3det_tpu_torch.tools import train as tool
+    from sm3det_tpu_torch.train.checkpoint import TRAIN_FORMAT
+    from sm3det_tpu_torch.utils.config import Config
+
+    failures, rec = [], {}
+    t_phase = time.perf_counter()
+    shutil.rmtree(TRAIN_WORK, ignore_errors=True)
+    wd = os.path.join(TRAIN_WORK, "flagship")
+    common = [TRAIN_CFG, "--synthetic-data", "--work-dir", wd,
+              "--cfg-options", "model.compute_dtype=bfloat16",
+              "checkpoint_interval=20", "evaluation.interval=30",
+              "evaluation.num_images=16"]
+
+    # (a) 30 iterations of [2:1:1] x 800^2: the window after TRAIN_WARM
+    # iterations up to the checkpoint at 20 is timed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    out = tool.main(common[:4] + ["--max-iters", str(TRAIN_ITERS)]
+                    + common[4:] + ["log_interval=10"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    st, ls = out["stats"], out["loader_stats"]
+    n_img = sum(Config.fromfile(TRAIN_CFG).source_ratio)
+    ends = st["iter_end_s"]
+    # iterations TRAIN_WARM + 1 .. 20: from the end of iteration
+    # TRAIN_WARM to that of iteration 20, before its checkpoint
+    win = (TRAIN_WARM - 1, 19)
+    ips = (win[1] - win[0]) * n_img / (ends[win[1]] - ends[win[0]])
+    host_ips = ls["batches"] * n_img / ls["host_busy_s"]
+    _, ck_bytes, ck_s = st["checkpoints"][0]
+    losses = st["log_lines"][-1]
+    log(f"[train entry] {TRAIN_CFG} --synthetic-data bf16, [2:1:1] x 800^2, "
+        f"{TRAIN_ITERS} iterations in {wall:.1f} s: {ips:.2f} images/s over "
+        f"iterations {win[0] + 2}-{win[1] + 1} (host clock); host pipeline "
+        f"alone {host_ips:.2f} images/s ({ls['batches']} batches in "
+        f"{ls['host_busy_s']:.2f} s of producer time); the loop waited "
+        f"{st['data_wait_s']:.3f} s for batches in all "
+        f"({st['data_wait_s'] / st['iters'] * 1e3:.2f} ms an iteration); "
+        f"peak memory {peak:.2f} GiB; checkpoint {ck_bytes / 2 ** 20:.1f} "
+        f"MiB in {ck_s:.2f} s; card {smi}")
+    log(f"[train entry]   iteration wall times (ms): " + " ".join(
+        f"{(b - a) * 1e3:.1f}" for a, b in zip(ends, ends[1:])))
+    log(f"[train entry]   last log line: {losses}")
+    log(f"[train entry]   launches: {launches}")
+    for it, name, res, secs in st["evals"]:
+        log(f"[train entry]   eval[{name}] @ {it} in {secs:.2f} s: "
+            f"{ {k: v for k, v in res.items() if np.isscalar(v)} }")
+    rec["flagship"] = dict(
+        iterations=TRAIN_ITERS, images_per_s=ips, host_images_per_s=host_ips,
+        data_wait_s=st["data_wait_s"], peak_gib=peak,
+        checkpoint_mib=ck_bytes / 2 ** 20, checkpoint_s=ck_s, wall_s=wall,
+        last_losses=losses)
+    if not all(np.isfinite(v) for x in st["log_lines"] for v in x.values()):
+        failures.append("train entry: a logged value is not finite")
+    if len(st["evals"]) != 3:
+        failures.append(f"train entry: {len(st['evals'])} evals, expected 3")
+    for k in TRAIN_KERNELS + EVAL_HOOK_KERNELS:
+        if launches.get(k, 0) <= 0:
+            failures.append(f"train entry launches {k}={launches.get(k)}")
+    del out
+    torch.cuda.empty_cache()
+
+    # the host pipeline's stages, one thread (what the producer's 4
+    # threads share with the training thread)
+    stages = host_stage_ms(TRAIN_CFG)
+    for key, r in stages.items():
+        log(f"[train entry] host stages, {key}, one thread, ms an image: "
+            + ", ".join(f"{k} {v:.1f}" for k, v in r.items()
+                        if k not in ("rotated", "rotate_ms_each"))
+            + f"; {r['rotated']} of 12 rotated"
+            + (f", {r['rotate_ms_each']:.1f} ms each" if r["rotated"]
+               else ""))
+    rec["host_stage_ms"] = stages
+
+    # the CLI's resume loads what was saved, bit for bit
+    ck = os.path.join(wd, "iter_20.pth")
+    t0 = time.perf_counter()
+    back = tool.main(common[:4] + ["--resume-from", ck, "--max-iters", "20"]
+                     + common[4:])
+    load_s = time.perf_counter() - t0
+    saved = torch.load(ck, map_location="cpu", weights_only=True)
+    s = back["state"]
+    names = list(s.params)
+    same = saved["format"] == TRAIN_FORMAT and saved["names"] == names
+    for key, ts in (("params", s.params.values()), ("mu", s.opt.mu),
+                    ("nu", s.opt.nu)):
+        same = same and all(torch.equal(saved[key][n], t.cpu())
+                            for n, t in zip(names, ts))
+    same = same and (saved["count"], saved["step"], saved["mults"]) == (
+        s.opt.count, s.opt.step, s.opt.mults) and \
+        torch.equal(saved["dla"]["ema"], s.opt.dla.ema.cpu()) and \
+        torch.equal(saved["gen_state"], s.gen.get_state())
+    log(f"[train entry] --resume-from iter_20: start {back['start_iter']}, "
+        f"the loaded state equal to the file bit for bit: {same} (the run, "
+        f"build and load included, {load_s:.1f} s)")
+    if not (same and back["start_iter"] == 20):
+        failures.append("train entry: the resumed state differs from "
+                        "iter_20.pth")
+    del back, s, saved
+    torch.cuda.empty_cache()
+
+    # ... and trains on from it: 5 iterations, synchronisations by part
+    build.reset_launches()
+    res, parts, step_sites = syncs_by_part(torch, lambda: tool.main(
+        common[:4] + ["--resume-from", ck, "--max-iters", "25"]
+        + common[4:] + ["log_interval=5"]))
+    st = res["stats"]
+    per_step = parts["step"] / max(st["iters"], 1)
+    log(f"[train entry] resumed 21-25: losses {st['log_lines'][-1]}; host "
+        f"syncs in {st['iters']} iterations: {parts} ({per_step:.1f} a step "
+        f"inside the step, the bare step 43 in 5b; the loop's own "
+        f"{parts['loop']} for {len(st['log_lines'])} log fetch(es); "
+        f"'other' is set-up: the build and the load's copies to the card)")
+    log(f"[train entry]   the step's syncs by site: {step_sites}")
+    rec["resume"] = dict(equal=same, syncs=parts, step_sync_sites=step_sites,
+                         log_line=st["log_lines"][-1])
+    if not all(np.isfinite(v) for v in st["log_lines"][-1].values()):
+        failures.append("train entry: resumed losses not finite")
+    if parts["loop"] > len(st["log_lines"]):
+        failures.append(f"train entry: the loop synchronised {parts['loop']}"
+                        f" times in {st['iters']} iterations")
+    for k in TRAIN_KERNELS:
+        if build.LAUNCHES.get(k, 0) <= 0:
+            failures.append(f"resumed run launches {k}=0")
+    del res
+    shutil.rmtree(wd, ignore_errors=True)
+    torch.cuda.empty_cache()
+    rec["flagship"]["phase_s"] = time.perf_counter() - t_phase
+    log(f"[train entry] 7a wall time {rec['flagship']['phase_s']:.1f} s")
+
+    # (b) convergence: CONV_CFG in bf16, SAR scored by VOC mAP as in the
+    # records
+    t0 = time.perf_counter()
+    build.reset_launches()
+    conv = tool.main([CONV_CFG, "--work-dir",
+                      os.path.join(TRAIN_WORK, "convergence"),
+                      "--max-iters", str(CONV_ITERS), "--cfg-options",
+                      "model.compute_dtype=bfloat16",
+                      "evaluation.metric=mAP"])
+    torch.cuda.synchronize()
+    conv_s = time.perf_counter() - t0
+    st = conv["stats"]
+    ends = st["iter_end_s"]
+    records = read_records()
+    got = {}
+    for it, name, res, _ in st["evals"]:
+        got.setdefault(it, {})[name] = float(res["mAP50"])
+    table = []
+    for it in sorted(got):
+        row = tuple(got[it].get(k) for k in ("sar", "rgb", "ifr"))
+        table.append((it, row))
+        refs = "; ".join(
+            f"{name} record " + " / ".join(f"{v:.3f}" for v in r[it])
+            for name, r in records.items() if it in r)
+        log(f"[convergence] @ {it}: mAP50 sar / rgb / ifr "
+            + " / ".join(f"{v:.3f}" for v in row) + f" ({refs})")
+    first, last = st["log_lines"][0], st["log_lines"][-1]
+    log(f"[convergence] {CONV_CFG} bf16, {CONV_ITERS} iterations in "
+        f"{conv_s:.1f} s (median iteration "
+        f"{statistics.median(np.diff(ends)) * 1e3:.1f} ms, evals and the "
+        f"checkpoint included in the wall time); loss {first['loss']} at "
+        f"{first['iter']} -> {last['loss']} at {last['iter']}; launches "
+        f"{dict(build.LAUNCHES)}; card {smi}")
+    rec["convergence"] = dict(iterations=CONV_ITERS, seconds=conv_s,
+                              map50=table, first_loss=first["loss"],
+                              last_loss=last["loss"])
+    if not all(np.isfinite(v) for x in st["log_lines"] for v in x.values()):
+        failures.append("convergence: a logged value is not finite")
+    if not last["loss"] < first["loss"]:
+        failures.append(f"convergence: loss {first['loss']} -> "
+                        f"{last['loss']}")
+    final = table[-1][1][0] if table and table[-1][0] == CONV_ITERS \
+        else None
+    if final is None or not final >= CONV_SAR_GATE:
+        failures.append(f"convergence: final SAR mAP50 {final} < "
+                        f"{CONV_SAR_GATE}")
+    del conv
+    shutil.rmtree(TRAIN_WORK, ignore_errors=True)
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[train entry] phase 7 wall time {rec['phase_s']:.1f} s")
     return failures, rec, launches
 
 
@@ -2227,6 +2584,12 @@ def main():
                              eval_bound_ms=e["bound_ms"],
                              eval_bound_by=e["bound_by"])
 
+    # ---- 7. the train entry point -----------------------------------------
+    train_failures, train_rec, train_entry_launches = phase7(torch, dev, smi,
+                                                             build)
+    if train_failures:
+        fail(f"train entry point failed: {train_failures}")
+
     log(json.dumps({
         "kernels": [recs[k].json(launches[k]) for k in recs],
         "launches_from": "simple_test_joint [8:4:4]; rotated_nms_mask "
@@ -2245,6 +2608,8 @@ def main():
         "joint_host_syncs": sum(joint_syncs.values()),
         "train_host_syncs": sum(train_syncs.values()),
         "sar_images_per_s": sar_ips, "sar_peak_gib": peak_gib,
+        "train_entry": train_rec,
+        "train_entry_launches": train_entry_launches,
         "card": smi}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -7,9 +7,10 @@ what it has: the ``TriSourceDetector`` with a ConvNeXt-MoE backbone
 Every other name the JAX package registers raises ``NotImplementedError``
 naming the ROADMAP item that ports it; nothing falls back to the flagship.
 
-``build_detector`` does what the eval tool does with a config's ``model``
-dict: it drops ``type`` and the backbone's ``pretrained``, makes the
-``moe_block_inds`` lists tuples and builds the detector on ``device``.
+``build_detector`` does what the eval and train tools do with a config's
+``model`` dict: it drops ``type`` and the backbone's ``pretrained``, makes
+the ``moe_block_inds`` lists tuples and builds the detector on ``device``,
+for inference or, with ``trainable=True``, for training.
 """
 
 from __future__ import annotations
@@ -83,10 +84,15 @@ def normalize_model_cfg(mc):
 
 
 def build_detector(cfg_model: Dict[str, Any], device=None,
-                   compute_dtype: Optional[str] = None, seed: int = 0):
+                   compute_dtype: Optional[str] = None, seed: int = 0,
+                   trainable: bool = False):
     """A detector from a config's ``model`` dict, parameters from ``seed``,
     on ``device`` (the card unless ``"cpu"``). ``compute_dtype``
-    ``"bfloat16"`` holds the parameters and runs the forward in bf16."""
+    ``"bfloat16"`` runs the forward in bf16: an inference model holds its
+    parameters in it; a ``trainable`` one holds fp32 masters that require
+    grad, in train mode (the train step hands the forward a copy in the
+    compute dtype). A config's ``model.compute_dtype`` is used when
+    ``compute_dtype`` is None."""
     if hasattr(cfg_model, "to_dict"):
         cfg_model = cfg_model.to_dict()
     mc = normalize_model_cfg(copy.deepcopy(dict(cfg_model)))
@@ -107,9 +113,11 @@ def build_detector(cfg_model: Dict[str, Any], device=None,
         raise NotImplementedError(
             f"neck settings {extra or n['add_extra_convs']!r} are not "
             f"ported: {LEFTOVERS}")
-    if compute_dtype and compute_dtype != "float32":
+    if compute_dtype:
         mc["compute_dtype"] = compute_dtype
-    return det_cls(cfg=mc, device=device, seed=seed)
+    if mc.get("compute_dtype") == "float32":
+        del mc["compute_dtype"]
+    return det_cls(cfg=mc, device=device, seed=seed, trainable=trainable)
 
 
 def _check_built(registry, name: str):

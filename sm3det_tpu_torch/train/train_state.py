@@ -29,10 +29,12 @@ class TrainState(NamedTuple):
 
 
 def batch_to(batch, device) -> Dict[str, Dict[str, torch.Tensor]]:
-    """A batch of numpy arrays or tensors as tensors on ``device``."""
+    """A batch of numpy arrays or tensors as tensors on ``device``. A
+    pinned host tensor is copied with ``non_blocking=True``, so the copy
+    does not hold the host; one from pageable memory waits for it."""
     def conv(v):
         t = torch.from_numpy(v) if isinstance(v, np.ndarray) else v
-        return t.to(device)
+        return t.to(device, non_blocking=t.is_pinned())
     return {k: {n: conv(v) for n, v in d.items()} for k, d in batch.items()}
 
 

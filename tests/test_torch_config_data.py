@@ -416,9 +416,13 @@ def test_synthetic_dataset_matches_jax(box_type):
     assert len(got) == len(ref) and got.CLASSES == ref.CLASSES
     for i in range(5):
         _assert_same_raw(got.get_raw(i), ref.get_raw(i))
-    with pytest.raises(NotImplementedError, match="RepeatDataset"):
-        port_ds.build_dataset(dict(type="RepeatDataset", times=2,
-                                   dataset=dict(type="SyntheticDetDataset")))
+    # the wrappers build recursively, as the JAX package's builder does
+    rep = dict(type="RepeatDataset", times=2,
+               dataset=dict(type="SyntheticDetDataset", **kw))
+    got, ref = port_ds.build_dataset(rep), jax_ds.build_dataset(rep)
+    assert len(got) == len(ref) == 10
+    for i in (0, 7):
+        _assert_same_raw(got.get_raw(i), ref.get_raw(i))
 
 
 # ---- the eval pre-processing -----------------------------------------------
