@@ -57,7 +57,23 @@ Phases (any failure exits non-zero):
    at most one a log line); (b) ``configs/convergence_synth.py`` in bf16
    for 600 iterations, each eval's mAP50 per modality beside the JAX
    package's bf16 and fp32 records: finite losses, the last window's
-   total loss below the first's, the final SAR mAP50 at least 0.5.
+   total loss below the first's, the final SAR mAP50 at least 0.5;
+8. LSKNet-MoE / VAN-MoE and the loss reweighting: (a) the detector of
+   ``configs/local_configs/SM3Det_lsk_t.py`` at full width in fp32, one
+   800^2 image on the card against the host, stage by stage (features,
+   both necks, GFL and RPN heads) within 1e-3 of scale, with the linear
+   experts' capacity dispatch keeping the same routes; (b) the bf16 joint
+   forwards of ``SM3Det_lsk_t.py`` and ``SM3Det_van_t.py`` over [8 : 4 :
+   4] x 800^2: images/s, device busy time, peak memory, 0 host syncs, the
+   launches of every kernel, the stage times and the backbone's time by
+   module kind; one forward of ``SM3Det_lsk_b.py``; (c) ``tools.test`` on
+   LSK-T, SAR and RGB mAP over 16 synthetic images; (d) ``tools.train``
+   on LSK-T, bf16, [2:1:1] x 800^2, 20 iterations with a checkpoint at 10
+   and a resume equal to it bit for bit;
+   ``main_uncertainty_convnext_t_orcnn_gfl.py`` 10 iterations
+   (``reweighted_total_losses`` logged, ``mtl_sigma`` moved) and again
+   with DWA (weights 1 at step 1 and not after, the carry in
+   ``iter_10.pth``).
 
 Phase 3 holds the NMS's kernels (the IoU kernels' mask mode, which packs
 the decisions ``iou > thr`` into 32-bit words, and the greedy keep scan)
@@ -76,7 +92,9 @@ launches bit-equal, on random, one-centre and long, thin RoIs) and
 the trainable dw7x7 + LN (``fused_dwconv_ln_train``: the forward kernel and
 the five gradients of the ``dwconv_ln_bwd.cu`` kernels, against autograd of
 the plain formulation and against the closed-form plain backward, and two
-backward runs for bit-equal gradients).
+backward runs for bit-equal gradients), and row 9 at the LSKNet / VAN
+widths (C = 32-512, 8 images of 800^2), counting the elements that differ
+from its plain version.
 
 It imports nothing of JAX. The second line from the end is the per-kernel
 JSON record, the last line ``{"ok": true, "device": {...}}``.
@@ -103,6 +121,11 @@ ROT_IOU_FLOPS = 650
 # blocks, LayerNorms: stem, downsample into the next stage, output)
 STAGES = [(200, 96, 3, 0, 3), (100, 192, 3, 0, 2), (50, 384, 4, 5, 2),
           (25, 768, 1, 2, 1)]
+# the LSKNet-MoE / VAN-MoE archs of the SM3Det_{lsk,van}_{t,s,b} configs:
+# (stage widths, depths); S has B's widths. A forward's LayerNorms at a
+# stage: the patch embed's, two a block and the output's
+LSK_ARCHS = {"t": ((32, 64, 160, 256), (3, 3, 5, 2)),
+             "b": ((64, 128, 320, 512), (3, 3, 12, 3))}
 TRAIN = (4, 2, 2)          # SAR, RGB, infrared images of the train step
 TRAIN_GTS = 16             # gts an image, as bench.py --train
 TRAIN_STEPS = 10
@@ -170,6 +193,29 @@ def device_ms(torch, fn, iters=10, warmup=2, tries=3):
 def ms_str(v):
     """A time for the log; None is a device time the profiler missed."""
     return "not measured" if v is None else f"{v:.4f} ms"
+
+
+def timed_forwards(torch, fn, n=10):
+    """Each call timed on its own (host clock, ended by a synchronize): the
+    host's clock varies more than the device's, so the median and the
+    quartiles are reported."""
+    walls = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    q1, med, q3 = statistics.quantiles(walls, n=4)
+    return walls, q1, med, q3
+
+
+def spread_class_scores(head, roi_feats):
+    """Random weights leave the 27-way softmax near 1/27, under
+    rcnn_score_thr, and the NMS would see no candidate: scale fc_cls so
+    that the logits' spread is 3."""
+    logits, _ = head(roi_feats)
+    head.fc_cls.weight.mul_(3.0 / logits.float().std().item())
 
 
 def host_syncs(torch, fn):
@@ -1039,6 +1085,482 @@ def phase7(torch, dev, smi, build):
 
 
 
+LSK_T_CFG = "configs/local_configs/SM3Det_lsk_t.py"
+VAN_T_CFG = "configs/local_configs/SM3Det_van_t.py"
+LSK_B_CFG = "configs/local_configs/SM3Det_lsk_b.py"
+UNC_CFG = "configs/local_configs/main_uncertainty_convnext_t_orcnn_gfl.py"
+LSK_WORK = "work_dirs/chip_smoke_lsk"   # gitignored; removed at the end
+LSK_TRAIN_ITERS = 20
+REWEIGHT_ITERS = 10
+# the kernels of the LSK / VAN joint forward, and of their train step
+LSK_KERNELS = ("fused_layernorm", "hbb_nms_mask", "nms_keep",
+               "rotated_nms_mask_banded", "roi_align_rotated")
+LSK_TRAIN_KERNELS = ("hbb_nms_mask", "nms_keep", "rotated_iou",
+                     "roi_align_rotated", "roi_align_rotated_bwd")
+
+
+def backbone_kind(name, module):
+    """The kind of a leaf module of an LSKNet / VAN backbone whose time
+    phase 8 sums, or None."""
+    from sm3det_tpu_torch.models.backbones.convnext import LayerNormOpt
+    from sm3det_tpu_torch.models.layers import Conv2d
+    from sm3det_tpu_torch.models.moe import MoELayer
+    if isinstance(module, LayerNormOpt):
+        return "norms"
+    if isinstance(module, MoELayer):
+        return "MoE"
+    if not isinstance(module, Conv2d):
+        return None
+    leaf = name.rsplit(".", 1)[-1]
+    if leaf == "conv_spatial":
+        return "conv 7x7 dilation-3 depthwise"
+    if leaf == "conv0":
+        return "conv 5x5 depthwise"
+    if leaf == "dwconv":
+        return "conv 3x3 depthwise"
+    if leaf == "conv_squeeze":
+        return "conv 7x7 squeeze"
+    if leaf.startswith(("stem", "patch_embed")):
+        return "conv patch embeds"
+    return "conv 1x1"
+
+
+def kind_ms(torch, root, fn, iters=3):
+    """Mean CUDA-event time of each kind of ``root``'s leaf modules
+    (``backbone_kind``) in one call of ``fn``, and of the whole call:
+    (total ms, {kind: ms})."""
+    events, handles = [], []
+    for name, m in root.named_modules():
+        kind = backbone_kind(name, m)
+        if kind is None:
+            continue
+
+        def pre(mod, args, kind=kind):
+            events.append([kind, torch.cuda.Event(enable_timing=True), None])
+            events[-1][1].record()
+
+        def post(mod, args, out):
+            events[-1][2] = torch.cuda.Event(enable_timing=True)
+            events[-1][2].record()
+        handles += [m.register_forward_pre_hook(pre),
+                    m.register_forward_hook(post)]
+    try:
+        fn()
+        torch.cuda.synchronize()
+        events.clear()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(iters):
+            fn()
+        e.record()
+        torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+    out = {}
+    for kind, a, b in events:
+        out[kind] = out.get(kind, 0.0) + a.elapsed_time(b) / iters
+    return s.elapsed_time(e) / iters, out
+
+
+def phase8(torch, dev, smi, build):
+    """8. The LSKNet-MoE and VAN-MoE TriSource configurations and the loss
+    reweighting on the card: (a) ``SM3Det_lsk_t.py``'s detector at full
+    width, fp32, one 800^2 image, card against host stage by stage; (b)
+    the bf16 joint forwards of ``SM3Det_lsk_t.py`` and ``SM3Det_van_t.py``
+    over [8 : 4 : 4] x 800^2, and one of ``SM3Det_lsk_b.py``; (c)
+    ``tools.test`` on LSK-T, SAR and RGB mAP; (d) ``tools.train`` on LSK-T
+    (checkpoint, resume), and the uncertainty and DWA reweighting. Returns
+    (failures, record, launches of the LSK-T joint forward)."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch.nn.functional as F
+
+    from sm3det_tpu_torch.models import moe as moe_mod
+    from sm3det_tpu_torch.models.builder import build_detector
+    from sm3det_tpu_torch.tools import test as test_cli
+    from sm3det_tpu_torch.tools import train as train_cli
+    from sm3det_tpu_torch.train import train_state as ts_mod
+    from sm3det_tpu_torch.train.checkpoint import TRAIN_FORMAT
+    from sm3det_tpu_torch.utils.config import Config
+
+    failures, rec = [], {}
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False     # as main: fp32 is fp32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    tol = 1e-3      # fp32 summation order through the blocks and the head
+
+    # (a) fp32, card against host, the MoE's capacity dispatch recorded
+    t0 = time.perf_counter()
+    cfg_t = Config.fromfile(LSK_T_CFG)
+    model = build_detector(cfg_t.model, device=dev, compute_dtype="float32",
+                           seed=0)
+    host = build_detector(cfg_t.model, device="cpu", compute_dtype="float32",
+                          seed=0)
+    host.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    dispatch = moe_mod.capacity_dispatch
+    keeps = {"card": [], "host": []}
+
+    def stages_of(m, img, where):
+        def recording(*a, **kw):
+            out = dispatch(*a, **kw)
+            keeps[where].append(out[3].cpu())
+            return out
+        moe_mod.capacity_dispatch = recording
+        try:
+            with torch.no_grad():
+                feats = m.extract_feat(img)
+                sar_x = m.neck_sar(feats)
+                cls, reg = m.sar_bbox_head(sar_x)
+                x = m.neck_rcnn(feats)
+                rpn_cls, rpn_reg = m.head_rpn(x, "rgb")
+        finally:
+            moe_mod.capacity_dispatch = dispatch
+        return dict(features=feats, sar_neck=sar_x, gfl_cls=cls,
+                    gfl_reg=reg, rcnn_neck=x, rpn_cls=rpn_cls,
+                    rpn_reg=rpn_reg)
+
+    img = torch.rand(1, IMG, IMG, 3, generator=gen, device=dev)
+    got = stages_of(model, img, "card")
+    torch.cuda.synchronize()
+    t_host = time.perf_counter()
+    ref = stages_of(host, img.cpu(), "host")
+    t_host = time.perf_counter() - t_host
+    worst = 0.0
+    for name in got:
+        for lvl, (a, b) in enumerate(zip(got[name], ref[name])):
+            err, scale = max_err(a.cpu(), b)
+            ok = bool(torch.isfinite(a).all()) and a.shape == b.shape and \
+                err <= tol * max(scale, 1.0)
+            worst = max(worst, err / max(scale, 1.0))
+            log(f"[lsk fp32] {name}[{lvl}] {tuple(a.shape)}: max abs err "
+                f"{err:.3e} (max |ref| {scale:.3e}) tol {tol} x scale "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"lsk fp32 {name}[{lvl}]")
+    same_keep = len(keeps["card"]) == len(keeps["host"]) > 0 and all(
+        torch.equal(a, b) for a, b in zip(keeps["card"], keeps["host"]))
+    drops = [int((~k).sum()) for k in keeps["card"]]
+    log(f"[lsk fp32] {LSK_T_CFG}, one {IMG}^2 image: {len(keeps['card'])} "
+        f"MoE layers, the capacity dispatch's keep equal card/host "
+        f"{same_keep}, routes dropped {drops}; worst error {worst:.3e} of "
+        f"scale; host forward {t_host:.1f} s; "
+        f"{'ok' if same_keep else 'FAIL'}")
+    if not same_keep:
+        failures.append("lsk fp32: capacity keep differs card/host")
+    rec["fp32"] = dict(worst_rel_err=worst, keep_equal=same_keep,
+                       dropped=drops, seconds=time.perf_counter() - t0)
+    del model, host, got, ref, img
+    torch.cuda.empty_cache()
+
+    # (b) bf16 joint forwards at full width
+    def joint_case(path, timed=True):
+        cfg = Config.fromfile(path)
+        m = build_detector(cfg.model, device=dev, compute_dtype="bfloat16",
+                           seed=0)
+        n_sar, n_rgb, n_ifr = JOINT
+        imgs = [torch.rand(n, IMG, IMG, 3, generator=gen, device=dev)
+                for n in JOINT]
+        with torch.no_grad():
+            m.sar_bbox_head.gfl_cls.bias.fill_(0.0)
+            _, x, rpn = m.head_joint(*imgs)
+            props, _, _ = m.get_proposals(*rpn)
+            rf = m.roi_feats(x, props)
+            spread_class_scores(m.rgb_roi_head, rf[:n_rgb * N_PROPOSALS])
+            spread_class_scores(m.ifr_roi_head, rf[n_rgb * N_PROPOSALS:])
+        del x, rpn, props, rf
+
+        def joint():
+            return m.simple_test_joint(*imgs)
+
+        for _ in range(2):
+            joint()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        outs = joint()
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        name = os.path.basename(path)[:-3]
+        r = dict(peak_gib=peak, launches=launches)
+        ok = True
+        for sub, (d, lab, val), n in zip(("sar", "rgb", "ifr"), outs,
+                                         JOINT):
+            fin = bool(torch.isfinite(d).all())
+            ok = ok and fin and d.shape[0] == n and int(val.sum()) > 0
+            log(f"[lsk joint] {name} {sub}: dets {tuple(d.shape)}, "
+                f"{int(val.sum())} valid, finite {fin}")
+        if not ok:
+            failures.append(f"{name} joint outputs")
+        for k in LSK_KERNELS:
+            if launches[k] <= 0:
+                failures.append(f"{name} joint launches {k}={launches[k]}")
+        log(f"[lsk joint] {name}: launches in one forward {launches}; peak "
+            f"memory {peak:.2f} GiB")
+        if not timed:
+            return m, imgs, r
+        walls, q1, med, q3 = timed_forwards(torch, joint)
+        busy = device_ms(torch, joint, iters=3, warmup=0)
+        syncs = host_syncs(torch, joint)
+        n_syncs = sum(syncs.values())
+        if n_syncs:
+            failures.append(f"{name} joint: {n_syncs} host syncs {syncs}")
+        with torch.no_grad():
+            cat = torch.cat([m._cast_in(i) for i in imgs], 0)
+            feats = m.backbone(cat)
+            f_sar = [f[:n_sar] for f in feats]
+            f_rc = [f[n_sar:] for f in feats]
+            sar_x, x = m.neck_sar(f_sar), m.neck_rcnn(f_rc)
+            s_cls, s_reg = m.sar_bbox_head(sar_x)
+            (_, _), _, rpn = m.head_joint(*imgs)
+            props, _, pval = m.get_proposals(*rpn)
+            rf = m.roi_feats(x, props)
+            logits, deltas = m.roi_logits_joint(rf, n_rgb, n_ifr)
+            bb_ms, kinds = kind_ms(torch, m.backbone,
+                                   lambda: m.backbone(cat))
+            st = {
+                "backbone": bb_ms,
+                "necks": cuda_ms(torch, lambda: (m.neck_sar(f_sar),
+                                                 m.neck_rcnn(f_rc)), iters=3),
+                "GFL and RPN heads": cuda_ms(torch, lambda: (
+                    m.sar_bbox_head(sar_x),
+                    m.rgb_rpn_head([f[:n_rgb] for f in x]),
+                    m.ifr_rpn_head([f[n_rgb:] for f in x])), iters=3),
+                "SAR decode + NMS": cuda_ms(
+                    torch, lambda: m.get_bboxes_sar(s_cls, s_reg), iters=3),
+                "proposal decode + NMS": cuda_ms(
+                    torch, lambda: m.get_proposals(*rpn), iters=3),
+                "RoI align": cuda_ms(torch, lambda: m.roi_feats(x, props),
+                                     iters=3),
+                "RoI heads": cuda_ms(torch, lambda: m.roi_logits_joint(
+                    rf, n_rgb, n_ifr), iters=3),
+                "R-CNN decode + NMS": cuda_ms(
+                    torch, lambda: m.get_bboxes_rcnn(logits, deltas, props,
+                                                     pval), iters=3)}
+        kinds["other backbone ops"] = bb_ms - sum(kinds.values())
+        n_img = sum(JOINT)
+        log(f"[lsk joint] {name} [{n_sar}:{n_rgb}:{n_ifr}] x {IMG}^2 bf16: "
+            f"median {med * 1e3:.2f} ms (quartiles {q1 * 1e3:.2f}-"
+            f"{q3 * 1e3:.2f}), {n_img / med:.2f} images/s (host clock); "
+            f"device busy {ms_str(busy)} a forward (torch.profiler); "
+            f"{n_syncs} host syncs a forward; card {smi}")
+        log(f"[lsk joint] {name} wall times (ms): "
+            f"{' '.join(f'{w * 1e3:.2f}' for w in walls)}")
+        log(f"[lsk joint] {name} stages (CUDA events, mean of 3, ms): "
+            + "; ".join(f"{k} {v:.2f}" for k, v in st.items()))
+        log(f"[lsk joint] {name} backbone by module kind (CUDA events around "
+            f"each module call, mean of 3, ms): " + "; ".join(
+                f"{k} {v:.2f}" for k, v in sorted(kinds.items())))
+        r.update(images_per_s=n_img / med, ms=med * 1e3, q1_ms=q1 * 1e3,
+                 q3_ms=q3 * 1e3, device_busy_ms=busy, host_syncs=n_syncs,
+                 stage_ms=st, backbone_kind_ms=kinds)
+        del feats, f_sar, f_rc, sar_x, x, rpn, props, rf, logits, deltas
+        return m, imgs, r
+
+    t0 = time.perf_counter()
+    lsk_model, _, rec["lsk_t_joint"] = joint_case(LSK_T_CFG)
+    lsk_launches = rec["lsk_t_joint"]["launches"]
+    # the dilated 7x7 depthwise (cuDNN) at stage 0 of the joint batch: as
+    # the port runs it (the channels-last view), on an NCHW copy, and with
+    # cuDNN's autotuner on; against its bytes / fp32 operations bound
+    conv = lsk_model.backbone.stage0_block0.attn.spatial_gating_unit \
+        .conv_spatial
+    xs = torch.randn(sum(JOINT), IMG // 4, IMG // 4, conv.weight.shape[0],
+                     generator=gen, device=dev).to(torch.bfloat16)
+    xn = xs.permute(0, 3, 1, 2).contiguous()
+    with torch.no_grad():
+        t_cl = cuda_ms(torch, lambda: conv(xs))
+        t_nchw = cuda_ms(torch, lambda: F.conv2d(
+            xn, conv.weight, conv.bias, 1, 9, 3, conv.groups))
+        was = torch.backends.cudnn.benchmark
+        torch.backends.cudnn.benchmark = True
+        try:
+            t_tuned = cuda_ms(torch, lambda: conv(xs))
+        finally:
+            torch.backends.cudnn.benchmark = was
+    b, k = bound_ms(4 * xs.numel(), [(2 * 49 * xs.numel(), "float32")])
+    log(f"[lsk joint] conv_spatial (7x7, dilation 3, depthwise) "
+        f"{tuple(xs.shape)} bf16: channels-last {t_cl:.4f} ms, NCHW "
+        f"{t_nchw:.4f} ms, channels-last with cudnn.benchmark "
+        f"{t_tuned:.4f} ms; bound {b:.4f} ms ({k}); card {smi}")
+    rec["conv_spatial_stage0"] = dict(
+        shape=list(xs.shape), channels_last_ms=t_cl, nchw_ms=t_nchw,
+        benchmark_ms=t_tuned, bound_ms=b, bound_by=k)
+    del xs, xn, conv
+    m, imgs, rec["van_t_joint"] = joint_case(VAN_T_CFG)
+    del m, imgs
+    torch.cuda.empty_cache()
+    m, imgs, rec["lsk_b_joint"] = joint_case(LSK_B_CFG, timed=False)
+    del m, imgs
+    torch.cuda.empty_cache()
+    log(f"[lsk joint] (b) {time.perf_counter() - t0:.1f} s")
+
+    # (c) the eval entry point on LSK-T, the model of (b)
+    t0 = time.perf_counter()
+    for sub in ("sar", "rgb"):
+        build.reset_launches()
+        out = test_cli.main([LSK_T_CFG, "--subdataset", sub,
+                             "--synthetic-data", "--num-images", "16",
+                             "--batch-size", "8", "--cfg-options",
+                             "evaluation.metric=mAP"], model=lsk_model)
+        n_det = sum(len(d) for img in out["det_results"] for d in img)
+        m_ap = out["metrics"]["mAP"]
+        log(f"[lsk eval] tools.test {LSK_T_CFG} --subdataset {sub} "
+            f"--synthetic-data, 16 images: mAP {m_ap:.4f}, {n_det} "
+            f"detections, {out['img_per_s']:.2f} images/s; launches "
+            f"{dict(build.LAUNCHES)}")
+        rec[f"eval_{sub}"] = dict(mAP=m_ap, detections=n_det,
+                                  images_per_s=out["img_per_s"])
+        if not (0.0 <= m_ap <= 1.0) or n_det == 0:
+            failures.append(f"lsk eval {sub}: mAP {m_ap}, {n_det} dets")
+    del lsk_model, out
+    torch.cuda.empty_cache()
+    log(f"[lsk eval] (c) {time.perf_counter() - t0:.1f} s")
+
+    # (d) the train entry point
+    shutil.rmtree(LSK_WORK, ignore_errors=True)
+
+    def train_run(path, wd, iters, extra=(), argv_extra=()):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        out, parts, sites = syncs_by_part(torch, lambda: train_cli.main(
+            [path, "--synthetic-data", "--work-dir", wd, "--max-iters",
+             str(iters)] + list(argv_extra) + [
+                "--cfg-options", "model.compute_dtype=bfloat16",
+                f"checkpoint_interval={iters}", "log_interval=5"]
+            + list(extra)))
+        wall = time.perf_counter() - t0
+        st = out["stats"]
+        ends = st["iter_end_s"]
+        n_img = sum(Config.fromfile(path).source_ratio)
+        iter_ms = float(np.median(np.diff(ends[1:]))) * 1e3 \
+            if len(ends) > 2 else None
+        ips = n_img / iter_ms * 1e3 if iter_ms else None
+        r = dict(iterations=st["iters"], median_iteration_ms=iter_ms,
+                 images_per_s=ips,
+                 peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                 syncs=parts, syncs_per_step=parts["step"] / max(
+                     st["iters"], 1), step_sync_sites=sites,
+                 last_log=st["log_lines"][-1] if st["log_lines"] else None,
+                 launches=dict(build.LAUNCHES), wall_s=wall)
+        log(f"[lsk train] {os.path.basename(path)} {' '.join(extra)} "
+            f"{' '.join(argv_extra)}: {st['iters']} iterations in "
+            f"{wall:.1f} s; median iteration "
+            + ("n/a" if iter_ms is None else
+               f"{iter_ms:.1f} ms, {ips:.2f} images/s")
+            + f" (host clock); peak {r['peak_gib']:.2f} GiB; syncs by part "
+            f"{parts} ({r['syncs_per_step']:.1f} a step); card {smi}")
+        log(f"[lsk train]   the step's syncs by site: {sites}")
+        log(f"[lsk train]   last log line: {r['last_log']}")
+        if st["log_lines"] and not all(np.isfinite(v) for x in
+                                       st["log_lines"] for v in x.values()):
+            failures.append(f"{path}: a logged value is not finite")
+        return out, r
+
+    t0 = time.perf_counter()
+    wd = os.path.join(LSK_WORK, "lsk_t")
+    half = LSK_TRAIN_ITERS // 2
+    out, rec["train_lsk_t"] = train_run(LSK_T_CFG, wd, LSK_TRAIN_ITERS,
+                                        (f"checkpoint_interval={half}",))
+    for k in LSK_TRAIN_KERNELS:
+        if rec["train_lsk_t"]["launches"][k] <= 0:
+            failures.append(f"lsk train launches {k}=0")
+    del out
+    ck = os.path.join(wd, f"iter_{half}.pth")
+    back = train_cli.main([LSK_T_CFG, "--synthetic-data", "--work-dir", wd,
+                           "--resume-from", ck, "--max-iters", str(half),
+                           "--cfg-options", "model.compute_dtype=bfloat16"])
+    saved = torch.load(ck, map_location="cpu", weights_only=True)
+    s = back["state"]
+    names = list(s.params)
+    same = saved["format"] == TRAIN_FORMAT and saved["names"] == names
+    for key, ts in (("params", s.params.values()), ("mu", s.opt.mu),
+                    ("nu", s.opt.nu)):
+        same = same and all(torch.equal(saved[key][n], t.cpu())
+                            for n, t in zip(names, ts))
+    same = same and (saved["count"], saved["step"], saved["mults"]) == (
+        s.opt.count, s.opt.step, s.opt.mults) and \
+        torch.equal(saved["dla"]["ema"], s.opt.dla.ema.cpu()) and \
+        torch.equal(saved["gen_state"], s.gen.get_state())
+    log(f"[lsk train] --resume-from iter_{half}: start "
+        f"{back['start_iter']}, the loaded state equal to the file bit for "
+        f"bit: {same}")
+    if not (same and back["start_iter"] == half):
+        failures.append(f"lsk train: the resumed state differs from "
+                        f"iter_{half}.pth")
+    del back, s, saved
+    out, rec["train_lsk_t_resumed"] = train_run(
+        LSK_T_CFG, wd, half + 2, ("log_interval=2",), ("--resume-from", ck))
+    if not rec["train_lsk_t_resumed"]["last_log"]:
+        failures.append("lsk train: no log line after the resume")
+    rec["train_lsk_t"]["resume_equal"] = same
+    del out
+    torch.cuda.empty_cache()
+
+    # uncertainty: reweighted_total_losses logged, mtl_sigma trained
+    out, r = train_run(UNC_CFG, os.path.join(LSK_WORK, "uncertainty"),
+                       REWEIGHT_ITERS)
+    sigma = out["state"].params["mtl_sigma"].detach().float().cpu()
+    moved = float((sigma - 1).abs().max())
+    logged = "reweighted_total_losses" in (r["last_log"] or {})
+    log(f"[lsk train] uncertainty: reweighted_total_losses logged {logged}; "
+        f"mtl_sigma moved by up to {moved:.3e}: {sigma.tolist()}")
+    r.update(mtl_sigma=sigma.tolist(), sigma_moved=moved)
+    rec["train_uncertainty"] = r
+    if not (logged and moved > 0):
+        failures.append("uncertainty: not logged or mtl_sigma did not move")
+    del out
+    torch.cuda.empty_cache()
+
+    # DWA: the weights each step applied, recorded on the card
+    weights = []
+    real = ts_mod.dwa_weights
+
+    def recording(cur, prev):
+        w = real(cur, prev)
+        weights.append(w.detach())
+        return w
+    ts_mod.dwa_weights = recording
+    try:
+        wd = os.path.join(LSK_WORK, "dwa")
+        out, r = train_run(UNC_CFG, wd, REWEIGHT_ITERS,
+                           ("model.multi_tasks_reweight=dwa",))
+    finally:
+        ts_mod.dwa_weights = real
+    w = torch.stack(weights).float().cpu()
+    saved = torch.load(os.path.join(wd, f"iter_{REWEIGHT_ITERS}.pth"),
+                       map_location="cpu", weights_only=True)
+    carry = out["state"].prev_losses.cpu()
+    first_ones = torch.equal(w[0], torch.ones_like(w[0]))
+    later = [float((x - 1).abs().max()) for x in w[1:]]
+    carried = saved["prev_losses"] is not None and \
+        torch.equal(saved["prev_losses"], carry) and bool((carry > 0).any())
+    log(f"[lsk train] dwa: weights 1 at step 1 {first_ones}; largest "
+        f"|w - 1| at steps 2..{len(w)}: "
+        + " ".join(f"{v:.3e}" for v in later)
+        + f"; the carry in iter_{REWEIGHT_ITERS}.pth equal to the state's "
+        f"{carried}: {carry.tolist()}")
+    r.update(first_weights_one=first_ones, max_weight_dev=later,
+             carry=carry.tolist(), carry_in_checkpoint=carried)
+    rec["train_dwa"] = r
+    if not (first_ones and later and all(v > 0 for v in later) and carried):
+        failures.append("dwa: weights or carry")
+    del out, saved
+    shutil.rmtree(LSK_WORK, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"[lsk train] (d) {time.perf_counter() - t0:.1f} s")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[lsk] phase 8 wall time {rec['phase_s']:.1f} s")
+    return failures, rec, lsk_launches
+
+
 def main():
     try:
         import torch
@@ -1381,6 +1903,65 @@ def main():
                     f"{'n/a' if lms is None else f'{lms:.4f} ms'} "
                     f"({recs['moe_ffn_grouped'].library}), bound {b:.4f} ms "
                     f"({k}); {s} slots for {n_pix * topk} routes")
+
+    # row 9 at the LSKNet / VAN widths, 8 images of 800^2: held against its
+    # plain version (and whether bit for bit), timed in bf16 against
+    # F.layer_norm, weighted by a forward's LayerNorms at each stage
+    ln_rec, lsk_cases = recs["fused_layernorm"], []
+    for arch, (dims, depths) in LSK_ARCHS.items():
+        sums = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms",
+                              "device_ms", "library_device_ms"), 0.0)
+        for hw, c, depth in zip((200, 100, 50, 25), dims, depths):
+            shape = (N_IMGS, hw, hw, c)
+            n_ln = 2 + 2 * depth
+            for dtype in (torch.float32, torch.bfloat16):
+                isz = torch.tensor([], dtype=dtype).element_size()
+                xo = (rnd(*shape) * 3 + 1).to(dtype)
+                lns = (1 + rnd(c, scale=0.1)).to(dtype)
+                lnb = rnd(c, scale=0.1).to(dtype)
+                got = cbk.fused_layernorm(xo, lns, lnb)
+                ref = cbk.layernorm_math(xo, lns, lnb)
+                check("fused_layernorm", dtype, (f"lsk-{arch}",) + shape, got,
+                      ref, tol[dtype], main_path=False)
+                n_diff = int((got != ref).sum())
+                err, _ = max_err(got, ref)
+                lsk_cases.append(dict(arch=arch, shape=list(shape),
+                                      dtype=str(dtype)[6:], max_abs_err=err,
+                                      elements_differing=n_diff))
+                log(f"[kernel]   fused_layernorm lsk-{arch} {shape} "
+                    f"{str(dtype)[6:]}: {n_diff} of {got.numel()} elements "
+                    f"differ from the plain version (bit-equal "
+                    f"{n_diff == 0})")
+                if dtype != torch.bfloat16:
+                    continue
+                n_pix = N_IMGS * hw * hw
+                ms = cuda_ms(torch, lambda: cbk.fused_layernorm(xo, lns, lnb))
+                pms = cuda_ms(torch, lambda: cbk.layernorm_math(xo, lns, lnb))
+                lms = cuda_ms(torch, lambda: F.layer_norm(xo, (c,), lns, lnb,
+                                                          1e-6))
+                b, k = bound_ms(2 * n_pix * c * isz + 2 * c * isz,
+                                [(n_pix * c * 8, "float32")])
+                dev_ms = device_ms(torch, lambda: cbk.fused_layernorm(
+                    xo, lns, lnb))
+                dev_lms = device_ms(torch, lambda: F.layer_norm(
+                    xo, (c,), lns, lnb, 1e-6))
+                for key, v in (("ms", ms), ("plain_ms", pms),
+                               ("library_ms", lms), ("bound_ms", b),
+                               ("device_ms", dev_ms),
+                               ("library_device_ms", dev_lms)):
+                    sums[key] = None if v is None or sums[key] is None \
+                        else sums[key] + n_ln * v
+                log(f"[time]   fused_layernorm lsk-{arch} {shape}: kernel "
+                    f"{ms:.4f} ms, plain {pms:.4f} ms, library {lms:.4f} ms, "
+                    f"bound {b:.4f} ms ({k}); device time only: kernel "
+                    f"{ms_str(dev_ms)}, library {ms_str(dev_lms)}; {n_ln} a "
+                    f"forward")
+            del xo, got, ref
+        ln_rec.extra.update({f"lsk_{arch}_{k}": v for k, v in sums.items()})
+        log(f"[time]   fused_layernorm, the LSKNet-{arch.upper()} forward's "
+            f"LayerNorms over 8 images: " + ", ".join(
+                f"{k} {ms_str(v)}" for k, v in sums.items()))
+    ln_rec.extra["lsk_widths"] = lsk_cases
 
     nb = 2000
     xy = torch.rand(N_IMGS, nb, 2, generator=gen, device=dev) * 760
@@ -2015,13 +2596,6 @@ def main():
     del cls_d, reg_d, cls_h, reg_h
 
     # ---- 4a, RGB branch: the same image through the Oriented R-CNN -------
-    def spread_class_scores(head, roi_feats):
-        """Random weights leave the 27-way softmax near 1/27, under
-        rcnn_score_thr, and the NMS would see no candidate: scale fc_cls
-        so that the logits' spread is 3."""
-        logits, _ = head(roi_feats)
-        head.fc_cls.weight.mul_(3.0 / logits.float().std().item())
-
     def stage(name, a, b):
         err, scale = max_err(a.cpu(), b.cpu())
         ok = bool(torch.isfinite(a.float()).all()) and a.shape == b.shape \
@@ -2198,21 +2772,8 @@ def main():
     if not ok_out:
         failures.append("bf16 sar outputs")
 
-    def timed_forwards(fn, n=10):
-        """Each forward timed on its own (host clock, ended by a
-        synchronize): the host's clock varies more than the device's, so
-        the median and the quartiles are reported."""
-        walls = []
-        for _ in range(n):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-        q1, med, q3 = statistics.quantiles(walls, n=4)
-        return walls, q1, med, q3
-
-    walls, q1, dt, q3 = timed_forwards(lambda: model.simple_test(imgs, "sar"))
+    walls, q1, dt, q3 = timed_forwards(
+        torch, lambda: model.simple_test(imgs, "sar"))
     head_ms = cuda_ms(torch, lambda: model.head_sar(imgs), iters=3)
     cls_o, reg_o = model.head_sar(imgs)
     post_ms = cuda_ms(torch, lambda: model.get_bboxes_sar(cls_o, reg_o),
@@ -2282,7 +2843,7 @@ def main():
     if not ok_out:
         failures.append("bf16 joint outputs")
 
-    walls, q1, joint_dt, q3 = timed_forwards(joint)
+    walls, q1, joint_dt, q3 = timed_forwards(torch, joint)
     joint_ips = n_joint / joint_dt
     with torch.no_grad():
         (s_cls, s_reg), x, rpn = model.head_joint(sar_i, rgb_i, ifr_i)
@@ -2517,7 +3078,7 @@ def main():
     train_launches = dict(build.LAUNCHES)
     log(f"[train bf16] launches in one step: {train_launches}")
     torch.cuda.reset_peak_memory_stats()
-    walls, train_q1, train_dt, train_q3 = timed_forwards(one_step,
+    walls, train_q1, train_dt, train_q3 = timed_forwards(torch, one_step,
                                                          n=TRAIN_STEPS)
     train_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     metrics = {k: float(v) for k, v in one_step().items()}
@@ -2590,6 +3151,13 @@ def main():
     if train_failures:
         fail(f"train entry point failed: {train_failures}")
 
+    # ---- 8. the LSKNet / VAN configurations and the loss reweighting -------
+    lsk_failures, lsk_rec, lsk_launches = phase8(torch, dev, smi, build)
+    if lsk_failures:
+        fail(f"LSKNet / VAN and reweighting phase failed: {lsk_failures}")
+    recs["fused_layernorm"].extra["lsk_t_joint_launches"] = \
+        lsk_launches["fused_layernorm"]
+
     log(json.dumps({
         "kernels": [recs[k].json(launches[k]) for k in recs],
         "launches_from": "simple_test_joint [8:4:4]; rotated_nms_mask "
@@ -2610,6 +3178,7 @@ def main():
         "sar_images_per_s": sar_ips, "sar_peak_gib": peak_gib,
         "train_entry": train_rec,
         "train_entry_launches": train_entry_launches,
+        "lsk_van_reweight": lsk_rec,
         "card": smi}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

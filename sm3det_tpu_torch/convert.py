@@ -3,22 +3,25 @@
 ``from_flax(params)`` takes the flax ``params`` tree (nested dicts of numpy
 arrays) of a ``TriSourceDetector`` and converts every leaf under
 ``backbone``, ``neck``, ``sar_bbox_head`` and the four RGB / infrared heads
-(``{rgb,ifr}_rpn_head``, ``{rgb,ifr}_roi_head``); it raises on a leaf that
-no rule consumes and on a top-level entry it does not know. The one entry
-it knows and skips is ``mtl_sigma``, the uncertainty-reweighting sigmas of
-the training loss, which inference does not read. Module names follow the
-flax keys (``backbone.stage2_block0.ffn.experts.w1``,
-``neck.lateral1.weight``, ``sar_bbox_head.cls_gn0.weight``,
-``rgb_roi_head.shared_fc0.weight``, ...):
+(``{rgb,ifr}_rpn_head``, ``{rgb,ifr}_roi_head``), and ``mtl_sigma`` (the
+uncertainty reweighting's sigmas) where the tree has it; it raises on a
+leaf that no rule consumes and on a top-level entry it does not know.
+Module names follow the flax keys (``backbone.stage2_block0.ffn.experts.w1``,
+``backbone.stage2_block0.mlp.fc1.experts.w``, ``neck.lateral1.weight``,
+``sar_bbox_head.cls_gn0.weight``, ``rgb_roi_head.shared_fc0.weight``, ...),
+for a ConvNeXt, LSKNet or VAN backbone:
 
-- conv kernels HWIO -> OIHW, the depthwise (7, 7, 1, C) -> (C, 1, 7, 7);
+- conv kernels HWIO -> OIHW (the stems, patch embeds, 1x1 convs, the
+  squeeze conv), the depthwise (k, k, 1, C) -> (C, 1, k, k);
 - the ConvNeXt pointwise Dense kernels keep the (in, out) layout that the
   GEMM kernel reads; the gate's ``cosine_projector`` and the RoI heads'
   Dense layers become Linear weights (out, in);
-- MoE stacks ``w1 (E, d, h)``, ``b1``, ``w2 (E, h, d)``, ``b2`` stay
-  stacked, as do ``w_gate/{temperature, sim_matrix}`` and ``w_noise``;
+- MoE stacks ``w1 (E, d, h)``, ``b1``, ``w2 (E, h, d)``, ``b2`` and the
+  linear experts' ``w (E, d, o)``, ``b (E, o)`` stay stacked, as do
+  ``w_gate/{temperature, sim_matrix}`` and ``w_noise``;
 - LayerNorm/GroupNorm ``scale``/``bias`` -> ``weight``/``bias``; the
-  ``gamma`` vectors and the scalar ``Scale``s keep their names.
+  ``gamma`` and ``layer_scale_{1,2}`` vectors, ``mtl_sigma`` and the
+  scalar ``Scale``s keep their names.
 
 ``to_flax(tensors, template)`` is the reverse map, for the port's
 gradients or parameters: it lays them out as the flax tree ``template``
@@ -35,11 +38,11 @@ import torch
 
 SUBTREES = ("backbone", "neck", "sar_bbox_head", "rgb_rpn_head",
             "ifr_rpn_head", "rgb_roi_head", "ifr_roi_head")
-# top-level entries of the training path that inference does not read
-SKIPPED = ("mtl_sigma",)
+# top-level leaves a tree may hold: the uncertainty reweighting's sigmas
+OPTIONAL_LEAVES = ("mtl_sigma",)
 _LINEAR = {"cosine_projector", "shared_fc0", "shared_fc1", "fc_cls", "fc_reg"}
 _KEPT = {"gamma", "temperature", "sim_matrix", "w_noise", "w1", "b1", "w2",
-         "b2"}
+         "b2", "w", "b", "layer_scale_1", "layer_scale_2", "mtl_sigma"}
 _NORM = re.compile(r".*norm\d*|(cls|reg)_gn\d+")
 
 
@@ -105,13 +108,17 @@ def from_flax(params: Dict) -> Dict[str, torch.Tensor]:
     missing = [s for s in SUBTREES if s not in params]
     if missing:
         raise KeyError(f"from_flax: no {missing} in the params tree")
-    unknown = [k for k in params if k not in SUBTREES + SKIPPED]
+    unknown = [k for k in params if k not in SUBTREES + OPTIONAL_LEAVES]
     if unknown:
         raise KeyError(f"from_flax: no rule for the subtrees {unknown}")
     out = {}
-    for sub in SUBTREES:
+    for sub in _present(params):
         out.update(convert_tree(params[sub], (sub,)))
     return out
+
+
+def _present(tree):
+    return SUBTREES + tuple(k for k in OPTIONAL_LEAVES if k in tree)
 
 
 def to_flax(tensors: Dict[str, torch.Tensor], template: Dict) -> Dict:
@@ -122,7 +129,7 @@ def to_flax(tensors: Dict[str, torch.Tensor], template: Dict) -> Dict:
     if "params" in template and len(template) == 1:
         template = template["params"]
     out: Dict = {}
-    for sub in SUBTREES:
+    for sub in _present(template):
         for path, v in _leaves(template[sub], (sub,)):
             name, perm = _rule(path, v)
             arr = tensors[name].detach().float().cpu().numpy()
@@ -131,5 +138,5 @@ def to_flax(tensors: Dict[str, torch.Tensor], template: Dict) -> Dict:
             node = out
             for k in path[:-1]:
                 node = node.setdefault(k, {})
-            node[path[-1]] = np.ascontiguousarray(arr)
+            node[path[-1]] = arr.copy()   # C order; keeps a 0-d leaf 0-d
     return out

@@ -2,8 +2,10 @@
 
 Port of the registry part of ``sm3det_tpu/models/__init__.py``: the names a
 config's ``type`` may take, and ``normalize_model_cfg``. The port registers
-what it has: the ``TriSourceDetector`` with a ConvNeXt-MoE backbone
-(``ConvNeXt_moe``, ``ConvNeXt_moe_MultiInput``) and the ``MultitaskFPN``.
+what it has: the ``TriSourceDetector`` with a ConvNeXt-MoE, LSKNet-MoE or
+VAN-MoE backbone (``ConvNeXt_moe``, ``ConvNeXt_moe_MultiInput``,
+``LSKNet``, ``LSKNet_moe_MultiInput``, ``VAN``, ``VAN_moe_MultiInput``) and
+the ``MultitaskFPN``.
 Every other name the JAX package registers raises ``NotImplementedError``
 naming the ROADMAP item that ports it; nothing falls back to the flagship.
 
@@ -20,6 +22,8 @@ from typing import Any, Dict, Optional
 
 from ..utils.registry import BACKBONES, DETECTORS, NECKS
 from .backbones.convnext import ConvNeXtMoE
+from .backbones.lsknet import LSKNetMoE
+from .backbones.van import VANMoE
 from .detectors.trisource import TriSourceDetector
 from .necks.fpn import MultitaskFPN
 
@@ -37,13 +41,16 @@ def _unported(kind: str, name: str, item: str):
 
 BACKBONES.register_module("ConvNeXt_moe", module=ConvNeXtMoE)
 BACKBONES.register_module("ConvNeXt_moe_MultiInput", module=ConvNeXtMoE)
+for _name, _cls in (("LSKNet", LSKNetMoE), ("LSKNet_moe_MultiInput",
+                                            LSKNetMoE),
+                    ("VAN", VANMoE), ("VAN_moe_MultiInput", VANMoE)):
+    BACKBONES.register_module(_name, module=_cls)
 NECKS.register_module("MultitaskFPN", module=MultitaskFPN)
 DETECTORS.register_module("TriSourceDetector", module=TriSourceDetector)
 
 for _name, _item in [("ConvNeXt_DA_MultiInput", LEFTOVERS)] + [
         (n, ZOO) for n in (
-            "LSKNet_moe", "LSKNet_moe_MultiInput", "LSKNet", "VAN",
-            "VAN_moe", "VAN_moe_MultiInput", "SwinTransformer_moe",
+            "LSKNet_moe", "VAN_moe", "SwinTransformer_moe",
             "SwinTransformer_MoE", "SwinTransformer", "InternViT",
             "InternViTAdapter", "ReResNet")]:
     BACKBONES.register_module(_name, module=_unported("backbone", _name,
@@ -59,10 +66,12 @@ for _name in ("TriSourceVariant", "OrientedRCNN", "RotatedRetinaNet", "GFL",
     DETECTORS.register_module(_name, module=_unported("detector", _name,
                                                       ZOO))
 
-# the backbone keys TriSourceDetector reads (besides type and pretrained)
-_BACKBONE_KEYS = {"arch", "drop_path_rate", "moe_block_inds", "num_experts",
+# the backbone keys TriSourceDetector reads (besides pretrained)
+_BACKBONE_KEYS = {"type", "arch", "drop_path_rate", "moe_block_inds", "num_experts",
                   "top_k", "gate", "noisy_gating", "capacity_factor",
-                  "use_da"}
+                  "use_da", "embed_dims", "depths", "moe_block_inds_fc1",
+                  "moe_block_inds_fc2"}
+_INDEX_KEYS = ("moe_block_inds", "moe_block_inds_fc1", "moe_block_inds_fc2")
 _NECK_KEYS = {"in_channels", "out_channels", "num_outs", "extra_level",
               "add_extra_convs"}
 
@@ -99,13 +108,14 @@ def build_detector(cfg_model: Dict[str, Any], device=None,
     det_cls = DETECTORS.get(mc.pop("type", "TriSourceDetector"))
     b = mc["backbone"]
     b.pop("pretrained", None)
-    _check_built(BACKBONES, b.pop("type", "ConvNeXt_moe"))
+    _check_built(BACKBONES, b.get("type", "ConvNeXt_moe"))
     extra = sorted(set(b) - _BACKBONE_KEYS)
     if extra:
         raise NotImplementedError(
             f"backbone keys {extra} are not ported: {LEFTOVERS}")
-    if "moe_block_inds" in b:
-        b["moe_block_inds"] = tuple(tuple(x) for x in b["moe_block_inds"])
+    for key in _INDEX_KEYS:
+        if key in b:
+            b[key] = tuple(tuple(x) for x in b[key])
     n = mc["neck"]
     _check_built(NECKS, n.pop("type", "MultitaskFPN"))
     extra = sorted(set(n) - _NECK_KEYS)

@@ -1,9 +1,10 @@
 """TriSource detector.
 
 Port of ``sm3det_tpu/models/detectors/trisource.py::TriSourceDetector``:
-the shared ConvNeXt-MoE backbone, the MultitaskFPN, the SAR GFL head and
-the RGB and infrared Oriented R-CNN branches (oriented RPN, pyramid rotated
-RoI align, shared-2fc head).
+the shared backbone (ConvNeXt-MoE, LSKNet-MoE or VAN-MoE in MultiInput
+mode, ``build_multi_input_backbone``), the MultitaskFPN, the SAR GFL head
+and the RGB and infrared Oriented R-CNN branches (oriented RPN, pyramid
+rotated RoI align, shared-2fc head).
 
 - Inference: ``simple_test_sar/rgb/ifr``, ``simple_test_joint`` (one
   backbone pass over the three modalities, one proposal NMS, one align and
@@ -14,7 +15,11 @@ RoI align, shared-2fc head).
 - Training: ``forward(batch, gen)`` returns the loss dict of the JAX
   ``__call__`` (GFL losses of the SAR images, RPN and R-CNN losses of the
   RGB and infrared images, the MoE gate loss); the random draws come from
-  ``gen``. The uncertainty reweighting (``mtl_sigma``) is not ported.
+  ``gen``. With ``multi_tasks_reweight="uncertainty"`` the model holds
+  the learned ``mtl_sigma`` (ones, one per ``REWEIGHT_LOSS_KEYS`` entry)
+  and adds ``reweighted_total_losses`` = sum 0.5 / sigma_i^2 L_i +
+  log(1 + sigma_i^2), the individual losses then reported detached. DWA
+  lives in the train step (``train/train_state.py``).
 
 The compute-dtype policy is that of ``_cast_in``: with
 ``compute_dtype="bfloat16"`` the images are bf16 and so are the parameters
@@ -43,6 +48,8 @@ from ...device import resolve_device
 from ...ops.box_convert import norm_angle
 from ...ops.nms import aug_multiclass_nms_rotated
 from ..backbones.convnext import ConvNeXtMoE
+from ..backbones.lsknet import LSKNetMoE
+from ..backbones.van import VANMoE
 from ..dense_heads.gfl_head import GFLHead, gfl_get_bboxes, gfl_loss
 from ..dense_heads.oriented_rpn_head import (OrientedRPNHead,
                                              rpn_get_proposals, rpn_loss)
@@ -101,6 +108,54 @@ def make_rcnn_coder(version="le90"):
         target_stds=(0.1, 0.1, 0.2, 0.2, 0.1), edge_swap=True, proj_xy=True)
 
 
+ZOO = "ROADMAP queue 1 item 7 (the zoo)"
+
+# the losses the uncertainty and DWA reweighting weigh, in JAX's order
+REWEIGHT_LOSS_KEYS = (
+    "sar_loss_cls", "sar_loss_bbox", "sar_loss_dfl",
+    "rgb_loss_rpn_cls", "rgb_loss_rpn_bbox", "rgb_loss_cls",
+    "rgb_loss_bbox", "ifr_loss_rpn_cls", "ifr_loss_rpn_bbox",
+    "ifr_loss_cls", "ifr_loss_bbox")
+REWEIGHT_MODES = (None, "uncertainty", "dwa")
+
+
+def build_multi_input_backbone(b: Dict[str, Any],
+                               gen: torch.Generator | None = None):
+    """The backbone of a TriSource config's ``backbone`` dict, in
+    MultiInput mode, with the JAX factory's type names and defaults."""
+    btype = b.get("type", "ConvNeXt")
+    common = dict(
+        drop_path_rate=b.get("drop_path_rate", 0.0),
+        num_experts=b.get("num_experts", 2), top_k=b.get("top_k", 2),
+        gate=b.get("gate", "cosine"),
+        noisy_gating=b.get("noisy_gating", True),
+        capacity_factor=b.get("capacity_factor", 1.5), gen=gen)
+    if btype in ("ConvNeXt", "ConvNeXt_moe", "ConvNeXt_moe_MultiInput"):
+        return ConvNeXtMoE(
+            arch=b.get("arch", "tiny"),
+            moe_block_inds=tuple(tuple(i) for i in b.get(
+                "moe_block_inds", ((), (), (), ()))),
+            use_da=b.get("use_da", False), **common)
+    if btype in ("LSKNet", "LSKNet_moe_MultiInput", "VAN",
+                 "VAN_moe_MultiInput"):
+        cls = LSKNetMoE if btype.startswith("LSK") else VANMoE
+        return cls(
+            embed_dims=tuple(b.get("embed_dims", (32, 64, 160, 256))),
+            depths=tuple(b.get("depths", (3, 3, 5, 2))),
+            moe_block_inds_fc1=tuple(tuple(i) for i in b.get(
+                "moe_block_inds_fc1", ((), (), (), ()))),
+            moe_block_inds_fc2=tuple(tuple(i) for i in b.get(
+                "moe_block_inds_fc2", ((), (), (), ()))),
+            **common)
+    if btype == "ConvNeXt_DA_MultiInput":
+        raise NotImplementedError(
+            f"backbone {btype!r}: domain attention is not ported "
+            f"(ROADMAP queue 1 item 5)")
+    if btype in ("SwinTransformer_moe", "Swin", "InternViTAdapter"):
+        raise NotImplementedError(f"backbone {btype!r} is not ported: {ZOO}")
+    raise ValueError(f"unknown backbone type {btype!r}")
+
+
 class TriSourceDetector(nn.Module):
     """SM3Det detector. ``cfg`` follows DEFAULT_MODEL_CFG.
 
@@ -117,20 +172,11 @@ class TriSourceDetector(nn.Module):
         self.cfg = c = copy.deepcopy(cfg or DEFAULT_MODEL_CFG)
         dev = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
-        b = c["backbone"]
-        if b.get("type", "ConvNeXt") not in ("ConvNeXt",
-                                             "ConvNeXt_moe_MultiInput"):
-            raise NotImplementedError(f"backbone {b['type']!r}")
-        self.backbone = ConvNeXtMoE(
-            arch=b.get("arch", "tiny"),
-            moe_block_inds=tuple(tuple(i) for i in b.get(
-                "moe_block_inds", ((), (), (), ()))),
-            num_experts=b.get("num_experts", 2), top_k=b.get("top_k", 2),
-            gate=b.get("gate", "cosine"),
-            noisy_gating=b.get("noisy_gating", True),
-            capacity_factor=b.get("capacity_factor", 1.5),
-            drop_path_rate=b.get("drop_path_rate", 0.0),
-            use_da=b.get("use_da", False), gen=gen)
+        if c.get("multi_tasks_reweight") not in REWEIGHT_MODES:
+            raise ValueError(f"multi_tasks_reweight "
+                             f"{c['multi_tasks_reweight']!r}: one of "
+                             f"{REWEIGHT_MODES}")
+        self.backbone = build_multi_input_backbone(c["backbone"], gen)
         n = c["neck"]
         self.neck = MultitaskFPN(
             in_channels=tuple(n["in_channels"]),
@@ -152,8 +198,8 @@ class TriSourceDetector(nn.Module):
         self._sar_gen = make_sar_anchor_generator(tuple(c["sar"]["strides"]))
         self._rpn_gen = make_rpn_anchor_generator(
             tuple(c["rgb"]["rpn_strides"]))
-        if trainable and c.get("multi_tasks_reweight"):
-            raise NotImplementedError("multi_tasks_reweight is not ported")
+        if c.get("multi_tasks_reweight") == "uncertainty":
+            self.mtl_sigma = nn.Parameter(torch.ones(len(REWEIGHT_LOSS_KEYS)))
         dt = c.get("compute_dtype")
         self.compute_dtype = getattr(torch, dt) if dt else torch.float32
         self.to(device=dev,
@@ -163,7 +209,7 @@ class TriSourceDetector(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.backbone.stem_norm.weight.device
+        return next(self.parameters()).device
 
     def _cast_in(self, imgs):
         """Images (numpy or tensor, (B, H, W, 3)) on the model's device in
@@ -496,4 +542,13 @@ class TriSourceDetector(nn.Module):
             total = torch.clamp(n_valid.float(), min=1.0)
             losses[f"{key}_loss_cls"] = l_cls / total
             losses[f"{key}_loss_bbox"] = l_reg / total
+
+        if c.get("multi_tasks_reweight") == "uncertainty":
+            sigma2 = self.mtl_sigma ** 2
+            total = torch.zeros((), device=sigma2.device)
+            for i, k in enumerate(REWEIGHT_LOSS_KEYS):
+                li = losses.pop(k)
+                total = total + 0.5 / sigma2[i] * li + torch.log1p(sigma2[i])
+                losses[k] = li.detach()          # reported, not optimised
+            losses["reweighted_total_losses"] = total
         return losses

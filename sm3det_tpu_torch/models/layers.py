@@ -67,9 +67,11 @@ class Conv2d(nn.Module):
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
                  padding: int = 0, bias: bool = True,
                  gen: torch.Generator | None = None,
-                 bias_init: float = 0.0, groups: int = 1):
+                 bias_init: float = 0.0, groups: int = 1,
+                 dilation: int = 1):
         super().__init__()
         self.stride, self.padding, self.groups = stride, padding, groups
+        self.dilation = dilation
         fan_in = cin // groups * kernel * kernel
         self.weight = nn.Parameter(
             torch.empty(cout, cin // groups, kernel, kernel))
@@ -82,7 +84,7 @@ class Conv2d(nn.Module):
         # tensor: cuDNN runs channels-last and the result permutes back
         # without a copy
         y = F.conv2d(x.permute(0, 3, 1, 2), self.weight, self.bias,
-                     self.stride, self.padding, 1, self.groups)
+                     self.stride, self.padding, self.dilation, self.groups)
         return y.permute(0, 2, 3, 1)
 
 

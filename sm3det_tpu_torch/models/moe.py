@@ -1,22 +1,27 @@
 """Grid-level sparse Mixture-of-Experts.
 
-Port of ``sm3det_tpu/models/moe.py`` (FFN experts, cosine gate).
+Port of ``sm3det_tpu/models/moe.py`` (cosine gate): two-layer FFN experts
+(ConvNeXt) and single-projection linear experts (the LSKNet / VAN MLP's
+fc1 / fc2, ``expert_kind="linear"``).
 
-- Inference (``MoELayer.forward``): the no-drop group-aligned dispatch. The
-  routes are sorted by expert and each expert's group is padded to the GEMM
-  tile, so every ``tile``-row tile of the slot layout belongs to one expert;
-  ``x_slots`` and ``tile_expert`` match the JAX layout exactly, and the
-  expert FFN runs through ``ops/cuda/moe_groupgemm_kernel``. No route is
-  dropped.
-- Training (``MoELayer.forward_train``): the noisy top-k gate (its normal
-  noise passed in), the CV^2 importance/load balance loss and the
-  capacity-bucketed dispatch with its drops: every (token, choice) route
-  takes the next place of its expert's ``(E, capacity)`` bucket in flat
-  route order, routes past the capacity are dropped (their token keeps the
-  residual path), and the experts run as batched matrix products. The JAX
+- Inference of FFN experts (``MoELayer.forward``): the no-drop
+  group-aligned dispatch. The routes are sorted by expert and each expert's
+  group is padded to the GEMM tile, so every ``tile``-row tile of the slot
+  layout belongs to one expert; ``x_slots`` and ``tile_expert`` match the
+  JAX layout exactly, and the expert FFN runs through
+  ``ops/cuda/moe_groupgemm_kernel``. No route is dropped.
+- Inference of linear experts, and training of both kinds
+  (``MoELayer.forward_train``: the noisy top-k gate with its normal noise
+  passed in, the CV^2 importance/load balance loss): the capacity-bucketed
+  dispatch with its drops. Every (token, choice) route takes the next place
+  of its expert's ``(E, capacity)`` bucket in flat route order, routes past
+  the capacity are dropped (their token keeps the residual path), and the
+  experts run as batched matrix products. The capacity counts the tokens of
+  the whole call, so a joint batch may drop other routes than its parts
+  alone, as in JAX. The dispatch makes no host synchronisation. The JAX
   package's scatter-free custom VJPs (``_inv_gather``, ``_bf16_dot``) are
-  TPU workarounds: plain indexing under autograd gives the same values and
-  gradients.
+  TPU workarounds: plain indexing and ``baddbmm`` under autograd give the
+  same values and gradients.
 """
 
 from __future__ import annotations
@@ -123,10 +128,45 @@ class ExpertFFN(nn.Module):
         return y.to(x.dtype)
 
 
+class ExpertLinear(nn.Module):
+    """Every expert's single projection stacked on a leading expert axis,
+    in the JAX layout: w (E, d, o), b (E, o)."""
+
+    def __init__(self, num_experts: int, dim: int, out_dim: int,
+                 gen: torch.Generator | None = None):
+        super().__init__()
+        self.w = nn.Parameter(trunc_normal_(
+            torch.empty(num_experts, dim, out_dim),
+            1 / math.sqrt(num_experts * dim), gen))
+        self.b = nn.Parameter(torch.zeros(num_experts, out_dim))
+
+    def forward(self, x):
+        """Capacity buckets x (E, cap, d) -> (E, cap, o) in x.dtype: the
+        product summed in fp32 with the bias, rounded once."""
+        return torch.baddbmm(self.b[:, None].to(x.dtype), x, self.w)
+
+
 def capacity_of(n: int, k: int, e: int, capacity_factor: float) -> int:
-    """Bucket size of the training dispatch: ``ceil(n k / e * cf)``, at
+    """Bucket size of the capacity dispatch: ``ceil(n k / e * cf)``, at
     least 4."""
     return max(int(math.ceil(n * k / e * capacity_factor)), 4)
+
+
+def _route_positions(top_k_idx: torch.Tensor, num_experts: int):
+    """Each (token, choice) route in flat order ``token * k + choice``:
+    ``(its expert, the experts' route counts, their starts in the
+    expert-sorted order, that stable order, the route's place within its
+    expert)``. The counts are a scatter-add, not ``bincount``, which sizes
+    its output from the data and so waits for the card."""
+    flat_expert = top_k_idx.reshape(-1)
+    counts = torch.zeros(num_experts, dtype=torch.long,
+                         device=flat_expert.device).scatter_add_(
+        0, flat_expert, torch.ones_like(flat_expert))
+    starts = torch.cumsum(counts, 0) - counts
+    order = torch.sort(flat_expert, stable=True).indices
+    rank = torch.empty_like(order).scatter_(
+        0, order, torch.arange(order.numel(), device=order.device))
+    return flat_expert, counts, starts, order, rank - starts[flat_expert]
 
 
 def capacity_dispatch(top_k_idx: torch.Tensor, num_experts: int,
@@ -143,13 +183,8 @@ def capacity_dispatch(top_k_idx: torch.Tensor, num_experts: int,
     n, k = top_k_idx.shape
     e, m = num_experts, n * k
     dev = top_k_idx.device
-    flat_expert = top_k_idx.reshape(-1)
-    counts = torch.bincount(flat_expert, minlength=e)
-    starts = torch.cumsum(counts, 0) - counts
-    order = torch.sort(flat_expert, stable=True).indices
-    rank = torch.empty_like(order).scatter_(
-        0, order, torch.arange(m, device=dev))
-    position = rank - starts[flat_expert]
+    flat_expert, counts, starts, order, position = _route_positions(
+        top_k_idx, e)
     keep = position < capacity
     slot = flat_expert * capacity + torch.clamp(position, max=capacity - 1)
     places = torch.arange(capacity, device=dev)
@@ -171,14 +206,8 @@ def group_aligned_dispatch(top_k_idx: torch.Tensor, num_experts: int,
     e = num_experts
     m = n * k
     dev = top_k_idx.device
-    flat_expert = top_k_idx.reshape(-1)
-    counts = torch.zeros(e, dtype=torch.long, device=dev).scatter_add_(
-        0, flat_expert, torch.ones_like(flat_expert))
-    starts = torch.cumsum(counts, 0) - counts
-    order = torch.sort(flat_expert, stable=True).indices
-    rank = torch.empty_like(order).scatter_(
-        0, order, torch.arange(m, device=dev))
-    position = rank - starts[flat_expert]          # place within its expert
+    flat_expert, counts, starts, order, position = _route_positions(
+        top_k_idx, e)
 
     tile = 256 if dim > 512 else 512
     aligned = (counts + tile - 1) // tile * tile
@@ -199,28 +228,41 @@ def group_aligned_dispatch(top_k_idx: torch.Tensor, num_experts: int,
 class MoELayer(nn.Module):
     """Grid-level sparse MoE over flattened spatial tokens.
 
-    ``w_noise`` is the noisy gate's projection (zeros at init, as in JAX),
-    read only in training.
+    ``expert_kind`` ``"ffn"`` (FFN experts of width ``hidden``, output
+    width ``dim``) or ``"linear"`` (one projection to ``out_dim``, default
+    ``dim``). ``w_noise`` is the noisy gate's projection (zeros at init, as
+    in JAX), read only in training.
     """
 
     def __init__(self, dim: int, hidden: int, num_experts: int = 8,
                  top_k: int = 2, gating: str = "cosine",
                  noisy_gating: bool = True, capacity_factor: float = 1.5,
+                 expert_kind: str = "ffn", out_dim: int | None = None,
                  gen: torch.Generator | None = None):
         super().__init__()
         if gating != "cosine":
             raise NotImplementedError(
-                f"gating {gating!r}: only the cosine gate is ported")
+                f"gating {gating!r}: only the cosine gate is ported "
+                f"(ROADMAP queue 1 item 5)")
         self.dim, self.num_experts, self.top_k = dim, num_experts, top_k
         self.noisy_gating = noisy_gating
         self.capacity_factor = capacity_factor
         self.w_gate = CosineTopKGate(dim, num_experts, gen=gen)
         if noisy_gating:
             self.w_noise = nn.Parameter(torch.zeros(dim, num_experts))
-        self.experts = ExpertFFN(num_experts, dim, hidden, gen=gen)
+        if expert_kind == "ffn":
+            self.out_dim = dim
+            self.experts = ExpertFFN(num_experts, dim, hidden, gen=gen)
+        elif expert_kind == "linear":
+            self.out_dim = out_dim or dim
+            self.experts = ExpertLinear(num_experts, dim, self.out_dim,
+                                        gen=gen)
+        else:
+            raise ValueError(f"expert_kind {expert_kind!r}")
+        self.expert_kind = expert_kind
 
     def forward_train(self, x, noise=None):
-        """Training forward: x (N, d) -> ((N, d) in x.dtype, aux loss).
+        """Training forward: x (N, d) -> ((N, out_dim) in x.dtype, aux loss).
 
         ``noise`` (N, E) standard normal draws for the noisy gate; required
         with ``noisy_gating``, ignored without.
@@ -249,6 +291,13 @@ class MoELayer(nn.Module):
             load = (gates > 0).sum(0).float()
         aux = (cv_squared(importance) + cv_squared(load)) * LOSS_COEF
 
+        return self._capacity_forward(x, top_k_idx, top_k_gates), aux
+
+    def _capacity_forward(self, x, top_k_idx, top_k_gates):
+        """The capacity-bucketed dispatch, the experts and the combine:
+        (N, out_dim) in x.dtype."""
+        n, d = x.shape
+        e, k, o = self.num_experts, self.top_k, self.out_dim
         cap = capacity_of(n, k, e, self.capacity_factor)
         src_token, valid, slot, keep = capacity_dispatch(top_k_idx, e, cap)
         # index_select, not x[idx]: its backward is an index_add, not the
@@ -256,20 +305,29 @@ class MoELayer(nn.Module):
         # the flagship step)
         buf = torch.index_select(x, 0, src_token.reshape(-1)) \
             .reshape(e, cap, d) * valid[..., None].to(x.dtype)
-        out_buf = self.experts(buf).reshape(e * cap, d)
+        out_buf = self.experts(buf).reshape(e * cap, o)
         weighted = torch.index_select(out_buf, 0, slot) * \
             (top_k_gates.reshape(-1) * keep)[:, None].to(out_buf.dtype)
-        return weighted.reshape(n, k, d).sum(dim=1).to(x.dtype), aux
+        return weighted.reshape(n, k, o).sum(dim=1).to(x.dtype)
+
+    def route(self, x):
+        """The inference gate: (top-k expert ids (N, k), their softmax
+        weights (N, k))."""
+        k = self.top_k
+        top_logits, top_idx = stable_topk(self.w_gate(x),
+                                          min(k + 1, self.num_experts))
+        return top_idx[:, :k], torch.softmax(top_logits[:, :k], dim=-1)
 
     def forward(self, x):
-        """x: (N, d) tokens -> (N, d) in x.dtype."""
+        """x: (N, d) tokens -> (N, out_dim) in x.dtype. Linear experts take
+        the capacity dispatch, drops included, as in JAX."""
         n, d = x.shape
         e, k = self.num_experts, self.top_k
-        logits = self.w_gate(x)
-        top_logits, top_idx = stable_topk(logits, min(k + 1, e))
-        gates = torch.softmax(top_logits[:, :k], dim=-1)
+        top_k_idx, gates = self.route(x)
+        if self.expert_kind == "linear":
+            return self._capacity_forward(x, top_k_idx, gates)
         src_token, tile_e, _, pos_route = group_aligned_dispatch(
-            top_idx[:, :k], e, d)
+            top_k_idx, e, d)
         y_slots = self.experts.grouped(x[src_token], tile_e)
         weighted = y_slots[pos_route] * gates.reshape(-1, 1).to(y_slots.dtype)
         return weighted.reshape(n, k, d).sum(dim=1).to(x.dtype)

@@ -16,7 +16,9 @@ detections back to the original images. Then the metric: COCO ``bbox``
 for SAR, VOC ``mAP`` otherwise (or the config's ``evaluation.metric``);
 or, with ``--format-only``, the COCO results json (SAR) or the DOTA Task1
 zip of the patches merged into their images. SAR records carry the
-dataset's COCO category id.
+dataset's COCO category id; when a configured class has none in the json,
+the export raises ``ValueError`` naming it before anything is run or
+written.
 """
 
 from __future__ import annotations
@@ -113,6 +115,14 @@ def main(argv=None, dataset=None, model=None):
     nc = cfg.num_classes
     classes = list(getattr(ds, "CLASSES", ())) or [
         f"class_{c}" for c in range(nc)]
+    cat_ids = getattr(ds, "cat_ids", None)
+    if args.format_only and sub == "sar" and cat_ids:
+        lacking = [classes[c] for c, cid in enumerate(cat_ids) if cid is None]
+        if lacking:
+            raise ValueError(
+                f"--format-only: the COCO json has no category id for the "
+                f"configured classes {lacking}: a results file would hold "
+                f"no valid category_id for their detections")
     pipe = PipelineCfg(img_size=cfg.img_size, version=cfg.angle_version)
     S = cfg.img_size
 
@@ -172,7 +182,6 @@ def main(argv=None, dataset=None, model=None):
         # COCO results json: one record a detection, xywh box, score,
         # category id, image id
         from ..utils import fileio
-        cat_ids = getattr(ds, "cat_ids", None)
         records = []
         for img_id, per_class in zip(img_ids, det_results):
             for c, dets in enumerate(per_class):

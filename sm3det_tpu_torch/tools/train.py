@@ -11,7 +11,9 @@ on the CUDA card unless ``--device cpu``; the backbone's ``pretrained``
 ConvNeXt is loaded when its file exists. The datasets of ``data.sar``,
 ``data.rgb`` and ``data.ifr`` feed ``TriSourceLoader`` in the config's
 ``source_ratio``; AdamW with the step schedule, ``grad_clip`` and, for
-``lr_config.policy="dynamic"``, DLA; then ``run_training``. The work dir
+``lr_config.policy="dynamic"``, DLA; ``model.multi_tasks_reweight``
+``"uncertainty"`` or ``"dwa"`` reweights the task losses
+(``train/train_state.py``); then ``run_training``. The work dir
 gets ``config.py``, ``train_log.jsonl`` and ``iter_N.pth`` checkpoints of
 the whole train state, from which ``--resume-from`` / ``--auto-resume``
 continue. With ``evaluation`` in the config, the val split of each
@@ -21,9 +23,9 @@ otherwise, or ``evaluation.metric``.
 
 Not ported, and raising ``NotImplementedError``: several devices
 (``--num-devices`` > 1, ``expert_parallel`` > 1, a distributed launch),
-``multi_tasks_reweight``, ``ema_decay``, ``optimizer.accumulate`` > 1,
-``optimizer.layer_decay``, LR policies other than step and dynamic, and
-the ``TriSourceVariant`` detectors.
+``ema_decay``, ``optimizer.accumulate`` > 1, ``optimizer.layer_decay``, LR
+policies other than step and dynamic, the ``TriSourceVariant`` detectors
+and a ``pretrained`` file for a backbone other than ConvNeXt.
 """
 
 from __future__ import annotations
@@ -133,9 +135,6 @@ def check_ported(args, cfg, model_cfg):
         raise SystemExit(
             f"tools/train.py drives the TriSource family; use the "
             f"library API for single-dataset detector {mtype!r}")
-    if model_cfg.get("multi_tasks_reweight"):
-        no(f"multi_tasks_reweight={model_cfg['multi_tasks_reweight']!r}",
-           RUNTIME)
     if float(cfg.get("ema_decay", 0.0)):
         no("ema_decay", RUNTIME)
     if int(cfg.optimizer.get("accumulate", 1)) > 1:
@@ -267,6 +266,13 @@ def main(argv=None):
         model = build_detector(cfg.model, device=device, seed=seed,
                                trainable=True)
         pretrained = model_cfg["backbone"].get("pretrained")
+        if pretrained and os.path.exists(pretrained) and not \
+                model_cfg["backbone"].get("type", "ConvNeXt").startswith(
+                    "ConvNeXt"):
+            raise NotImplementedError(
+                f"a pretrained {model_cfg['backbone']['type']} backbone is "
+                f"not read by sm3det_tpu_torch: its loader waits for the "
+                f"file ({ZOO})")
         if pretrained and os.path.exists(pretrained):
             model.load_state_dict(convnext_torch_to_port(
                 load_torch_state_dict(pretrained), model.state_dict()))
@@ -295,7 +301,9 @@ def main(argv=None):
             warmup_ratio=lr_cfg.get("warmup_ratio", 1.0 / 3),
             dla_cfg=dla_cfg, lr_policy=lr_cfg.get("policy", "step"),
             warmup=lr_cfg.get("warmup", "linear"))
-        state = init_train_state(model, init_fn, seed=seed + 1)
+        reweight = model_cfg.get("multi_tasks_reweight")
+        state = init_train_state(model, init_fn, seed=seed + 1,
+                                 dwa=reweight == "dwa")
         start_iter = 0
         resume = args.resume_from or (
             find_latest_checkpoint(work_dir) if args.auto_resume else None)
@@ -303,7 +311,8 @@ def main(argv=None):
             state = load_train_state(resume, state)
             start_iter = int(state.opt.step)
             print(f"resumed from {resume} at iter {start_iter}")
-        step = build_train_step(model, update_fn)
+        step = build_train_step(model, update_fn,
+                                multi_tasks_reweight=reweight)
 
         eval_fns = eval_interval = None
         if cfg.get("evaluation") is not None:

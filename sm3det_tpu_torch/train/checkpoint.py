@@ -9,9 +9,10 @@ Port of ``sm3det_tpu/train/checkpoint.py``:
   the flax module paths (``convert.py``).
 - ``save_train_state`` / ``load_train_state``: the whole ``TrainState``
   for resume (the JAX package's orbax ``save_checkpoint``): the fp32
-  masters, AdamW's ``mu``, ``nu`` and ``count``, ``step``, the DLA state
-  and the multipliers last applied, and the state of the step's
-  ``torch.Generator``, as ``<work_dir>/iter_N.pth``.
+  masters (``mtl_sigma`` among them under the uncertainty reweighting),
+  AdamW's ``mu``, ``nu`` and ``count``, ``step``, the DLA state and the
+  multipliers last applied, DWA's carried losses, and the state of the
+  step's ``torch.Generator``, as ``<work_dir>/iter_N.pth``.
 - ``find_latest_checkpoint``: the ``iter_N`` entry with the largest N.
 - ``load_torch_state_dict`` and ``convnext_torch_to_port``: an mm-style
   ConvNeXt checkpoint mapped onto the port's backbone, a dense FFN fanned
@@ -102,6 +103,8 @@ def save_train_state(work_dir: str, step: int, state) -> str:
                    "initialized": opt.dla.initialized.detach().cpu(),
                    "steps": int(opt.dla.steps)},
            "mults": {k: float(v) for k, v in opt.mults.items()},
+           "prev_losses": None if state.prev_losses is None
+           else state.prev_losses.detach().cpu(),
            "gen_state": state.gen.get_state()}
     os.makedirs(work_dir, exist_ok=True)
     path = os.path.join(os.path.abspath(work_dir), f"iter_{step}.pth")
@@ -127,6 +130,15 @@ def load_train_state(path: str, state):
             f"checkpoint {path} does not match the train state: missing "
             f"{missing[:8]}, unexpected {unexpected[:8]}")
     opt = state.opt
+    saved_prev = obj.get("prev_losses")
+    if (saved_prev is None) != (state.prev_losses is None) or (
+            saved_prev is not None and
+            saved_prev.shape != state.prev_losses.shape):
+        raise ValueError(
+            f"checkpoint {path}: DWA carry "
+            f"{None if saved_prev is None else tuple(saved_prev.shape)}, "
+            f"the train state "
+            f"{None if state.prev_losses is None else tuple(state.prev_losses.shape)}")
     if tuple(obj["dla"]["ema"].shape) != tuple(opt.dla.ema.shape):
         raise ValueError(f"checkpoint {path}: DLA state of shape "
                          f"{tuple(obj['dla']['ema'].shape)}, the train "
@@ -144,6 +156,8 @@ def load_train_state(path: str, state):
         for key, ts in targets:
             for n, t in zip(names, ts):
                 t.copy_(obj[key][n])
+        if saved_prev is not None:
+            state.prev_losses.copy_(saved_prev)
     state.gen.set_state(obj["gen_state"])
     dla = DLAState(
         ema=obj["dla"]["ema"].to(opt.dla.ema.dtype),

@@ -199,8 +199,9 @@ def test_flagship_configs_reach_the_detector(monkeypatch, arch):
 
 
 @pytest.mark.parametrize("path,name", [
-    ("configs/local_configs/SM3Det_lsk_t.py", "LSKNet_moe_MultiInput"),
-    ("configs/local_configs/SM3Det_van_t.py", "VAN"),
+    ("configs/local_configs/main_DA_convnext_t_orcnn_gfl.py",
+     "da_block_inds"),
+    ("configs/local_configs/dota_lsk_t_orcnn.py", "LSKNet_moe"),
     ("configs/local_configs/SM3Det_convnext_t_s2anet_gfl.py",
      "TriSourceVariant"),
     ("configs/local_configs/SM3Det_convnext_t_roitrans_retina.py",

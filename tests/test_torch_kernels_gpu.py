@@ -87,7 +87,11 @@ DWCONV_SHAPES = SHAPES + [(2, (9, 13), 36), (2, (9, 13), 96),
 # the LayerNorm kernel also where a row is not a multiple of 16 bytes
 # (scalar reads, several rows a row group; C = 33 also leaves a tail under
 # 16 bytes at the end of x) and where the last chunk of rows is short
-LN_SHAPES = SHAPES + [(2, 7, 36), (1, 5, 33), (3, 20, 192)] + WIDE
+# and at the LSKNet / VAN stages of 8 images of 800^2 (the T arch's
+# widths, then the S / B arch's)
+LSK_LN = [(8, 200, 32), (8, 100, 64), (8, 50, 160), (8, 25, 256),
+          (8, 200, 64), (8, 100, 128), (8, 50, 320), (8, 25, 512)]
+LN_SHAPES = SHAPES + [(2, 7, 36), (1, 5, 33), (3, 20, 192)] + WIDE + LSK_LN
 
 
 def _dwconv_inputs(gen, b, hw, c, dtype):
@@ -1286,3 +1290,38 @@ def test_eval_rbbox_map_on_the_card_equals_the_host(cuda, seed):
     assert build.LAUNCHES["hbb_iou"] == 1
     assert card4 == eval_rbbox_map(hb, hann, box_dim=4, logger=None,
                                    device="cpu")
+
+
+@pytest.mark.parametrize("path", ["configs/local_configs/SM3Det_lsk_t.py",
+                                  "configs/local_configs/SM3Det_van_t.py"])
+def test_lsk_van_joint_bf16_makes_no_host_sync(cuda, path):
+    """The LSK-T / VAN-T configs at full width, a bf16 joint forward over
+    [2 : 1 : 1] x 800^2 under ``set_sync_debug_mode("error")``: no host
+    synchronisation (the linear experts' capacity dispatch included), the
+    LayerNorms through the kernel, the outputs equal an earlier run's."""
+    from sm3det_tpu_torch.models.builder import build_detector
+    from sm3det_tpu_torch.utils.config import Config
+    model = build_detector(Config.fromfile(path).model, device=cuda,
+                           compute_dtype="bfloat16", seed=0)
+    model.sar_bbox_head.gfl_cls.bias.fill_(0.0)
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    imgs = [torch.rand(n, 800, 800, 3, generator=gen, device=cuda)
+            for n in (2, 1, 1)]
+    first = model.simple_test_joint(*imgs)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        second = model.simple_test_joint(*imgs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    # 34 LayerNorms: a patch embed's, two a block and an output's a stage
+    assert build.LAUNCHES["fused_layernorm"] == 34
+    assert build.LAUNCHES["roi_align_rotated"] == 1
+    assert build.LAUNCHES["moe_ffn_grouped"] == 0
+    for a, b in zip(first, second):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+    assert bool(torch.isfinite(second[0][0]).all())
+    assert int(second[0][2].sum()) > 0

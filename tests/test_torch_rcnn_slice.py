@@ -36,7 +36,7 @@ from sm3det_tpu.models.roi_heads.oriented_roi_head import (
     extract_rotated_roi_feats as jax_extract,
     roi_head_get_bboxes as jax_roi_head_get_bboxes)
 from sm3det_tpu.ops.rotated_iou import box_iou_rotated as jax_iou
-from sm3det_tpu_torch.convert import SKIPPED, SUBTREES, from_flax
+from sm3det_tpu_torch.convert import OPTIONAL_LEAVES, SUBTREES, from_flax
 from sm3det_tpu_torch.models.detectors.trisource import (
     DEFAULT_MODEL_CFG, TriSourceDetector, make_rcnn_coder)
 from sm3det_tpu_torch.models.roi_heads.oriented_roi_head import \
@@ -108,7 +108,9 @@ def pair():
     for head in ("rgb_rpn_head", "ifr_rpn_head"):
         params[head]["rpn_reg"]["kernel"] = \
             params[head]["rpn_reg"]["kernel"] * RPN_REG_GAIN
-    port = TriSourceDetector(_small(DEFAULT_MODEL_CFG), device="cpu")
+    port_cfg = _small(DEFAULT_MODEL_CFG)
+    port_cfg["multi_tasks_reweight"] = "uncertainty"   # it holds mtl_sigma
+    port = TriSourceDetector(port_cfg, device="cpu")
     port.load_state_dict(from_flax(params), strict=True)
     return jmodel, {"params": params}, port, imgs
 
@@ -149,12 +151,14 @@ def _assert_dets(got, ref):
 def test_from_flax_consumes_the_whole_tree(pair):
     _, variables, port, _ = pair
     params = variables["params"]
-    assert set(params) == set(SUBTREES) | set(SKIPPED)
+    assert set(params) == set(SUBTREES) | set(OPTIONAL_LEAVES)
     state = from_flax(params)
     n_leaves = sum(len(jax.tree_util.tree_leaves(params[s]))
-                   for s in SUBTREES)
+                   for s in SUBTREES + OPTIONAL_LEAVES)
     assert len(state) == n_leaves
     assert set(state) == set(port.state_dict())
+    np.testing.assert_array_equal(_np(state["mtl_sigma"]),
+                                  params["mtl_sigma"])
     assert state["rgb_roi_head.shared_fc0.weight"].shape == (1024, 7 * 7 * 32)
     assert state["ifr_rpn_head.rpn_reg.weight"].shape == (18, 256, 1, 1)
     for bad_path in (("rgb_roi_head", "fc_reg", "unknown"), ("aux_head",)):

@@ -166,11 +166,11 @@ def test_later_slices_raise(pair):
     with pytest.raises(NotImplementedError, match="domain attention"):
         TriSourceDetector(cfg, device="cpu")
     cfg = _small(DEFAULT_MODEL_CFG)
-    cfg["backbone"]["type"] = "LSKNet"
-    with pytest.raises(NotImplementedError, match="LSKNet"):
+    cfg["backbone"]["type"] = "SwinTransformer_moe"
+    with pytest.raises(NotImplementedError, match="SwinTransformer_moe"):
         TriSourceDetector(cfg, device="cpu")
-    for mode in ("uncertainty", "dwa"):
+    for gate in ("linear", "top"):
         cfg = _small(DEFAULT_MODEL_CFG)
-        cfg["multi_tasks_reweight"] = mode
-        with pytest.raises(NotImplementedError, match="not ported"):
+        cfg["backbone"]["gate"] = gate
+        with pytest.raises(NotImplementedError, match="only the cosine gate"):
             TriSourceDetector(cfg, device="cpu", trainable=True)

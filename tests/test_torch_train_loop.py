@@ -443,7 +443,7 @@ def test_cli_raises_without_a_card(tmp_path, monkeypatch):
 @pytest.mark.parametrize("extra,match", [
     (["--num-devices", "2"], "item 6"),
     (["--cfg-options", "expert_parallel=2"], "item 6"),
-    (["--cfg-options", "model.multi_tasks_reweight=dwa"], "item 3"),
+    (["--cfg-options", "optimizer.layer_decay=0.9"], "item 3"),
     (["--cfg-options", "ema_decay=0.999"], "item 3"),
     (["--cfg-options", "optimizer.accumulate=2"], "item 3"),
     (["--cfg-options", "lr_config.policy=cosine"], "item 3"),
