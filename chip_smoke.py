@@ -55,7 +55,7 @@ Phases (any failure exits non-zero):
    equal to the file bit for bit, and 5 more iterations with finite
    losses and the host synchronisations counted by part (the loop's own
    at most one a log line); (b) ``configs/convergence_synth.py`` in bf16
-   for 600 iterations, each eval's mAP50 per modality beside the JAX
+   for 300 iterations, each eval's mAP50 per modality beside the JAX
    package's bf16 and fp32 records: finite losses, the last window's
    total loss below the first's, the final SAR mAP50 at least 0.5;
 8. LSKNet-MoE / VAN-MoE and the loss reweighting: (a) the detector of
@@ -73,7 +73,28 @@ Phases (any failure exits non-zero):
    ``main_uncertainty_convnext_t_orcnn_gfl.py`` 10 iterations
    (``reweighted_total_losses`` logged, ``mtl_sigma`` moved) and again
    with DWA (weights 1 at step 1 and not after, the carry in
-   ``iter_10.pth``).
+   ``iter_10.pth``);
+9. the TriSource head-combination variants and the zoo's single-dataset
+   detectors: (a) H1-R1, H2-R1 and H2-R2 (``SM3Det_convnext_t_
+   {s2anet_gfl, s2anet_frcnn, orcnn_frcnn}.py`` through
+   ``build_detector``), one fp32 forward + backward at [1:1:1] x 512^2 on
+   the card against the host with the same draws and proposals: every
+   loss within 1e-3 relative, each top-level subtree's gradient norm
+   within 1e-2; (b) ``tools.train`` on the H2-R2 config, bf16, [2:1:1] x
+   800^2, ``evaluation=None``, DLA on after two iterations: 12 iterations
+   with a checkpoint at 6 and a resume equal to it bit for bit, then 6
+   iterations of H1-R1 (the retina assigner): images/s, peak memory,
+   host syncs by part, the losses, the launches a step; (c)
+   ``simple_test`` of ``OrientedRCNN``, ``GFL`` and ``RotatedRetinaNet``
+   (``dota_convnext_t_orcnn.py``, ``sardet50k_convnext_t_gfl.py``) at 8 x
+   800^2 bf16: images/s, peak memory, host syncs, launches; then
+   ``OrientedRCNN`` at one 800^2 image in fp32, card against host, stage
+   by stage.
+
+Phase 3 also holds the variants' new shapes: row 4's mask mode and the
+keep scan at the H2 SAR RPN's 4507 candidates an image, row 5's matrix
+mode at the retina assigner's 120087 anchors x 512 and x 256 gts (bit for
+bit), and rows 7 and 8 on axis-aligned RoIs with integer edges.
 
 Phase 3 holds the NMS's kernels (the IoU kernels' mask mode, which packs
 the decisions ``iou > thr`` into 32-bit words, and the greedy keep scan)
@@ -117,6 +138,11 @@ N_PROPOSALS = 2000         # rpn_max = rcnn pre_nms of DEFAULT_MODEL_CFG
 # fp32 operations of one rotated-IoU pair: 32 edge-against-edge clips of
 # ~17 operations (3 of them divisions) and 8 clipped-edge cross products
 ROT_IOU_FLOPS = 650
+# a distance test of two circumscribed circles (dx, dy, the squares and
+# sums, a comparison)
+CIRCLE_TEST_FLOPS = 8
+# the H2 SAR RPN's NMS candidates at 800^2: min(1000, level) of 5 levels
+H2_RPN_N = 4 * 1000 + 13 * 13 * 3
 # stage geometry of ConvNeXt-T at 800^2: (H = W, C, dense blocks, MoE
 # blocks, LayerNorms: stem, downsample into the next stage, output)
 STAGES = [(200, 96, 3, 0, 3), (100, 192, 3, 0, 2), (50, 384, 4, 5, 2),
@@ -351,6 +377,46 @@ def align_read_model(torch, sample_taps, feats, rois, lvls,
         tot["unstaged"] += int((~staged).sum())
     tot["median_pixels"] = float(torch.cat(every).float().median())
     return tot
+
+
+def equal_rectangles(torch, obb_corners, a, b, what, scores=None):
+    """Card boxes ``a`` against host boxes ``b`` (..., 5): fieldwise within
+    1e-4 of the image size, or the same rectangle in its other description
+    (a tie of w and h swaps them and turns the angle by 90 degrees; a tie
+    at the le90 wrap turns it by 180): the corners agree up to a cyclic
+    shift, within 1e-4 of the box's coordinates. With ``scores`` (card,
+    host), boxes whose scores are within 1e-6 may also have changed
+    places: the two devices' sigmoid differs in the last bit, and the merge
+    orders by score. Logs the comparison as ``what``."""
+    a, b = a.reshape(-1, 5).cpu(), b.reshape(-1, 5).cpu()
+    far = (a - b).abs().amax(-1) > 1e-4 * IMG
+    n_far = int(far.sum())
+    ok, worst = True, 0.0
+    if n_far:
+        ca, cb = obb_corners(a[far]), obb_corners(b[far])
+        lim = 1e-4 * torch.clamp(ca.abs().amax((1, 2)), min=IMG)
+        if scores is None:
+            dist = torch.stack([
+                (ca - torch.roll(cb, k, dims=1)).abs().amax((1, 2))
+                for k in range(4)]).amin(0) / lim
+        else:
+            sa, sb = (t.reshape(-1).cpu()[far] for t in scores)
+            dist = torch.stack([
+                (ca[:, None] - torch.roll(cb, k, dims=1)[None]).abs()
+                .amax((2, 3)) for k in range(4)]).amin(0) / lim[:, None]
+            dist = dist + 1e9 * ((sa[:, None] - sb[None]).abs() > 1e-6)
+            dist = torch.maximum(dist.amin(1), dist.amin(0))
+        ok, worst = bool((dist <= 1).all()), dist.max().item()
+        if not ok:
+            log(f"[e2e fp32] {what}: differing boxes (card, host): "
+                f"{a[far][dist > 1][:4].tolist()} "
+                f"{b[far][dist > 1][:4].tolist()}")
+    log(f"[e2e fp32] {what}: {a.shape[0] - n_far} boxes equal "
+        f"fieldwise (1e-4 x {IMG}), {n_far} equal as rectangles"
+        f"{' or swapped at tied scores' if scores else ''} only (worst "
+        f"corner distance {worst:.2f} of its limit) "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok
 
 
 def make_train_batch(rng, comp, img, g):
@@ -746,7 +812,9 @@ TRAIN_WORK = "work_dirs/chip_smoke_train"   # gitignored; removed at the end
 TRAIN_ITERS = 30
 TRAIN_WARM = 2             # iterations left out of the timed window
 CONV_CFG = "configs/convergence_synth.py"
-CONV_ITERS = 600
+# 300 of the config's 600 iterations, to leave phase 9 room in the time
+# limit; tools/profiling/torch_convergence.py runs 600 and 1500
+CONV_ITERS = 300
 CONV_SAR_GATE = 0.5        # the final SAR mAP50 must reach this
 # the JAX package's convergence records for CONV_CFG (600 iterations on a
 # TPU, held-out draws; PARITY.md): the bf16 run and the fp32 run
@@ -810,6 +878,24 @@ def syncs_by_part(torch, fn):
             torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     return out, parts, step_sites
+
+
+def checkpoint_equal(torch, ck, s):
+    """Whether the train state ``s`` a resumed run loaded equals the
+    ``iter_N.pth`` file ``ck`` bit for bit: the parameters, Adam's moments,
+    the step counts, the DLA multipliers and EMA, the generator."""
+    from sm3det_tpu_torch.train.checkpoint import TRAIN_FORMAT
+    saved = torch.load(ck, map_location="cpu", weights_only=True)
+    names = list(s.params)
+    same = saved["format"] == TRAIN_FORMAT and saved["names"] == names
+    for key, ts in (("params", s.params.values()), ("mu", s.opt.mu),
+                    ("nu", s.opt.nu)):
+        same = same and all(torch.equal(saved[key][n], t.cpu())
+                            for n, t in zip(names, ts))
+    return same and (saved["count"], saved["step"], saved["mults"]) == (
+        s.opt.count, s.opt.step, s.opt.mults) and \
+        torch.equal(saved["dla"]["ema"], s.opt.dla.ema.cpu()) and \
+        torch.equal(saved["gen_state"], s.gen.get_state())
 
 
 def read_records():
@@ -897,7 +983,6 @@ def phase7(torch, dev, smi, build):
     import numpy as np
 
     from sm3det_tpu_torch.tools import train as tool
-    from sm3det_tpu_torch.train.checkpoint import TRAIN_FORMAT
     from sm3det_tpu_torch.utils.config import Config
 
     failures, rec = [], {}
@@ -980,25 +1065,14 @@ def phase7(torch, dev, smi, build):
     back = tool.main(common[:4] + ["--resume-from", ck, "--max-iters", "20"]
                      + common[4:])
     load_s = time.perf_counter() - t0
-    saved = torch.load(ck, map_location="cpu", weights_only=True)
-    s = back["state"]
-    names = list(s.params)
-    same = saved["format"] == TRAIN_FORMAT and saved["names"] == names
-    for key, ts in (("params", s.params.values()), ("mu", s.opt.mu),
-                    ("nu", s.opt.nu)):
-        same = same and all(torch.equal(saved[key][n], t.cpu())
-                            for n, t in zip(names, ts))
-    same = same and (saved["count"], saved["step"], saved["mults"]) == (
-        s.opt.count, s.opt.step, s.opt.mults) and \
-        torch.equal(saved["dla"]["ema"], s.opt.dla.ema.cpu()) and \
-        torch.equal(saved["gen_state"], s.gen.get_state())
+    same = checkpoint_equal(torch, ck, back["state"])
     log(f"[train entry] --resume-from iter_20: start {back['start_iter']}, "
         f"the loaded state equal to the file bit for bit: {same} (the run, "
         f"build and load included, {load_s:.1f} s)")
     if not (same and back["start_iter"] == 20):
         failures.append("train entry: the resumed state differs from "
                         "iter_20.pth")
-    del back, s, saved
+    del back
     torch.cuda.empty_cache()
 
     # ... and trains on from it: 5 iterations, synchronisations by part
@@ -1184,7 +1258,6 @@ def phase8(torch, dev, smi, build):
     from sm3det_tpu_torch.tools import test as test_cli
     from sm3det_tpu_torch.tools import train as train_cli
     from sm3det_tpu_torch.train import train_state as ts_mod
-    from sm3det_tpu_torch.train.checkpoint import TRAIN_FORMAT
     from sm3det_tpu_torch.utils.config import Config
 
     failures, rec = [], {}
@@ -1477,25 +1550,14 @@ def phase8(torch, dev, smi, build):
     back = train_cli.main([LSK_T_CFG, "--synthetic-data", "--work-dir", wd,
                            "--resume-from", ck, "--max-iters", str(half),
                            "--cfg-options", "model.compute_dtype=bfloat16"])
-    saved = torch.load(ck, map_location="cpu", weights_only=True)
-    s = back["state"]
-    names = list(s.params)
-    same = saved["format"] == TRAIN_FORMAT and saved["names"] == names
-    for key, ts in (("params", s.params.values()), ("mu", s.opt.mu),
-                    ("nu", s.opt.nu)):
-        same = same and all(torch.equal(saved[key][n], t.cpu())
-                            for n, t in zip(names, ts))
-    same = same and (saved["count"], saved["step"], saved["mults"]) == (
-        s.opt.count, s.opt.step, s.opt.mults) and \
-        torch.equal(saved["dla"]["ema"], s.opt.dla.ema.cpu()) and \
-        torch.equal(saved["gen_state"], s.gen.get_state())
+    same = checkpoint_equal(torch, ck, back["state"])
     log(f"[lsk train] --resume-from iter_{half}: start "
         f"{back['start_iter']}, the loaded state equal to the file bit for "
         f"bit: {same}")
     if not (same and back["start_iter"] == half):
         failures.append(f"lsk train: the resumed state differs from "
                         f"iter_{half}.pth")
-    del back, s, saved
+    del back
     out, rec["train_lsk_t_resumed"] = train_run(
         LSK_T_CFG, wd, half + 2, ("log_interval=2",), ("--resume-from", ck))
     if not rec["train_lsk_t_resumed"]["last_log"]:
@@ -1559,6 +1621,390 @@ def phase8(torch, dev, smi, build):
     rec["phase_s"] = time.perf_counter() - t_phase
     log(f"[lsk] phase 8 wall time {rec['phase_s']:.1f} s")
     return failures, rec, lsk_launches
+
+
+VARIANT_CFGS = tuple(
+    (tag, f"configs/local_configs/SM3Det_convnext_t_{name}.py")
+    for tag, name in (("H1-R1", "s2anet_gfl"), ("H2-R1", "s2anet_frcnn"),
+                      ("H2-R2", "orcnn_frcnn")))
+VARIANT_WORK = "work_dirs/chip_smoke_variant"   # gitignored; removed
+VARIANT_ITERS = 12          # H2-R2 through the train entry point
+VARIANT_H1_ITERS = 6        # H1-R1: the retina assigner
+ZOO_DOTA_CFG = "configs/local_configs/dota_convnext_t_orcnn.py"
+ZOO_SAR_CFG = "configs/local_configs/sardet50k_convnext_t_gfl.py"
+# the kernels each run must launch: the H2-R2 / H1-R1 train steps and
+# the zoo's forwards (no MoE block in the zoo's ConvNeXt configs)
+VARIANT_KERNELS = {
+    "H2-R2": ("hbb_nms_mask", "nms_keep", "rotated_iou", "roi_align_rotated",
+              "roi_align_rotated_bwd", "fused_dwconv_ln_train",
+              "fused_dwconv_ln_train_bwd"),
+    "H1-R1": ("rotated_iou", "fused_dwconv_ln_train",
+              "fused_dwconv_ln_train_bwd")}
+ZOO_KERNELS = {
+    "OrientedRCNN": ("fused_convnext_block", "fused_layernorm",
+                     "hbb_nms_mask", "nms_keep", "roi_align_rotated",
+                     "rotated_nms_mask_banded"),
+    "GFL": ("fused_convnext_block", "fused_layernorm", "hbb_nms_mask",
+            "nms_keep"),
+    "RotatedRetinaNet": ("fused_convnext_block", "fused_layernorm",
+                         "rotated_nms_mask_banded", "nms_keep")}
+
+
+def phase9(torch, dev, smi, build):
+    """9. The TriSource head-combination variants and the zoo's
+    single-dataset detectors on the card: (a) the H1-R1, H2-R1 and H2-R2
+    configs through ``build_detector``, one fp32 forward + backward at
+    [1:1:1] x 512^2 on the card against the host, with the same draws and
+    proposals: every loss within 1e-3 relative, each top-level subtree's
+    gradient norm within 1e-2; (b) ``tools.train`` on the H2-R2 config at
+    full width in bf16, [2:1:1] x 800^2, DLA on after two iterations, with a
+    checkpoint and a resume equal to it bit for bit, then H1-R1; (c)
+    ``simple_test`` of ``OrientedRCNN``, ``GFL`` and ``RotatedRetinaNet`` at
+    8 x 800^2 bf16, and ``OrientedRCNN`` at one 800^2 image in fp32, card
+    against host, stage by stage. Returns (failures, record, launches of
+    one H2-R2 train step)."""
+    import copy
+    import os
+    import shutil
+
+    import numpy as np
+
+    from sm3det_tpu_torch.models.builder import build_detector
+    from sm3det_tpu_torch.models.detectors import hbb_detectors as hbb_mod
+    from sm3det_tpu_torch.models.detectors import trisource as tri_mod
+    from sm3det_tpu_torch.models.detectors.trisource import roi_feats
+    from sm3det_tpu_torch.ops import nms as nms_mod
+    from sm3det_tpu_torch.ops.cuda import rotated_iou_kernel as rik
+    from sm3det_tpu_torch.ops.rotated_iou import obb_corners
+    from sm3det_tpu_torch.tools import train as train_cli
+    from sm3det_tpu_torch.train.train_state import batch_to, trainable_params
+    from sm3det_tpu_torch.utils.config import Config
+
+    failures, rec = [], {}
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False     # as main: fp32 is fp32
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    # (a) card against host, one fp32 forward + backward a combination
+    tbatch = make_train_batch(np.random.RandomState(9), (1, 1, 1), HOST_IMG,
+                              TRAIN_GTS)
+    real = {"tri": tri_mod.rpn_get_proposals,
+            "hbb": hbb_mod.hbb_rpn_get_proposals}
+    rec["card_host"] = {}
+    for name, path in VARIANT_CFGS:
+        t0 = time.perf_counter()
+        card = build_detector(Config.fromfile(path).model, device=dev,
+                              compute_dtype="float32", seed=0,
+                              trainable=True)
+        host = copy.deepcopy(card).to("cpu")
+        # the proposal NMS is a discrete function of float noise: the
+        # host samples its RoIs from the card's proposals
+        recorded, replayed = {"tri": [], "hbb": []}, {"tri": 0, "hbb": 0}
+
+        def record(key):
+            def fn(*a, **kw):
+                out = real[key](*a, **kw)
+                recorded[key].append(out)
+                return out
+            return fn
+
+        def replay(key):
+            def fn(*a, **kw):
+                out = recorded[key][replayed[key]]
+                replayed[key] += 1
+                return tuple(t.cpu() for t in out)
+            return fn
+
+        runs = {}
+        for side, m, dv, patch in (("card", card, dev, record),
+                                   ("host", host, torch.device("cpu"),
+                                    replay)):
+            tri_mod.rpn_get_proposals = patch("tri")
+            hbb_mod.hbb_rpn_get_proposals = patch("hbb")
+            try:
+                params = trainable_params(m)
+                losses = m(batch_to(tbatch, dv),
+                           gen=torch.Generator().manual_seed(5))
+                grads = torch.autograd.grad(
+                    sum(losses.values()), list(params.values()),
+                    allow_unused=True)
+                grads = [torch.zeros_like(p) if g is None else g
+                         for p, g in zip(params.values(), grads)]
+            finally:
+                tri_mod.rpn_get_proposals = real["tri"]
+                hbb_mod.hbb_rpn_get_proposals = real["hbb"]
+            runs[side] = ({k: float(v.detach()) for k, v in losses.items()},
+                          subtree_norms(torch, list(params), grads))
+            del losses, grads
+        (ld, nd), (lh, nh) = runs["card"], runs["host"]
+        bad = [k for k in lh if not (np.isfinite(ld[k]) and abs(
+            ld[k] - lh[k]) <= 1e-3 * abs(lh[k]) + 1e-7)]
+        bad += [f"|grad {k}|" for k in nh if not (np.isfinite(nd[k]) and abs(
+            nd[k] - nh[k]) <= 1e-2 * nh[k])]
+        worst_l = max(abs(ld[k] - lh[k]) / max(abs(lh[k]), 1e-12)
+                      for k in lh)
+        worst_g = max(abs(nd[k] - nh[k]) / max(nh[k], 1e-12) for k in nh)
+        rec["card_host"][name] = dict(card_losses=ld, host_losses=lh,
+                                      worst_loss_rel=worst_l,
+                                      worst_grad_norm_rel=worst_g)
+        log(f"[variant fp32] {name} ({os.path.basename(path)}), [1:1:1] x "
+            f"{HOST_IMG}^2, card against host with the card's proposals "
+            f"({len(recorded['tri'])} oriented, {len(recorded['hbb'])} "
+            f"horizontal): {len(lh)} losses, worst {worst_l:.2e} relative "
+            f"(tol 1e-3); {len(nh)} subtree gradient norms, worst "
+            f"{worst_g:.2e} (tol 1e-2); {time.perf_counter() - t0:.1f} s "
+            f"{'ok' if not bad else 'FAIL ' + str(bad)}")
+        for k in sorted(lh):
+            log(f"[variant fp32]   {k}: card {ld[k]:.6e} host {lh[k]:.6e}")
+        failures += [f"variant {name} card/host {k}" for k in bad]
+        del card, host, recorded
+        torch.cuda.empty_cache()
+
+    # (b) the train entry point
+    shutil.rmtree(VARIANT_WORK, ignore_errors=True)
+
+    def train_run(tag, path, wd, iters, extra=(), argv_extra=()):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        out, parts, sites = syncs_by_part(torch, lambda: train_cli.main(
+            [path, "--synthetic-data", "--work-dir", wd, "--max-iters",
+             str(iters)] + list(argv_extra) + [
+                "--cfg-options", "evaluation=None",
+                "model.compute_dtype=bfloat16", "lr_config.warmup_iters=2",
+                "log_interval=2"] + list(extra)))
+        wall = time.perf_counter() - t0
+        st = out["stats"]
+        done = st["iters"]
+        steps = np.diff(st["iter_end_s"][2:]) * 1e3   # after 2 warm-up
+        n_img = sum(Config.fromfile(path).source_ratio)
+        q = (statistics.quantiles(steps, n=4) if len(steps) > 1
+             else [float("nan")] * 3)
+        r = dict(iterations=done, median_iteration_ms=q[1],
+                 iteration_ms_quartiles=[q[0], q[2]],
+                 images_per_s=n_img / q[1] * 1e3,
+                 images_per_s_quartiles=[n_img / q[2] * 1e3,
+                                         n_img / q[0] * 1e3],
+                 peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                 syncs=parts, syncs_per_step=parts["step"] / max(done, 1),
+                 step_sync_sites=sites,
+                 last_log=st["log_lines"][-1] if st["log_lines"] else None,
+                 launches_per_step={k: v / max(done, 1) for k, v in
+                                    build.LAUNCHES.items() if v},
+                 mults=dict(out["state"].opt.mults), wall_s=wall)
+        log(f"[variant train] {tag} ({os.path.basename(path)}): {done} "
+            f"iterations in {wall:.1f} s; median iteration {q[1]:.1f} ms "
+            f"(quartiles {q[0]:.1f} / {q[2]:.1f}), "
+            f"{r['images_per_s']:.2f} images/s (quartiles "
+            f"{r['images_per_s_quartiles'][0]:.2f} / "
+            f"{r['images_per_s_quartiles'][1]:.2f}, host clock); peak "
+            f"{r['peak_gib']:.2f} GiB; syncs by part {parts} "
+            f"({r['syncs_per_step']:.1f} a step); card {smi}")
+        log(f"[variant train]   the step's syncs by site: {sites}")
+        log(f"[variant train]   launches a step: {r['launches_per_step']}")
+        log(f"[variant train]   DLA multipliers at the end: {r['mults']}")
+        log(f"[variant train]   last log line: {r['last_log']}")
+        if not st["log_lines"] or not all(
+                np.isfinite(v) for x in st["log_lines"] for v in x.values()):
+            failures.append(f"variant train {tag}: a logged value is not "
+                            f"finite")
+        for k in VARIANT_KERNELS[tag]:
+            if build.LAUNCHES.get(k, 0) <= 0:
+                failures.append(f"variant train {tag}: launches {k}=0")
+        return out, r
+
+    h2r2 = dict(VARIANT_CFGS)["H2-R2"]
+    wd = os.path.join(VARIANT_WORK, "h2r2")
+    half = VARIANT_ITERS // 2
+    out, rec["train_h2r2"] = train_run(
+        "H2-R2", h2r2, wd, VARIANT_ITERS, (f"checkpoint_interval={half}",))
+    mults = rec["train_h2r2"]["mults"]
+    if not mults or all(abs(m - 1.0) < 1e-6 for m in mults.values()):
+        failures.append("variant train: DLA did not switch on")
+    del out
+    ck = os.path.join(wd, f"iter_{half}.pth")
+    back = train_cli.main([h2r2, "--synthetic-data", "--work-dir", wd,
+                           "--resume-from", ck, "--max-iters", str(half),
+                           "--cfg-options", "evaluation=None",
+                           "model.compute_dtype=bfloat16",
+                           "lr_config.warmup_iters=2"])
+    same = checkpoint_equal(torch, ck, back["state"])
+    rec["resume_equal"] = same
+    log(f"[variant train] H2-R2 --resume-from iter_{half}: start "
+        f"{back['start_iter']}, the loaded state equal to the file bit for "
+        f"bit: {same}")
+    if not (same and back["start_iter"] == half):
+        failures.append(f"variant train: the resumed state differs from "
+                        f"iter_{half}.pth")
+    del back
+    torch.cuda.empty_cache()
+    out, rec["train_h1r1"] = train_run(
+        "H1-R1", dict(VARIANT_CFGS)["H1-R1"], os.path.join(
+            VARIANT_WORK, "h1r1"), VARIANT_H1_ITERS,
+        (f"checkpoint_interval={VARIANT_H1_ITERS + 1}",))
+    del out
+    shutil.rmtree(VARIANT_WORK, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # (c) the zoo's forwards, 8 x 800^2 bf16
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    imgs = torch.rand(N_IMGS, IMG, IMG, 3, generator=gen, device=dev)
+    shape = (IMG, IMG)
+    rec["zoo"] = {}
+    for name, path, mtype in (("OrientedRCNN", ZOO_DOTA_CFG, None),
+                              ("GFL", ZOO_SAR_CFG, None),
+                              ("RotatedRetinaNet", ZOO_DOTA_CFG,
+                               "RotatedRetinaNet")):
+        mc = Config.fromfile(path).model.to_dict()
+        if mtype:
+            mc["type"] = mtype
+        model = build_detector(mc, device=dev, compute_dtype="bfloat16",
+                               seed=0)
+        # real detections: class scores off the 0.01 prior
+        with torch.no_grad():
+            if name == "GFL":
+                model.bbox_head.gfl_cls.bias.fill_(0.0)
+            elif name == "RotatedRetinaNet":
+                model.bbox_head.retina_cls.bias.fill_(0.0)
+            else:
+                x = model.extract_feat(imgs[:1])
+                p, _, _ = model.get_proposals(*model.rpn_head(x), shape)
+                spread_class_scores(model.roi_head, roi_feats(x, p))
+
+        def fwd():
+            return model.simple_test(imgs, shape)
+        out = fwd()
+        torch.cuda.synchronize()
+        build.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        out = fwd()
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        sites = host_syncs(torch, fwd)
+        _, q1, med, q3 = timed_forwards(torch, fwd, n=6)
+        dets, labels, valid = out
+        n_valid = int(valid.sum())
+        ok = bool(torch.isfinite(dets).all()) and n_valid > 0 and all(
+            launches.get(k, 0) > 0 for k in ZOO_KERNELS[name])
+        rec["zoo"][name] = dict(
+            images_per_s=N_IMGS / med, ms=med * 1e3,
+            ms_quartiles=[q1 * 1e3, q3 * 1e3], peak_gib=peak,
+            host_syncs=sum(sites.values()), sync_sites=sites,
+            launches={k: v for k, v in launches.items() if v},
+            valid=n_valid, dets_shape=list(dets.shape))
+        log(f"[zoo] {name} ({os.path.basename(path)}) simple_test 8 x "
+            f"{IMG}^2 bf16: median {med * 1e3:.2f} ms (quartiles "
+            f"{q1 * 1e3:.2f} / {q3 * 1e3:.2f}), {N_IMGS / med:.2f} images/s "
+            f"(host clock); peak {peak:.2f} GiB; host syncs {sites}; "
+            f"dets {tuple(dets.shape)}, {n_valid} valid; launches "
+            f"{rec['zoo'][name]['launches']}; card {smi} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"zoo {name} forward")
+        del model, out, dets, labels, valid
+        torch.cuda.empty_cache()
+
+    # OrientedRCNN, one 800^2 image, fp32: card against host, stage by
+    # stage; each stage from the card's inputs to it
+    e2e_tol = 1e-3
+    model = build_detector(Config.fromfile(ZOO_DOTA_CFG).model, device=dev,
+                           compute_dtype="float32", seed=0)
+    host = copy.deepcopy(model).to("cpu")
+    img = imgs[:1]
+    zoo_fail = []
+
+    def stage(what, a, b):
+        err, scale = max_err(a.cpu(), b.cpu())
+        ok = bool(torch.isfinite(a.float()).all()) and a.shape == b.shape \
+            and err <= e2e_tol * max(scale, 1.0)
+        log(f"[zoo fp32] OrientedRCNN {what} {tuple(a.shape)}: max abs err "
+            f"{err:.3e} (max |ref| {scale:.3e}) tol {e2e_tol} x scale "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            zoo_fail.append(what)
+
+    with torch.no_grad():
+        f_d = model.backbone(model._cast_in(img))
+        f_h = host.backbone(img.cpu())
+        for lvl, (a, b) in enumerate(zip(f_d, f_h)):
+            stage(f"features[{lvl}]", a, b)
+        x_d = model._neck(f_d)
+        x_h = host._neck([t.cpu() for t in f_d])
+        rpn_d = model.rpn_head(x_d)
+        rpn_h = host.rpn_head([t.cpu() for t in x_d])
+        for lvl in range(len(x_d)):
+            stage(f"neck[{lvl}]", x_d[lvl], x_h[lvl])
+            stage(f"rpn_cls[{lvl}]", rpn_d[0][lvl], rpn_h[0][lvl])
+            stage(f"rpn_reg[{lvl}]", rpn_d[1][lvl], rpn_h[1][lvl])
+        prop_d, psc_d, pval_d = model.get_proposals(*rpn_d, shape)
+        prop_h, psc_h, pval_h = host.get_proposals(
+            [t.cpu() for t in rpn_d[0]], [t.cpu() for t in rpn_d[1]], shape)
+        ok = torch.equal(pval_d.cpu(), pval_h) and \
+            (psc_d.cpu() - psc_h).abs().max().item() <= 1e-6 and \
+            equal_rectangles(torch, obb_corners, prop_d, prop_h,
+                             "OrientedRCNN proposals", (psc_d, psc_h))
+        if not ok or int(pval_h.sum()) == 0:
+            zoo_fail.append("proposals")
+        rf_d = roi_feats(x_d, prop_d)
+        rf_h = roi_feats([t.cpu() for t in x_d], prop_d.cpu())
+        bin_err = (rf_d.cpu() - rf_h).abs().amax(-1)
+        n_bad = int((bin_err > e2e_tol * max(rf_h.abs().max().item(),
+                                             1.0)).sum())
+        log(f"[zoo fp32] OrientedRCNN roi_feats {tuple(rf_d.shape)}: "
+            f"{n_bad} of {bin_err.numel()} bins beyond {e2e_tol} x scale "
+            f"(allowed 8: border samples) {'ok' if n_bad <= 8 else 'FAIL'}")
+        if n_bad > 8:
+            zoo_fail.append("roi_feats")
+        spread_class_scores(model.roi_head, rf_d)
+        host.roi_head.load_state_dict(
+            {k: v.cpu() for k, v in model.roi_head.state_dict().items()})
+        lg_d, dl_d = model.roi_head(rf_d)
+        lg_h, dl_h = host.roi_head(rf_d.cpu())
+        stage("cls_logits", lg_d, lg_h)
+        stage("bbox_deltas", dl_d, dl_h)
+        args = (lg_d[None], dl_d[None], prop_d, pval_d)
+        det_d = model.get_bboxes(*args, shape)
+        det_h = host.get_bboxes(*[t.cpu() for t in args], shape)
+        n_valid = int(det_h[2].sum())
+        if torch.equal(det_d[2].cpu(), det_h[2]) and \
+                torch.equal(det_d[1].cpu(), det_h[1]):
+            sc_err = (det_d[0][..., 5].cpu() - det_h[0][..., 5]).abs() \
+                .max().item()
+            ok = n_valid > 0 and sc_err <= 1e-4 and equal_rectangles(
+                torch, obb_corners, det_d[0][..., :5], det_h[0][..., :5],
+                "OrientedRCNN detections")
+            log(f"[zoo fp32] OrientedRCNN detections from the same logits: "
+                f"{n_valid} valid, labels/valid equal, max score err "
+                f"{sc_err:.3e} (tol 1e-4) {'ok' if ok else 'FAIL'}")
+        else:
+            # a candidate pair within rounding of the IoU threshold decides
+            # either way between the devices (sinf/cosf): the mask kernel
+            # must then agree with its plain version on the card
+            kernel_mask = nms_mod.rotated_nms_mask
+            nms_mod.rotated_nms_mask = rik.rotated_nms_mask_ref
+            try:
+                det_p = model.get_bboxes(*args, shape)
+            finally:
+                nms_mod.rotated_nms_mask = kernel_mask
+            ok = n_valid > 0 and all(torch.equal(a, b)
+                                     for a, b in zip(det_d, det_p))
+            log(f"[zoo fp32] OrientedRCNN detections: card and host differ "
+                f"({int(det_d[2].sum())} against {n_valid} valid) at an IoU "
+                f"near-tie; the card's mask kernel against the plain mask "
+                f"on the card: equal {ok} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            zoo_fail.append("detections")
+    rec["zoo_card_host_ok"] = not zoo_fail
+    failures += [f"zoo OrientedRCNN card/host {k}" for k in zoo_fail]
+    del model, host, imgs
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[variant] phase 9 wall time {rec['phase_s']:.1f} s")
+    step = {k: round(v) for k, v in
+            rec["train_h2r2"]["launches_per_step"].items()}
+    return failures, rec, step
 
 
 def main():
@@ -2282,6 +2728,71 @@ def main():
         record_main("nms_keep", nms_keep_case("R-CNN", words, elig), 1)
     del ab, rcb, words, elig
 
+    # ---- the shapes of the TriSource variants and the zoo (phase 9) -------
+    # row 4's mask mode and the keep scan at the H2 SAR RPN's candidates,
+    # min(1000, level) of its five levels at 800^2: 4507 an image, the
+    # H2-R2 train step's 2 SAR images, thr 0.7
+    hb = some_hbb(2, H2_RPN_N)
+    words, t = nms_mask_case("hbb_nms_mask", "H2 SAR RPN", hb, 0.7)
+    recs["hbb_nms_mask"].extra["h2_sar_rpn"] = dict(shape=[2, H2_RPN_N], **t)
+    elig = torch.rand(2, H2_RPN_N, generator=gen, device=dev) < 0.95
+    recs["nms_keep"].extra["h2_sar_rpn"] = dict(
+        shape=[2, H2_RPN_N], **nms_keep_case("H2 SAR RPN", words, elig))
+    del hb, words, elig
+    # row 5's matrix mode at the rotated RetinaNet assigner: 120087 anchors
+    # of an 800^2 image against 512 (DOTA) or 256 (infrared) gts, one launch
+    # a branch; bit for bit on the defined pairs. The work this data needs:
+    # the pair function for pairs whose circumscribed circles meet, one
+    # distance test (CIRCLE_TEST_FLOPS) for the rest
+    from sm3det_tpu_torch.models.dense_heads.rotated_retina_head import \
+        make_retina_anchor_generator
+    anchors = torch.cat(make_retina_anchor_generator().grid_anchors(
+        [(-(-IMG // st),) * 2 for st in (8, 16, 32, 64, 128)],
+        device=dev))[None]
+    for n_gt in (512, 256):
+        gts = rotated_boxes(1, n_gt)
+        got = rik.rotated_iou(anchors, gts)
+        ref = rik.rotated_iou_ref(anchors, gts)
+        real_a = (anchors[..., 2] * anchors[..., 3]) > 0
+        real_g = (gts[..., 2] * gts[..., 3]) > 0
+        ok_pairs = real_a[..., :, None] == real_g[..., None, :]
+        err = ((got - ref).abs() * ok_pairs).max().item()
+        ok = bool(torch.isfinite(got).all()) and err == 0.0
+        reach = torch.cdist(anchors[0, :, :2], gts[0, :, :2]) <= (
+            anchors[0, :, None, 2:4].norm(dim=-1) / 2
+            + gts[0, None, :, 2:4].norm(dim=-1) / 2)
+        near = int(reach.sum())
+        del reach
+        pairs = got.numel()
+        log(f"[kernel] rotated_iou            float32   {tuple(anchors.shape)}"
+            f" x {tuple(gts.shape)} (the retina assigner): max abs err "
+            f"{err:.3e} on {int(ok_pairs.sum())} defined pairs, "
+            f"{int((ref * ok_pairs > 0.5).sum())} pairs over IoU 0.5, "
+            f"{near} pairs within reach; bit-equal required "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"rotated_iou retina assigner {n_gt}")
+        del ref, ok_pairs
+        ms = cuda_ms(torch, lambda: rik.rotated_iou(anchors, gts), iters=3)
+        dev_ms = device_ms(torch, lambda: rik.rotated_iou(anchors, gts),
+                           iters=3)
+        pms = cuda_ms(torch, lambda: rik.rotated_iou_ref(anchors, gts),
+                      iters=1, warmup=0)
+        b, k = bound_ms(
+            (anchors.numel() + gts.numel() + pairs) * 4,
+            [(near * ROT_IOU_FLOPS + (pairs - near) * CIRCLE_TEST_FLOPS,
+              "float32")])
+        recs["rotated_iou"].extra[f"retina_assigner_{n_gt}"] = dict(
+            shape=[list(anchors.shape), list(gts.shape)], ms=ms,
+            device_ms=dev_ms, plain_ms=pms, bound=b, kind=k,
+            pairs_within_reach=near)
+        log(f"[time]   rotated_iou {tuple(anchors.shape)} x "
+            f"{tuple(gts.shape)} (the retina assigner, 1 a branch): kernel "
+            f"{ms:.4f} ms, device {ms_str(dev_ms)}, plain {pms:.4f} ms, "
+            f"bound {b:.4f} ms ({k})")
+        del got, gts
+    del anchors
+
     # ---- pyramid rotated RoI align at the joint forward's shapes ----------
     n_rois = (JOINT[1] + JOINT[2]) * N_PROPOSALS
 
@@ -2373,11 +2884,38 @@ def main():
                                                device=dev))
     thin[:, 4] = thin[:, 3] / (4 + 36 * torch.rand(
         n_train_rois, generator=gen, device=dev))
+    # the H2 SAR branch's RoIs: axis-aligned with integer edges (angle 0),
+    # where bilinear taps land on pixel edges
+    from sm3det_tpu_torch.models.roi_heads.standard_roi_head import \
+        hbb_to_roi5
+    ixy = torch.randint(-20, IMG - 16, (n_train_rois, 2), generator=gen,
+                        device=dev).float()
+    iwh = torch.randint(1, 400, (n_train_rois, 2), generator=gen,
+                        device=dev).float()
+    level0 = torch.cat([rois_t[:, :1], hbb_to_roi5(torch.cat(
+        [ixy, ixy + iwh], -1))], -1)
     strides4 = (4, 8, 16, 32)
     shapes4 = [(2, IMG // st, IMG // st, 256) for st in strides4]
+    for dtype in (torch.float32, torch.bfloat16):
+        feats4 = [rnd(*sh, dtype=dtype) for sh in shapes4]
+        got = rak.roi_align_rotated_pyramid_fused(feats4, level0)
+        ref = roi_align_rotated_pyramid(feats4, level0, route_levels(level0),
+                                        7)
+        check("roi_align_rotated", dtype,
+              ("angle 0, integer edges", tuple(got.shape)), got, ref,
+              tol[dtype], main_path=False)
+        if not torch.equal(got, rak.roi_align_rotated_pyramid_fused(
+                feats4, level0)):
+            failures.append(f"roi_align_rotated {dtype} angle 0: two "
+                            f"launches differ")
+        del feats4, got, ref
     bwd_steps = 2                      # one align backward per R-CNN branch
+    extra_key = {"all on one centre": "crowded_ms",
+                 "long and thin": "long_thin_ms",
+                 "angle 0, integer edges": "angle0_integer_ms"}
     for case, rr in (("random", rois_t), ("all on one centre", crowd),
-                     ("long and thin", thin)):
+                     ("long and thin", thin),
+                     ("angle 0, integer edges", level0)):
         lv = route_levels(rr)
         for dtype in (torch.float32, torch.bfloat16):
             isz = torch.tensor([], dtype=dtype).element_size()
@@ -2407,9 +2945,7 @@ def main():
                 continue
             ms = cuda_ms(torch, bwd, iters=5)
             if case != "random":
-                recs["roi_align_rotated_bwd"].extra[
-                    "crowded_ms" if case.startswith("all") else
-                    "long_thin_ms"] = ms
+                recs["roi_align_rotated_bwd"].extra[extra_key[case]] = ms
                 log(f"[time]   roi_align_rotated_bwd ({n_train_rois}, 7, 7, "
                     f"256) bf16, {case}: kernel {ms:.4f} ms")
                 continue
@@ -2607,42 +3143,8 @@ def main():
             failures.append(f"e2e rgb {name}")
 
     def same_rectangles(a, b, what, scores=None):
-        """Fieldwise within 1e-4 of the image size, or the same rectangle
-        in its other description (a tie of w and h swaps them and turns the
-        angle by 90 degrees; a tie at the le90 wrap turns it by 180): the
-        corners agree up to a cyclic shift, within 1e-4 of the box's
-        coordinates. With ``scores`` (card, host), boxes whose scores are
-        within 1e-6 may also have changed places: the two devices' sigmoid
-        differs in the last bit, and the merge orders by score."""
-        a, b = a.reshape(-1, 5).cpu(), b.reshape(-1, 5).cpu()
-        far = (a - b).abs().amax(-1) > 1e-4 * IMG
-        n_far = int(far.sum())
-        ok, worst = True, 0.0
-        if n_far:
-            ca, cb = obb_corners(a[far]), obb_corners(b[far])
-            lim = 1e-4 * torch.clamp(ca.abs().amax((1, 2)), min=IMG)
-            if scores is None:
-                dist = torch.stack([
-                    (ca - torch.roll(cb, k, dims=1)).abs().amax((1, 2))
-                    for k in range(4)]).amin(0) / lim
-            else:
-                sa, sb = (t.reshape(-1).cpu()[far] for t in scores)
-                dist = torch.stack([
-                    (ca[:, None] - torch.roll(cb, k, dims=1)[None]).abs()
-                    .amax((2, 3)) for k in range(4)]).amin(0) / lim[:, None]
-                dist = dist + 1e9 * ((sa[:, None] - sb[None]).abs() > 1e-6)
-                dist = torch.maximum(dist.amin(1), dist.amin(0))
-            ok, worst = bool((dist <= 1).all()), dist.max().item()
-            if not ok:
-                log(f"[e2e fp32] rgb {what}: differing boxes (card, host): "
-                    f"{a[far][dist > 1][:4].tolist()} "
-                    f"{b[far][dist > 1][:4].tolist()}")
-        log(f"[e2e fp32] rgb {what}: {a.shape[0] - n_far} boxes equal "
-            f"fieldwise (1e-4 x {IMG}), {n_far} equal as rectangles"
-            f"{' or swapped at tied scores' if scores else ''} only (worst "
-            f"corner distance {worst:.2f} of its limit) "
-            f"{'ok' if ok else 'FAIL'}")
-        return ok
+        return equal_rectangles(torch, obb_corners, a, b, f"rgb {what}",
+                                scores)
 
     with torch.no_grad():
         x_d = model.neck_rcnn(feats_d)
@@ -3158,6 +3660,15 @@ def main():
     recs["fused_layernorm"].extra["lsk_t_joint_launches"] = \
         lsk_launches["fused_layernorm"]
 
+    # ---- 9. the TriSource variants and the zoo's detectors -----------------
+    torch.cuda.empty_cache()
+    var_failures, var_rec, var_launches = phase9(torch, dev, smi, build)
+    if var_failures:
+        fail(f"variants and zoo phase failed: {var_failures}")
+    for k, n in var_launches.items():
+        if k in recs:
+            recs[k].extra["h2r2_train_step_launches"] = n
+
     log(json.dumps({
         "kernels": [recs[k].json(launches[k]) for k in recs],
         "launches_from": "simple_test_joint [8:4:4]; rotated_nms_mask "
@@ -3179,6 +3690,7 @@ def main():
         "train_entry": train_rec,
         "train_entry_launches": train_entry_launches,
         "lsk_van_reweight": lsk_rec,
+        "variants_zoo": var_rec, "h2r2_train_step_launches": var_launches,
         "card": smi}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

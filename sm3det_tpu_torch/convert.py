@@ -1,18 +1,24 @@
 """Convert the JAX package's flax parameters into the port's state_dict.
 
 ``from_flax(params)`` takes the flax ``params`` tree (nested dicts of numpy
-arrays) of a ``TriSourceDetector`` and converts every leaf under
-``backbone``, ``neck``, ``sar_bbox_head`` and the four RGB / infrared heads
-(``{rgb,ifr}_rpn_head``, ``{rgb,ifr}_roi_head``), and ``mtl_sigma`` (the
-uncertainty reweighting's sigmas) where the tree has it; it raises on a
-leaf that no rule consumes and on a top-level entry it does not know.
+arrays) of a detector and converts every leaf under its top-level
+entries: ``backbone`` and ``neck``; the TriSource heads
+(``sar_bbox_head``, ``sar_rpn_head``, ``sar_roi_head``,
+``{rgb,ifr}_{rpn,roi,bbox}_head``); the single-dataset detectors' heads
+(``rpn_head``, ``roi_head``, ``bbox_head``, the cascade's
+``bbox_head{i}``, and the horizontal RetinaNet's top-level
+``cls_conv{i}``, ``reg_conv{i}``, ``retina_cls`` and ``retina_reg``); and
+``mtl_sigma`` (the uncertainty reweighting's sigmas) where the tree has
+it. It raises on a leaf that no rule consumes and on a top-level entry it
+does not know.
 Module names follow the flax keys (``backbone.stage2_block0.ffn.experts.w1``,
 ``backbone.stage2_block0.mlp.fc1.experts.w``, ``neck.lateral1.weight``,
 ``sar_bbox_head.cls_gn0.weight``, ``rgb_roi_head.shared_fc0.weight``, ...),
 for a ConvNeXt, LSKNet or VAN backbone:
 
 - conv kernels HWIO -> OIHW (the stems, patch embeds, 1x1 convs, the
-  squeeze conv), the depthwise (k, k, 1, C) -> (C, 1, k, k);
+  squeeze conv, the heads' convs), the depthwise (k, k, 1, C) ->
+  (C, 1, k, k);
 - the ConvNeXt pointwise Dense kernels keep the (in, out) layout that the
   GEMM kernel reads; the gate's ``cosine_projector`` and the RoI heads'
   Dense layers become Linear weights (out, in);
@@ -36,8 +42,12 @@ from typing import Dict, Iterator, Tuple
 import numpy as np
 import torch
 
+# the flagship's top-level subtrees
 SUBTREES = ("backbone", "neck", "sar_bbox_head", "rgb_rpn_head",
             "ifr_rpn_head", "rgb_roi_head", "ifr_roi_head")
+# every top-level module name a detector of the port may have
+_TOP = re.compile(r"backbone|neck|((sar|rgb|ifr)_)?(bbox|rpn|roi)_head"
+                  r"|bbox_head\d+|(cls|reg)_conv\d+|retina_(cls|reg)")
 # top-level leaves a tree may hold: the uncertainty reweighting's sigmas
 OPTIONAL_LEAVES = ("mtl_sigma",)
 _LINEAR = {"cosine_projector", "shared_fc0", "shared_fc1", "fc_cls", "fc_reg"}
@@ -102,23 +112,20 @@ def convert_tree(tree: Dict, prefix: Tuple[str, ...] = ()
 
 
 def from_flax(params: Dict) -> Dict[str, torch.Tensor]:
-    """flax params tree -> the port's ``TriSourceDetector`` state_dict."""
+    """flax params tree -> the port's detector state_dict."""
     if "params" in params and len(params) == 1:
         params = params["params"]
-    missing = [s for s in SUBTREES if s not in params]
+    missing = [s for s in ("backbone", "neck") if s not in params]
     if missing:
         raise KeyError(f"from_flax: no {missing} in the params tree")
-    unknown = [k for k in params if k not in SUBTREES + OPTIONAL_LEAVES]
+    unknown = [k for k in params if not _TOP.fullmatch(k)
+               and k not in OPTIONAL_LEAVES]
     if unknown:
         raise KeyError(f"from_flax: no rule for the subtrees {unknown}")
     out = {}
-    for sub in _present(params):
+    for sub in params:
         out.update(convert_tree(params[sub], (sub,)))
     return out
-
-
-def _present(tree):
-    return SUBTREES + tuple(k for k in OPTIONAL_LEAVES if k in tree)
 
 
 def to_flax(tensors: Dict[str, torch.Tensor], template: Dict) -> Dict:
@@ -129,7 +136,7 @@ def to_flax(tensors: Dict[str, torch.Tensor], template: Dict) -> Dict:
     if "params" in template and len(template) == 1:
         template = template["params"]
     out: Dict = {}
-    for sub in _present(template):
+    for sub in template:
         for path, v in _leaves(template[sub], (sub,)):
             name, perm = _rule(path, v)
             arr = tensors[name].detach().float().cpu().numpy()

@@ -63,9 +63,26 @@ class AnchorGenerator:
 
     def grid_anchors(self, featmap_sizes, device=None):
         """As ``grid_anchors_np``, as tensors on ``device``; a generator
-        keeps the grids it has made."""
+        keeps the grids it has made, made outside inference mode so that
+        a train step after an eval pass may save them for its backward."""
         key = (tuple(tuple(s) for s in featmap_sizes), str(device))
         if key not in self._grids:
-            self._grids[key] = [torch.from_numpy(a).to(device)
-                                for a in self.grid_anchors_np(featmap_sizes)]
+            with torch.inference_mode(False):
+                self._grids[key] = [
+                    torch.from_numpy(a).to(device)
+                    for a in self.grid_anchors_np(featmap_sizes)]
         return self._grids[key]
+
+
+class RotatedAnchorGenerator(AnchorGenerator):
+    """Grid priors as ``(cx, cy, w, h, 0)`` (``RotatedAnchorGenerator`` of
+    the JAX package, mmrotate ``anchor_generator.py``)."""
+
+    def grid_anchors_np(self, featmap_sizes):
+        out = []
+        for a in super().grid_anchors_np(featmap_sizes):
+            cx = (a[:, 0] + a[:, 2]) * np.float32(0.5)
+            cy = (a[:, 1] + a[:, 3]) * np.float32(0.5)
+            out.append(np.stack([cx, cy, a[:, 2] - a[:, 0], a[:, 3] - a[:, 1],
+                                 np.zeros_like(cx)], axis=-1))
+        return out

@@ -1,7 +1,8 @@
 """Box coders. Port of ``sm3det_tpu/core/bbox/coders.py``:
 ``DistancePointBBoxCoder`` (GFL / FCOS), ``MidpointOffsetCoder`` (Oriented
-RPN) and ``DeltaXYWHAOBBoxCoder`` (Oriented R-CNN), each with its
-``encode`` (training targets) and ``decode``."""
+RPN), ``DeltaXYWHAOBBoxCoder`` (Oriented R-CNN, rotated RetinaNet) and
+``DeltaXYWHBBoxCoder`` (the horizontal RPN and R-CNN, RetinaNet), each
+with its ``encode`` (training targets) and ``decode``."""
 
 from __future__ import annotations
 
@@ -35,6 +36,56 @@ def _denormalize(deltas, means, stds):
     means = _constant(tuple(means), deltas.dtype, deltas.device)
     stds = _constant(tuple(stds), deltas.dtype, deltas.device)
     return deltas * stds + means
+
+
+class DeltaXYWHBBoxCoder:
+    """mmdet's horizontal coder: xyxy boxes <-> 4 deltas."""
+
+    def __init__(self, target_means=(0., 0., 0., 0.),
+                 target_stds=(1., 1., 1., 1.)):
+        self.means = target_means
+        self.stds = target_stds
+
+    def encode(self, bboxes, gt_bboxes):
+        """Deltas of ``gt_bboxes`` against ``bboxes``, both (..., 4)."""
+        px = (bboxes[..., 0] + bboxes[..., 2]) * 0.5
+        py = (bboxes[..., 1] + bboxes[..., 3]) * 0.5
+        pw = torch.clamp(bboxes[..., 2] - bboxes[..., 0], min=1e-6)
+        ph = torch.clamp(bboxes[..., 3] - bboxes[..., 1], min=1e-6)
+        gx = (gt_bboxes[..., 0] + gt_bboxes[..., 2]) * 0.5
+        gy = (gt_bboxes[..., 1] + gt_bboxes[..., 3]) * 0.5
+        gw = gt_bboxes[..., 2] - gt_bboxes[..., 0]
+        gh = gt_bboxes[..., 3] - gt_bboxes[..., 1]
+        deltas = torch.stack([
+            (gx - px) / pw, (gy - py) / ph,
+            torch.log(torch.clamp(gw, min=1e-6) / pw),
+            torch.log(torch.clamp(gh, min=1e-6) / ph)], dim=-1)
+        return _normalize(deltas, self.means, self.stds)
+
+    def decode(self, bboxes, deltas, max_shape=None,
+               wh_ratio_clip=16 / 1000):
+        """Boxes (..., 4) from ``deltas`` against ``bboxes``; the log-size
+        deltas clipped to ``|log(wh_ratio_clip)|``, the result clipped to
+        ``max_shape`` (h, w) when given."""
+        d = _denormalize(deltas, self.means, self.stds)
+        max_ratio = abs(math.log(wh_ratio_clip))
+        dw = torch.clamp(d[..., 2], -max_ratio, max_ratio)
+        dh = torch.clamp(d[..., 3], -max_ratio, max_ratio)
+        px = (bboxes[..., 0] + bboxes[..., 2]) * 0.5
+        py = (bboxes[..., 1] + bboxes[..., 3]) * 0.5
+        pw = bboxes[..., 2] - bboxes[..., 0]
+        ph = bboxes[..., 3] - bboxes[..., 1]
+        gx = px + pw * d[..., 0]
+        gy = py + ph * d[..., 1]
+        gw = pw * torch.exp(dw)
+        gh = ph * torch.exp(dh)
+        x1, y1 = gx - gw / 2, gy - gh / 2
+        x2, y2 = gx + gw / 2, gy + gh / 2
+        if max_shape is not None:
+            h, w = max_shape[0], max_shape[1]
+            x1, x2 = torch.clamp(x1, 0, w), torch.clamp(x2, 0, w)
+            y1, y2 = torch.clamp(y1, 0, h), torch.clamp(y2, 0, h)
+        return torch.stack([x1, y1, x2, y2], dim=-1)
 
 
 class DeltaXYWHAOBBoxCoder:

@@ -27,6 +27,29 @@ def draw_sample_keys(n: int, gen: torch.Generator | None = None,
     return keys[0], keys[1]
 
 
+class SampleKeys:
+    """The sampler keys of one forward, in the order it asks for them:
+    drawn from ``gen`` (:func:`draw_sample_keys`), or, when ``given`` is a
+    sequence of (key_pos, key_neg) pairs, taken from it in turn (a test
+    hands in the JAX function's draws this way)."""
+
+    def __init__(self, gen: torch.Generator | None = None, given=None):
+        self.gen = gen
+        self.given = None if given is None else list(given)
+
+    def __call__(self, n: int, batch: int, device):
+        """(key_pos, key_neg), each (batch, n), on ``device``."""
+        if self.given is None:
+            return draw_sample_keys(n, self.gen, (batch,), device)
+        if not self.given:
+            raise ValueError("SampleKeys: the given keys are used up")
+        kp, kn = self.given.pop(0)
+        if tuple(kp.shape) != (batch, n) or tuple(kn.shape) != (batch, n):
+            raise ValueError(f"SampleKeys: given keys {tuple(kp.shape)}, "
+                             f"the sampler draws {(batch, n)}")
+        return kp.to(device), kn.to(device)
+
+
 def random_sample(key_pos, key_neg, assigned_gt_inds, num: int,
                   pos_fraction: float):
     """Sample ``num`` priors with at most ``num * pos_fraction`` positives.

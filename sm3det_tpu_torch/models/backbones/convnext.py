@@ -1,7 +1,8 @@
 """ConvNeXt / ConvNeXt-MoE backbone, NHWC.
 
 Port of ``sm3det_tpu/models/backbones/convnext.py``: the ``multi_input``
-``stem_single`` stem, stem/downsample/out LayerNorms (``layernorm_math``),
+``stem_single`` stem (the TriSource detectors) or the single-dataset
+``stem_conv`` (the zoo's detectors), stem/downsample/out LayerNorms (``layernorm_math``),
 dense blocks and grid-MoE blocks. Domain attention and GRN are not ported.
 
 - Inference (``forward``): on a CUDA tensor every block goes through the
@@ -135,8 +136,10 @@ class ConvNeXtBlock(nn.Module):
 
 
 class ConvNeXtMoE(nn.Module):
-    """ConvNeXt with grid-MoE blocks, ``multi_input`` stem; returns the
-    ``out_indices`` features after their LayerNorms."""
+    """ConvNeXt with grid-MoE blocks; returns the ``out_indices`` features
+    after their LayerNorms. The stem is ``stem_single`` with
+    ``multi_input`` (the MultiInput layout), else ``stem_conv``: the same
+    patchify conv under the JAX module's two names."""
 
     def __init__(self, arch: str = "tiny", in_channels: int = 3,
                  stem_patch_size: int = 4,
@@ -146,7 +149,8 @@ class ConvNeXtMoE(nn.Module):
                  num_experts: int = 2, top_k: int = 2, gate: str = "cosine",
                  noisy_gating: bool = True, capacity_factor: float = 1.5,
                  drop_path_rate: float = 0.0, use_grn: bool = False,
-                 use_da: bool = False, gen: torch.Generator | None = None):
+                 use_da: bool = False, multi_input: bool = True,
+                 gen: torch.Generator | None = None):
         super().__init__()
         if use_grn or use_da:
             raise NotImplementedError("GRN and domain attention are not in "
@@ -155,8 +159,9 @@ class ConvNeXtMoE(nn.Module):
         channels = ARCH_SETTINGS[arch]["channels"]
         self.depths, self.out_indices = depths, tuple(out_indices)
         p = stem_patch_size
-        self.stem_single = Conv2d(in_channels, channels[0], p, stride=p,
-                                  gen=gen)
+        self._stem = "stem_single" if multi_input else "stem_conv"
+        setattr(self, self._stem, Conv2d(in_channels, channels[0], p,
+                                         stride=p, gen=gen))
         self.stem_norm = LayerNormOpt(channels[0])
         total = sum(depths)
         # the linear stochastic-depth ramp, as np.linspace(0, rate, total)
@@ -185,7 +190,7 @@ class ConvNeXtMoE(nn.Module):
 
     def forward(self, x):
         """x: (B, H, W, 3) -> tuple of (B, H/s, W/s, C_i) features."""
-        x = self.stem_single(x)
+        x = getattr(self, self._stem)(x)
         outs = []
         for i, depth in enumerate(self.depths):
             if i == 0:
@@ -206,7 +211,7 @@ class ConvNeXtMoE(nn.Module):
         draws come from ``gen`` (on its device, then moved to x's), block by
         block in order: gate noise, then the depth mask."""
         gdev = gen.device if gen is not None else None
-        x = self.stem_single(x)
+        x = getattr(self, self._stem)(x)
         outs, gate_losses = [], []
         for i, depth in enumerate(self.depths):
             if i == 0:

@@ -2,10 +2,17 @@
 
 Port of the registry part of ``sm3det_tpu/models/__init__.py``: the names a
 config's ``type`` may take, and ``normalize_model_cfg``. The port registers
-what it has: the ``TriSourceDetector`` with a ConvNeXt-MoE, LSKNet-MoE or
-VAN-MoE backbone (``ConvNeXt_moe``, ``ConvNeXt_moe_MultiInput``,
-``LSKNet``, ``LSKNet_moe_MultiInput``, ``VAN``, ``VAN_moe_MultiInput``) and
-the ``MultitaskFPN``.
+what it has:
+
+- detectors: ``TriSourceDetector`` with a ConvNeXt-MoE, LSKNet-MoE or
+  VAN-MoE backbone (``ConvNeXt_moe``, ``ConvNeXt_moe_MultiInput``,
+  ``LSKNet``, ``LSKNet_moe_MultiInput``, ``VAN``, ``VAN_moe_MultiInput``),
+  ``TriSourceVariant`` (its ``sar_stages`` / ``rot_stages`` from the
+  config), and the single-dataset ``OrientedRCNN``, ``GFL``,
+  ``RotatedRetinaNet``, ``FasterRCNN``, ``CascadeRCNN`` and ``RetinaNet``
+  on the single-stem ConvNeXt (``ConvNeXt_moe`` or no backbone type);
+- the ``MultitaskFPN``, and the heads those detectors use.
+
 Every other name the JAX package registers raises ``NotImplementedError``
 naming the ROADMAP item that ports it; nothing falls back to the flagship.
 
@@ -20,12 +27,21 @@ from __future__ import annotations
 import copy
 from typing import Any, Dict, Optional
 
-from ..utils.registry import BACKBONES, DETECTORS, NECKS
+from ..utils.registry import BACKBONES, DETECTORS, HEADS, NECKS
 from .backbones.convnext import ConvNeXtMoE
 from .backbones.lsknet import LSKNetMoE
 from .backbones.van import VANMoE
+from .dense_heads.gfl_head import GFLHead
+from .dense_heads.oriented_rpn_head import OrientedRPNHead
+from .dense_heads.rotated_retina_head import CSLRetinaHead, RotatedRetinaHead
+from .dense_heads.rpn_head import RPNHead
+from .detectors.hbb_detectors import CascadeRCNN, FasterRCNN, RetinaNet
 from .detectors.trisource import TriSourceDetector
+from .detectors.trisource_variants import DEFAULT_STAGES, TriSourceVariant
+from .detectors.zoo import GFLDetector, OrientedRCNN, RotatedRetinaNet
 from .necks.fpn import MultitaskFPN
+from .roi_heads.oriented_roi_head import RotatedShared2FCBBoxHead
+from .roi_heads.standard_roi_head import Shared2FCBBoxHead
 
 ZOO = "ROADMAP queue 1 item 7 (the zoo)"
 LEFTOVERS = "ROADMAP queue 1 item 5 (backbone and neck leftovers)"
@@ -46,7 +62,30 @@ for _name, _cls in (("LSKNet", LSKNetMoE), ("LSKNet_moe_MultiInput",
                     ("VAN", VANMoE), ("VAN_moe_MultiInput", VANMoE)):
     BACKBONES.register_module(_name, module=_cls)
 NECKS.register_module("MultitaskFPN", module=MultitaskFPN)
-DETECTORS.register_module("TriSourceDetector", module=TriSourceDetector)
+for _name, _cls in (("TriSourceDetector", TriSourceDetector),
+                    ("TriSourceVariant", TriSourceVariant),
+                    ("OrientedRCNN", OrientedRCNN), ("GFL", GFLDetector),
+                    ("RotatedRetinaNet", RotatedRetinaNet),
+                    ("FasterRCNN", FasterRCNN), ("CascadeRCNN", CascadeRCNN),
+                    ("RetinaNet", RetinaNet)):
+    DETECTORS.register_module(_name, module=_cls)
+# the JAX package's head names; KFIoURRetinaHead's box loss raises in
+# retina_loss, CSLRRetinaHead on construction
+for _name, _cls in (("GFLHead", GFLHead), ("OrientedRPNHead", OrientedRPNHead),
+                    ("RotatedRetinaHead", RotatedRetinaHead),
+                    ("RotatedAnchorHead", RotatedRetinaHead),
+                    ("KFIoURRetinaHead", RotatedRetinaHead),
+                    ("CSLRRetinaHead", CSLRetinaHead), ("RPNHead", RPNHead),
+                    ("RotatedRPNHead", RPNHead),
+                    ("RotatedShared2FCBBoxHead", RotatedShared2FCBBoxHead),
+                    ("Shared2FCBBoxHead", Shared2FCBBoxHead)):
+    HEADS.register_module(_name, module=_cls)
+for _name in ("RotatedFCOSHead", "OrientedRepPointsHead", "GVBBoxHead",
+              "HBB2OBBBBoxHead", "RotatedATSSHead", "RotatedRepPointsHead",
+              "SAMRepPointsHead", "CSLRFCOSHead", "ODMRefineHead",
+              "RotatedRetinaRefineHead", "KFIoUODMRefineHead",
+              "KFIoURRetinaRefineHead", "RotatedAnchorFreeHead"):
+    HEADS.register_module(_name, module=_unported("head", _name, ZOO))
 
 for _name, _item in [("ConvNeXt_DA_MultiInput", LEFTOVERS)] + [
         (n, ZOO) for n in (
@@ -58,11 +97,10 @@ for _name, _item in [("ConvNeXt_DA_MultiInput", LEFTOVERS)] + [
 for _name, _item in (("FPN", LEFTOVERS), ("SimpleFPN", LEFTOVERS),
                      ("ReFPN", ZOO)):
     NECKS.register_module(_name, module=_unported("neck", _name, _item))
-for _name in ("TriSourceVariant", "OrientedRCNN", "RotatedRetinaNet", "GFL",
-              "R3Det", "S2ANet", "ReDet", "RoITransformer", "RotatedFCOS",
+for _name in ("R3Det", "S2ANet", "ReDet", "RoITransformer", "RotatedFCOS",
               "GlidingVertex", "OrientedRepPoints", "RotatedFasterRCNN",
               "RotatedRepPoints", "SAMRepPoints", "GRepPoints",
-              "RotatedATSS", "FasterRCNN", "CascadeRCNN", "RetinaNet"):
+              "RotatedATSS"):
     DETECTORS.register_module(_name, module=_unported("detector", _name,
                                                       ZOO))
 
@@ -105,7 +143,12 @@ def build_detector(cfg_model: Dict[str, Any], device=None,
     if hasattr(cfg_model, "to_dict"):
         cfg_model = cfg_model.to_dict()
     mc = normalize_model_cfg(copy.deepcopy(dict(cfg_model)))
-    det_cls = DETECTORS.get(mc.pop("type", "TriSourceDetector"))
+    det_type = mc.pop("type", "TriSourceDetector")
+    det_cls = DETECTORS.get(det_type)
+    kwargs = {}
+    if det_type == "TriSourceVariant":
+        kwargs = dict(sar_stages=mc.pop("sar_stages", DEFAULT_STAGES),
+                      rot_stages=mc.pop("rot_stages", DEFAULT_STAGES))
     b = mc["backbone"]
     b.pop("pretrained", None)
     _check_built(BACKBONES, b.get("type", "ConvNeXt_moe"))
@@ -127,7 +170,8 @@ def build_detector(cfg_model: Dict[str, Any], device=None,
         mc["compute_dtype"] = compute_dtype
     if mc.get("compute_dtype") == "float32":
         del mc["compute_dtype"]
-    return det_cls(cfg=mc, device=device, seed=seed, trainable=trainable)
+    return det_cls(cfg=mc, device=device, seed=seed, trainable=trainable,
+                   **kwargs)
 
 
 def _check_built(registry, name: str):

@@ -27,17 +27,20 @@ from ..losses import sigmoid_cross_entropy, smooth_l1_loss
 
 
 class OrientedRPNHead(nn.Module):
+    box_dim = 6      # midpoint-offset deltas a prior
+
     def __init__(self, in_channels: int = 256, feat_channels: int = 256,
                  num_anchors: int = 3, gen: torch.Generator | None = None):
         super().__init__()
         self.rpn_conv = Conv2d(in_channels, feat_channels, 3, padding=1,
                                gen=gen)
         self.rpn_cls = Conv2d(feat_channels, num_anchors, 1, gen=gen)
-        self.rpn_reg = Conv2d(feat_channels, num_anchors * 6, 1, gen=gen)
+        self.rpn_reg = Conv2d(feat_channels, num_anchors * self.box_dim, 1,
+                              gen=gen)
 
     def forward(self, feats: Sequence[torch.Tensor]):
         """feats: list of (B, H, W, C) -> (cls, reg) lists of (B, H, W, A)
-        and (B, H, W, 6 A)."""
+        and (B, H, W, box_dim A)."""
         cls_out, reg_out = [], []
         for x in feats:
             t = torch.relu(self.rpn_conv(x))

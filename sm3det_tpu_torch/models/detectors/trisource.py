@@ -33,18 +33,17 @@ forward a bf16 copy (``train/train_state.py``).
 from __future__ import annotations
 
 import copy
+import functools
 import math
 from typing import Any, Dict
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ...core.anchor import AnchorGenerator
 from ...core.bbox.coders import DeltaXYWHAOBBoxCoder, MidpointOffsetCoder
-from ...core.bbox.samplers import draw_sample_keys
-from ...device import resolve_device
+from ...core.bbox.samplers import SampleKeys
 from ...ops.box_convert import norm_angle
 from ...ops.nms import aug_multiclass_nms_rotated
 from ..backbones.convnext import ConvNeXtMoE
@@ -60,6 +59,8 @@ from ..roi_heads.oriented_roi_head import (RotatedShared2FCBBoxHead,
                                            extract_rotated_roi_feats,
                                            roi_head_get_bboxes,
                                            sample_rois_for_training)
+from ..roi_heads.standard_roi_head import extract_hbb_roi_feats
+from .base import DetectorBase
 
 DEFAULT_MODEL_CFG: Dict[str, Any] = dict(
     num_classes=26,
@@ -84,12 +85,16 @@ DEFAULT_MODEL_CFG: Dict[str, Any] = dict(
 )
 
 
+# the anchor generators are made once per setting: each keeps the grids it
+# has made on a device, so a forward copies no anchors to the card
+@functools.lru_cache(maxsize=None)
 def make_sar_anchor_generator(strides=(8, 16, 32, 64, 128)):
     """GFL: single anchor per cell, octave base 8."""
     return AnchorGenerator(strides=strides, ratios=[1.0],
                            octave_base_scale=8, scales_per_octave=1)
 
 
+@functools.lru_cache(maxsize=None)
 def make_rpn_anchor_generator(strides=(4, 8, 16, 32, 64)):
     """Oriented RPN: scales [8] x ratios [.5, 1, 2]."""
     return AnchorGenerator(strides=strides, ratios=[0.5, 1.0, 2.0],
@@ -156,7 +161,72 @@ def build_multi_input_backbone(b: Dict[str, Any],
     raise ValueError(f"unknown backbone type {btype!r}")
 
 
-class TriSourceDetector(nn.Module):
+def roi_feats(x, rois, box_dim: int = 5):
+    """One pyramid RoI align of all images' RoIs (B, S, box_dim) on the
+    neck's levels x -> (B * S, 7, 7, C): rotated RoIs (box_dim 5) or
+    horizontal xyxy ones (box_dim 4, aligned at angle 0)."""
+    bsz, s = rois.shape[:2]
+    batch_idx = torch.arange(bsz, dtype=rois.dtype, device=rois.device) \
+        .repeat_interleave(s)[:, None]
+    flat = torch.cat([batch_idx, rois.reshape(-1, box_dim)], dim=-1)
+    if box_dim == 4:
+        return extract_hbb_roi_feats(x, flat)
+    return extract_rotated_roi_feats(x, flat)
+
+
+def oriented_rcnn_losses(x, rpn_head, roi_head, data, keys: SampleKeys,
+                         rpn_gen: AnchorGenerator, version: str,
+                         num_classes: int, rpn_sample: int = 256,
+                         rcnn_sample: int = 512, rpn_nms_pre: int = 2000,
+                         rpn_max: int = 2000, rpn_nms_iou: float = 0.8):
+    """The losses of one Oriented R-CNN branch on the neck's levels ``x``
+    (the JAX ``__call__``'s RGB / infrared branch): the RPN loss, the
+    proposals (no gradient), the RoI sampling, the align and the R-CNN
+    loss. ``data``: {gt_obbs (B, G, 5), gt_labels, gt_mask}. ``keys``
+    gives the RPN sampler's keys, then the RoI sampler's. Returns
+    dict(loss_rpn_cls, loss_rpn_bbox, loss_cls, loss_bbox)."""
+    rpn_coder = make_rpn_coder(version)
+    rpn_cls, rpn_reg = rpn_head(x)
+    rpn_cls = [s.float() for s in rpn_cls]
+    rpn_reg = [p.float() for p in rpn_reg]
+    bsz = rpn_cls[0].shape[0]
+    n_anchors = sum(s[0].numel() for s in rpn_cls)
+    losses = rpn_loss(
+        keys(n_anchors, bsz, rpn_cls[0].device), rpn_cls, rpn_reg,
+        data["gt_obbs"], data["gt_mask"], rpn_gen, rpn_coder,
+        version=version, num_sample=rpn_sample)
+    with torch.no_grad():
+        proposals, _, p_valid = rpn_get_proposals(
+            [s.detach() for s in rpn_cls], [p.detach() for p in rpn_reg],
+            rpn_gen, rpn_coder, img_shape=None, nms_pre=rpn_nms_pre,
+            max_per_img=rpn_max, iou_thr=rpn_nms_iou)
+        n_cand = data["gt_obbs"].shape[1] + proposals.shape[1]
+        rkeys = keys(n_cand, bsz, proposals.device)
+        ious = candidate_gt_ious(proposals, data["gt_obbs"])
+        sampled = [sample_rois_for_training(
+            (rkeys[0][i], rkeys[1][i]), proposals[i], p_valid[i],
+            data["gt_obbs"][i], data["gt_labels"][i], data["gt_mask"][i],
+            ious[i], num=rcnn_sample) for i in range(bsz)]
+        rois = torch.stack([sm["rois"] for sm in sampled])
+    s = rois.shape[1]
+    cls_logits, reg_pred = roi_head(roi_feats(x, rois))
+    cls_logits = cls_logits.reshape(bsz, s, -1).float()
+    reg_pred = reg_pred.reshape(bsz, s, -1).float()
+    rcnn_coder = make_rcnn_coder(version)
+    l_cls = l_reg = 0.0
+    n_valid = 0
+    for i in range(bsz):
+        lc, lr, nv, _ = bbox_head_loss(
+            cls_logits[i], reg_pred[i], sampled[i], data["gt_obbs"][i],
+            data["gt_labels"][i], rcnn_coder, num_classes)
+        l_cls, l_reg, n_valid = l_cls + lc, l_reg + lr, n_valid + nv
+    total = torch.clamp(n_valid.float(), min=1.0)
+    losses["loss_cls"] = l_cls / total
+    losses["loss_bbox"] = l_reg / total
+    return losses
+
+
+class TriSourceDetector(DetectorBase):
     """SM3Det detector. ``cfg`` follows DEFAULT_MODEL_CFG.
 
     Parameters are made from ``seed`` with a ``torch.Generator`` and live on
@@ -170,7 +240,6 @@ class TriSourceDetector(nn.Module):
                  seed: int = 0, trainable: bool = False):
         super().__init__()
         self.cfg = c = copy.deepcopy(cfg or DEFAULT_MODEL_CFG)
-        dev = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
         if c.get("multi_tasks_reweight") not in REWEIGHT_MODES:
             raise ValueError(f"multi_tasks_reweight "
@@ -200,23 +269,7 @@ class TriSourceDetector(nn.Module):
             tuple(c["rgb"]["rpn_strides"]))
         if c.get("multi_tasks_reweight") == "uncertainty":
             self.mtl_sigma = nn.Parameter(torch.ones(len(REWEIGHT_LOSS_KEYS)))
-        dt = c.get("compute_dtype")
-        self.compute_dtype = getattr(torch, dt) if dt else torch.float32
-        self.to(device=dev,
-                dtype=torch.float32 if trainable else self.compute_dtype)
-        self.train(trainable)
-        self.requires_grad_(trainable)
-
-    @property
-    def device(self) -> torch.device:
-        return next(self.parameters()).device
-
-    def _cast_in(self, imgs):
-        """Images (numpy or tensor, (B, H, W, 3)) on the model's device in
-        the compute dtype."""
-        if isinstance(imgs, np.ndarray):
-            imgs = torch.from_numpy(imgs)
-        return imgs.to(device=self.device, dtype=self.compute_dtype)
+        self._place(c, device, trainable)
 
     def extract_feat(self, imgs):
         return self.backbone(self._cast_in(imgs))
@@ -284,12 +337,7 @@ class TriSourceDetector(nn.Module):
     def roi_feats(self, x, proposals):
         """One rotated RoI align of all images' proposals (B, S, 5) on the
         neck's levels x -> (B * S, 7, 7, C)."""
-        bsz, s = proposals.shape[:2]
-        batch_idx = torch.arange(bsz, dtype=proposals.dtype,
-                                 device=proposals.device) \
-            .repeat_interleave(s)[:, None]
-        rois6 = torch.cat([batch_idx, proposals.reshape(-1, 5)], dim=-1)
-        return extract_rotated_roi_feats(x, rois6)
+        return roi_feats(x, proposals)
 
     def get_bboxes_rcnn(self, cls_logits, reg_pred, proposals, p_valid,
                         img_shape=(800, 800), max_per_img=None):
@@ -477,7 +525,7 @@ class TriSourceDetector(nn.Module):
         """
         c = self.cfg
         r = c["rgb"]
-        version = c["angle_version"]
+        keys = SampleKeys(gen)
         (sar_x, rgb_x, ifr_x), gate_loss = self.extract_feat_train(batch,
                                                                   gen)
         losses: Dict[str, torch.Tensor] = {}
@@ -493,55 +541,15 @@ class TriSourceDetector(nn.Module):
             strides=tuple(c["sar"]["strides"]))
         losses.update({f"sar_{k}": v for k, v in sar_losses.items()})
 
-        rpn_coder = make_rpn_coder(version)
-        rcnn_coder = make_rcnn_coder(version)
         for key, feats_m in (("rgb", rgb_x), ("ifr", ifr_x)):
-            data = batch[key]
             rpn_head, roi_head = self._heads(key)
-            rpn_cls, rpn_reg = rpn_head(feats_m)
-            rpn_cls = [s.float() for s in rpn_cls]
-            rpn_reg = [p.float() for p in rpn_reg]
-            bsz = rpn_cls[0].shape[0]
-            n_anchors = sum(s[0].numel() for s in rpn_cls)
-            keys = draw_sample_keys(n_anchors, gen, (bsz,),
-                                    rpn_cls[0].device)
-            r_losses = rpn_loss(
-                keys, rpn_cls, rpn_reg, data["gt_obbs"], data["gt_mask"],
-                self._rpn_gen, rpn_coder, version=version,
-                num_sample=r["rpn_sample"])
-            losses.update({f"{key}_{k}": v for k, v in r_losses.items()})
-
-            with torch.no_grad():
-                proposals, _, p_valid = rpn_get_proposals(
-                    [s.detach() for s in rpn_cls],
-                    [p.detach() for p in rpn_reg], self._rpn_gen, rpn_coder,
-                    img_shape=None, nms_pre=r["rpn_nms_pre"],
-                    max_per_img=r["rpn_max"], iou_thr=r["rpn_nms_iou"])
-                n_cand = data["gt_obbs"].shape[1] + proposals.shape[1]
-                rkeys = draw_sample_keys(n_cand, gen, (bsz,),
-                                         proposals.device)
-                ious = candidate_gt_ious(proposals, data["gt_obbs"])
-                sampled = [sample_rois_for_training(
-                    (rkeys[0][i], rkeys[1][i]), proposals[i], p_valid[i],
-                    data["gt_obbs"][i], data["gt_labels"][i],
-                    data["gt_mask"][i], ious[i], num=r["rcnn_sample"])
-                    for i in range(bsz)]
-                rois = torch.stack([sm["rois"] for sm in sampled])
-            s = rois.shape[1]
-            cls_logits, reg_pred = roi_head(self.roi_feats(feats_m, rois))
-            cls_logits = cls_logits.reshape(bsz, s, -1).float()
-            reg_pred = reg_pred.reshape(bsz, s, -1).float()
-            l_cls = l_reg = 0.0
-            n_valid = 0
-            for i in range(bsz):
-                lc, lr, nv, _ = bbox_head_loss(
-                    cls_logits[i], reg_pred[i], sampled[i],
-                    data["gt_obbs"][i], data["gt_labels"][i], rcnn_coder,
-                    c["num_classes"])
-                l_cls, l_reg, n_valid = l_cls + lc, l_reg + lr, n_valid + nv
-            total = torch.clamp(n_valid.float(), min=1.0)
-            losses[f"{key}_loss_cls"] = l_cls / total
-            losses[f"{key}_loss_bbox"] = l_reg / total
+            b_losses = oriented_rcnn_losses(
+                feats_m, rpn_head, roi_head, batch[key], keys, self._rpn_gen,
+                c["angle_version"], c["num_classes"],
+                rpn_sample=r["rpn_sample"], rcnn_sample=r["rcnn_sample"],
+                rpn_nms_pre=r["rpn_nms_pre"], rpn_max=r["rpn_max"],
+                rpn_nms_iou=r["rpn_nms_iou"])
+            losses.update({f"{key}_{k}": v for k, v in b_losses.items()})
 
         if c.get("multi_tasks_reweight") == "uncertainty":
             sigma2 = self.mtl_sigma ** 2

@@ -1,8 +1,8 @@
-"""Detection losses of the flagship train step, weighted and masked.
+"""Detection losses, weighted and masked.
 
-Port of the flagship subset of ``sm3det_tpu/models/losses.py``: sigmoid and
-softmax cross-entropy, Quality Focal and Distribution Focal (GFL), Smooth L1
-and GIoU. Every loss takes an elementwise ``weight`` and an ``avg_factor``
+Port of a subset of ``sm3det_tpu/models/losses.py``: sigmoid and softmax
+cross-entropy, sigmoid focal (RetinaNet), Quality Focal and Distribution
+Focal (GFL), Smooth L1, L1 and GIoU. Every loss takes an elementwise ``weight`` and an ``avg_factor``
 (the reference's ``weighted_loss`` contract): without ``avg_factor`` the
 mean, with it the sum divided by ``max(avg_factor, 1e-6)``.
 """
@@ -37,6 +37,21 @@ def softmax_cross_entropy(logits, labels, weight=None, avg_factor=None):
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
     return _reduce(nll, weight, avg_factor)
+
+
+def sigmoid_focal_loss(logits, labels, gamma=2.0, alpha=0.25, weight=None,
+                       avg_factor=None):
+    """mmcv's sigmoid focal loss: logits (N, C), labels (N,) in [0, C], C
+    the background (no positive class); one-vs-all per class, summed over
+    the classes."""
+    num_classes = logits.shape[-1]
+    onehot = F.one_hot(labels.long(), num_classes + 1)[..., :num_classes] > 0
+    p = torch.sigmoid(logits)
+    pt = torch.where(onehot, p, 1 - p)
+    alpha_t = torch.where(onehot, alpha, 1 - alpha)
+    ce = -torch.log(torch.clamp(pt, min=1e-12))
+    loss = alpha_t * (1 - pt) ** gamma * ce
+    return _reduce(loss.sum(-1), weight, avg_factor)
 
 
 def quality_focal_loss(logits, labels, scores, beta=2.0, weight=None,
@@ -81,6 +96,10 @@ def smooth_l1_loss(pred, target, beta=1.0, weight=None, avg_factor=None):
     loss = torch.where(diff < beta, 0.5 * diff * diff / beta,
                        diff - 0.5 * beta)
     return _reduce(loss, weight, avg_factor)
+
+
+def l1_loss(pred, target, weight=None, avg_factor=None):
+    return _reduce((pred - target).abs(), weight, avg_factor)
 
 
 def giou_loss(pred, target, eps=1e-7, weight=None, avg_factor=None):

@@ -139,3 +139,18 @@ def box_iou_rotated(boxes1, boxes2, mode: str = "iou",
             rows.expand(shape), c2.expand(shape),
             area1[..., r0:r0 + row_chunk, None], area2, mode))
     return out[0] if len(out) == 1 else torch.cat(out, dim=-2)
+
+
+def box_iou_rotated_chunked(boxes1, boxes2, row_chunk: int = 256):
+    """(..., N, 5) x (..., M, 5) -> (..., N, M) rotated IoU with a bounded
+    working set (``box_iou_rotated_chunked`` of the JAX package; the
+    RetinaNet assigner's anchors against the gts).
+
+    A CUDA tensor goes through the IoU kernel's matrix mode
+    (``ops/cuda/rotated_iou_kernel.rotated_iou``, one launch, every value
+    equal to the plain version's), a CPU tensor through
+    :func:`box_iou_rotated` in blocks of ``row_chunk`` rows."""
+    if boxes1.is_cuda:
+        from .cuda.rotated_iou_kernel import rotated_iou
+        return rotated_iou(boxes1, boxes2)
+    return box_iou_rotated(boxes1, boxes2, row_chunk=row_chunk)

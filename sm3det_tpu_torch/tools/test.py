@@ -7,7 +7,8 @@
         [--cfg-options k=v ...] [--device cpu]
 
 The config's ``model`` builds the detector (``models/builder.py``), on the
-CUDA card unless ``--device cpu``; ``CKPT`` is a file of
+CUDA card unless ``--device cpu``; any ``model.type`` but
+``TriSourceDetector`` stops the tool (``check_model_type``); ``CKPT`` is a file of
 ``train/checkpoint.py::save_params``. The test (else val, else train)
 split of the subdataset is built from the config, or synthetic images
 where its paths are absent; ``stream_eval`` runs the batched forward
@@ -29,6 +30,23 @@ import time
 
 import numpy as np
 import torch
+
+
+def check_model_type(mtype: str):
+    """Stop unless ``mtype`` is ``TriSourceDetector``, the one detector
+    this tool evaluates (the JAX tool builds a TriSourceDetector whatever
+    the config names)."""
+    if mtype == "TriSourceDetector":
+        return
+    if mtype == "TriSourceVariant":
+        raise SystemExit(
+            "tools/test.py evaluates TriSourceDetector configs: the "
+            "TriSourceVariant detectors have no inference (neither has the "
+            "JAX package's)")
+    raise SystemExit(
+        f"tools/test.py evaluates TriSourceDetector configs; use the "
+        f"library API (build_detector(...).simple_test) for the "
+        f"single-dataset detector {mtype!r}")
 
 
 def parse_args(argv=None):
@@ -97,6 +115,7 @@ def main(argv=None, dataset=None, model=None):
     cfg = Config.fromfile(args.config)
     if args.cfg_options:
         cfg.merge_from_dict(Config.parse_cli_options(args.cfg_options))
+    check_model_type(cfg.model.get("type", "TriSourceDetector"))
     device = resolve_device(args.device)
     if device.type == "cuda" and args.compute_dtype == "float32":
         torch.backends.cudnn.allow_tf32 = False

@@ -21,11 +21,20 @@ modality is evaluated every ``evaluation.interval`` iterations through
 ``apis/eval_loop.py::stream_eval``: COCO ``bbox`` for SAR, VOC ``mAP``
 otherwise, or ``evaluation.metric``.
 
+The TriSource family trains here: ``TriSourceDetector`` and
+``TriSourceVariant``, whose ``model.sar_stages`` / ``model.rot_stages``
+(1 when absent) build the model and, under DLA, its (loss, subnet) map
+(``train/dla.py::reweight_for_variant``). The variants have no inference,
+so a variant config with ``evaluation`` set stops before the first step
+(``--cfg-options evaluation=None`` trains it without eval hooks). A
+single-dataset detector stops the tool: it trains through the library API
+(``build_detector(..., trainable=True)`` and ``build_train_step``).
+
 Not ported, and raising ``NotImplementedError``: several devices
 (``--num-devices`` > 1, ``expert_parallel`` > 1, a distributed launch),
 ``ema_decay``, ``optimizer.accumulate`` > 1, ``optimizer.layer_decay``, LR
-policies other than step and dynamic, the ``TriSourceVariant`` detectors
-and a ``pretrained`` file for a backbone other than ConvNeXt.
+policies other than step and dynamic, and a ``pretrained`` file for a
+backbone other than ConvNeXt.
 """
 
 from __future__ import annotations
@@ -129,12 +138,16 @@ def check_ported(args, cfg, model_cfg):
                                        "SM3DET_DIST")):
         no("a distributed launch (init_distributed)", PARALLEL)
     mtype = model_cfg.get("type", "TriSourceDetector")
-    if mtype == "TriSourceVariant":
-        no("the TriSourceVariant detectors", ZOO)
-    if mtype != "TriSourceDetector":
+    if mtype not in ("TriSourceDetector", "TriSourceVariant"):
         raise SystemExit(
             f"tools/train.py drives the TriSource family; use the "
             f"library API for single-dataset detector {mtype!r}")
+    if mtype == "TriSourceVariant" and cfg.get("evaluation") is not None:
+        raise NotImplementedError(
+            "the TriSourceVariant detectors have no inference (the JAX "
+            "package's TriSourceVariant has no simple_test), so the eval "
+            "hooks of this config's evaluation cannot run: pass "
+            "--cfg-options evaluation=None to train without them")
     if float(cfg.get("ema_decay", 0.0)):
         no("ema_decay", RUNTIME)
     if int(cfg.optimizer.get("accumulate", 1)) > 1:
@@ -214,10 +227,12 @@ def main(argv=None):
     from ..data.loader import PipelineCfg, TriSourceLoader
     from ..device import resolve_device
     from ..models.builder import build_detector, normalize_model_cfg
+    from ..models.detectors.trisource_variants import TriSourceVariant
     from ..train.checkpoint import (convnext_torch_to_port,
                                     find_latest_checkpoint,
                                     load_torch_state_dict, load_train_state)
-    from ..train.dla import make_dla_config
+    from ..train.dla import (DEFAULT_REWEIGHT_LOSSES, make_dla_config,
+                             reweight_for_variant)
     from ..train.loop import run_training
     from ..train.optim import make_optimizer
     from ..train.train_state import (batch_to, build_train_step,
@@ -281,7 +296,13 @@ def main(argv=None):
         dla_cfg = None
         if lr_cfg.get("policy") == "dynamic":
             extra = lr_cfg.get("extra_args") or {}
+            # a variant's loss map from the stage numbers it was built with
+            reweight = reweight_for_variant(model.sar_stages,
+                                            model.rot_stages) \
+                if isinstance(model, TriSourceVariant) \
+                else DEFAULT_REWEIGHT_LOSSES
             dla_cfg = make_dla_config(
+                reweight=reweight,
                 T=extra.get("T", 3.0), b=extra.get("b", 0.4),
                 ema_beta=extra.get("ema", 0.001),
                 backbone_policy=extra.get("backbone_policy", "sigmoid_kl"),

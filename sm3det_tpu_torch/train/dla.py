@@ -6,7 +6,8 @@ Port of ``sm3det_tpu/train/dla.py`` (the reference's
 (backbone and neck) multiplier from the ``sigmoid_kl`` policy (or ``min``,
 ``avg``, ``max``, ``kl``) over the softmaxed loss distributions, and an EMA
 of every loss that updates each step; the multipliers switch on once
-``steps >= warmup_iters``. The losses keep the ``{sar,rgb,ifr}_loss_*``
+``steps >= warmup_iters``. ``reweight_for_variant`` gives the
+``TriSourceVariant`` heads' (loss, subnet) pairs. The losses keep the ``{sar,rgb,ifr}_loss_*``
 names. The state is a few fp32 numbers on the host: the train step reads
 the losses there once a step.
 """
@@ -31,6 +32,33 @@ DEFAULT_REWEIGHT_LOSSES: Tuple[Tuple[str, str], ...] = (
     ("ifr_loss_cls", "ifr_roi_head"),
     ("ifr_loss_bbox", "ifr_roi_head"),
 )
+
+
+def reweight_for_variant(sar_stages: int, rot_stages: int
+                         ) -> Tuple[Tuple[str, str], ...]:
+    """The (loss, subnet) pairs of a ``TriSourceVariant``: its loss names
+    and the heads that make them (``reweight_for_variant`` of the JAX
+    package; the caller passes both stage numbers)."""
+    out = []
+    if sar_stages == 1:
+        out += [("sar_loss_cls", "sar_bbox_head"),
+                ("sar_loss_bbox", "sar_bbox_head"),
+                ("sar_loss_dfl", "sar_bbox_head")]
+    else:
+        out += [("sar_loss_rpn_cls", "sar_rpn_head"),
+                ("sar_loss_rpn_bbox", "sar_rpn_head"),
+                ("sar_loss_cls", "sar_roi_head"),
+                ("sar_loss_bbox", "sar_roi_head")]
+    for m in ("rgb", "ifr"):
+        if rot_stages == 1:
+            out += [(f"{m}_loss_cls", f"{m}_bbox_head"),
+                    (f"{m}_loss_bbox", f"{m}_bbox_head")]
+        else:
+            out += [(f"{m}_loss_rpn_cls", f"{m}_rpn_head"),
+                    (f"{m}_loss_rpn_bbox", f"{m}_rpn_head"),
+                    (f"{m}_loss_cls", f"{m}_roi_head"),
+                    (f"{m}_loss_bbox", f"{m}_roi_head")]
+    return tuple(out)
 
 
 class DLAState(NamedTuple):

@@ -48,5 +48,6 @@ def build_from_cfg(cfg: Dict[str, Any], registry: Registry, **extra):
 
 BACKBONES = Registry("backbones")
 NECKS = Registry("necks")
+HEADS = Registry("heads")
 DETECTORS = Registry("detectors")
 DATASETS = Registry("datasets")

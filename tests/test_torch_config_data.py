@@ -202,10 +202,9 @@ def test_flagship_configs_reach_the_detector(monkeypatch, arch):
     ("configs/local_configs/main_DA_convnext_t_orcnn_gfl.py",
      "da_block_inds"),
     ("configs/local_configs/dota_lsk_t_orcnn.py", "LSKNet_moe"),
-    ("configs/local_configs/SM3Det_convnext_t_s2anet_gfl.py",
-     "TriSourceVariant"),
-    ("configs/local_configs/SM3Det_convnext_t_roitrans_retina.py",
-     "TriSourceVariant")])
+    ("configs/local_configs/dota_convnext_t_s2anet.py", "S2ANet"),
+    ("configs/local_configs/dota_convnext_t_roitrans.py",
+     "RoITransformer")])
 def test_unported_types_raise_by_name(path, name):
     cfg = Config.fromfile(_cfg(path))
     with pytest.raises(NotImplementedError, match=name):

@@ -1325,3 +1325,90 @@ def test_lsk_van_joint_bf16_makes_no_host_sync(cuda, path):
             assert torch.equal(x, y)
     assert bool(torch.isfinite(second[0][0]).all())
     assert int(second[0][2].sum()) > 0
+
+
+# ---- the shapes of the TriSource variants and the zoo's detectors ----------
+
+# the H2 SAR RPN at 800^2: min(1000, level) candidates of five levels
+H2_RPN_N = 4 * 1000 + 13 * 13 * 3
+
+
+def test_hbb_nms_mask_and_keep_at_the_h2_rpn_size(cuda):
+    """Row 4's mask mode and the keep scan at the H2 SAR RPN's n = 4507
+    candidates an image, the train step's 2 SAR images: the bits equal the
+    plain version's, the keeps equal the plain greedy keep and two runs."""
+    gen = torch.Generator(device=cuda).manual_seed(4507)
+    boxes = _hbb_boxes(gen, 2, H2_RPN_N, cuda)
+    build.reset_launches()
+    got = hik.hbb_nms_mask(boxes, 0.7)
+    assert build.LAUNCHES["hbb_nms_mask"] == 1
+    ref = hik.hbb_nms_mask_ref(boxes, 0.7)
+    torch.cuda.synchronize()
+    assert got.shape == (2, H2_RPN_N, 141)
+    assert torch.equal(got, ref)
+    elig = torch.rand(2, H2_RPN_N, generator=gen, device=cuda) < 0.95
+    keep = nkk.nms_keep(got, elig)
+    assert torch.equal(keep, nkk.nms_keep_ref(ref, elig))
+    assert torch.equal(keep, nkk.nms_keep(got, elig))
+    assert 0 < int(keep.sum()) < int(elig.sum())
+
+
+@pytest.mark.parametrize("g", [512, 256])
+def test_rotated_iou_at_the_retina_assigner(cuda, g):
+    """Row 5's matrix mode at the rotated RetinaNet assigner's shape: the
+    120087 anchors of an 800^2 image against G padded gts (512 a DOTA
+    image, 256 an infrared one), one launch through
+    ``box_iou_rotated_chunked``, every defined IoU equal to the plain
+    version's."""
+    from sm3det_tpu_torch.models.dense_heads.rotated_retina_head import \
+        make_retina_anchor_generator
+    from sm3det_tpu_torch.ops.rotated_iou import box_iou_rotated_chunked
+    gen = torch.Generator(device=cuda).manual_seed(g)
+    sizes = [(s, s) for s in (100, 50, 25, 13, 7)]
+    anchors = torch.cat(make_retina_anchor_generator().grid_anchors(
+        sizes, device=cuda))[None]
+    assert anchors.shape == (1, 120087, 5)
+    gts = _rboxes(gen, 1, g, cuda, span=800.0)
+    build.reset_launches()
+    got = box_iou_rotated_chunked(anchors, gts)
+    assert build.LAUNCHES["rotated_iou"] == 1
+    ref = rik.rotated_iou_ref(anchors, gts)
+    torch.cuda.synchronize()
+    real_a = (anchors[..., 2] * anchors[..., 3]) > 0
+    real_g = (gts[..., 2] * gts[..., 3]) > 0
+    ok = real_a[..., :, None] == real_g[..., None, :]
+    assert torch.equal(got * ok, ref * ok)
+    assert int(((ref > 0.5) & ok).sum()) > g
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_on_horizontal_integer_rois(cuda, dtype):
+    """Rows 7 and 8 on the H2 SAR branch's RoIs: axis-aligned boxes with
+    integer edges (angle 0, through ``hbb_to_roi5``), where bilinear taps
+    land on pixel edges, 256 an image for 2 images, at C = 256: the
+    forward and the feature gradient against the plain versions, with the
+    tolerance of the tests above, two launches bit-equal."""
+    from sm3det_tpu_torch.models.roi_heads.standard_roi_head import \
+        hbb_to_roi5
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    b, n, size, c = 2, 512, 800, 256
+    x1y1 = torch.randint(-20, size - 16, (n, 2), generator=gen, device=cuda)
+    wh = torch.randint(1, 400, (n, 2), generator=gen, device=cuda)
+    hbb = torch.cat([x1y1, x1y1 + wh], -1).float()
+    hbb[::17, 2:] = hbb[::17, :2]                  # no size
+    rois = torch.cat([torch.arange(b, device=cuda).repeat_interleave(
+        n // b).float()[:, None], hbb_to_roi5(hbb)], -1)
+    assert bool((rois[:, 5] == 0).all())
+    feats = _pyramid(gen, b, size, c, dtype, cuda)
+    lvls = route_levels(rois)
+    got = rak.roi_align_rotated_pyramid_fused(feats, rois)
+    _check(got, roi_align_rotated_pyramid(feats, rois, lvls, 7), dtype)
+    assert torch.equal(got, rak.roi_align_rotated_pyramid_fused(feats, rois))
+    shapes = [(b, size // s, size // s, c) for s in (4, 8, 16, 32)]
+    g = _rand(gen, n, 7, 7, c, dtype=dtype)
+    bwd = rak.roi_align_rotated_pyramid_bwd(g, rois, lvls, shapes, dtype)
+    again = rak.roi_align_rotated_pyramid_bwd(g, rois, lvls, shapes, dtype)
+    ref = rak.roi_align_rotated_pyramid_bwd_ref(g, rois, lvls, shapes, dtype)
+    for a, a2, r in zip(bwd, again, ref):
+        _check(a, r, dtype)
+        assert torch.equal(a, a2)

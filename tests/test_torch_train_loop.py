@@ -447,7 +447,8 @@ def test_cli_raises_without_a_card(tmp_path, monkeypatch):
     (["--cfg-options", "ema_decay=0.999"], "item 3"),
     (["--cfg-options", "optimizer.accumulate=2"], "item 3"),
     (["--cfg-options", "lr_config.policy=cosine"], "item 3"),
-    (["--cfg-options", "model.type=TriSourceVariant"], "item 7")])
+    (["--cfg-options", "model.type=TriSourceVariant",
+      "evaluation.interval=1"], "evaluation=None")])
 def test_cli_raises_for_what_is_not_ported(tmp_path, extra, match):
     with pytest.raises(NotImplementedError, match=match):
         train_cli.main([SMOKE, "--synthetic-data", "--device", "cpu",
