@@ -89,7 +89,19 @@ Phases (any failure exits non-zero):
    (``dota_convnext_t_orcnn.py``, ``sardet50k_convnext_t_gfl.py``) at 8 x
    800^2 bf16: images/s, peak memory, host syncs, launches; then
    ``OrientedRCNN`` at one 800^2 image in fp32, card against host, stage
-   by stage.
+   by stage;
+10. the refinement and cascade detectors: (a) ``R3Det``, ``S2ANet``
+   (``refine_reg_loss`` smooth_l1 and kfiou) and ``RoITransformer``
+   (``dota_convnext_t_{s2anet,roitrans}.py``, full width) in fp32 at 2 x
+   256^2, one forward + backward on the card against the host with the
+   same parameters, batch and sampler keys: every loss within 1e-3
+   relative, each subtree's gradient norm within 1e-2; (b)
+   ``S2ANet.simple_test`` and ``R3Det.simple_test`` at 8 x 800^2 bf16:
+   images/s, device busy time, 0 host syncs, peak memory, the launches,
+   and ``rotated_feature_align`` alone at level 0 beside its bytes;
+   (c) bf16 AdamW train steps of ``S2ANet`` and ``RoITransformer``
+   through the library API at 2 x 800^2: images/s, syncs a step, peak
+   memory, finite losses, the launches a step.
 
 Phase 3 also holds the variants' new shapes: row 4's mask mode and the
 keep scan at the H2 SAR RPN's 4507 candidates an image, row 5's matrix
@@ -2007,6 +2019,286 @@ def phase9(torch, dev, smi, build):
     return failures, rec, step
 
 
+REFINE_CFG = "configs/local_configs/dota_convnext_t_s2anet.py"
+ROITRANS_CFG = "configs/local_configs/dota_convnext_t_roitrans.py"
+REFINE_HOST = (2, 256)      # 10a: images, size
+REFINE_TRAIN = (2, 800)     # 10c: images, size
+REFINE_GTS = 16
+REFINE_TIMED = 4            # 10c: steps timed, after 4 others
+# the kernels each run must launch: the refinement detectors' forward and
+# the train steps (no MoE block in these configs)
+REFINE_KERNELS = ("fused_convnext_block", "fused_layernorm",
+                  "rotated_nms_mask_banded", "nms_keep")
+REFINE_TRAIN_KERNELS = {
+    "S2ANet": ("rotated_iou", "fused_dwconv_ln_train",
+               "fused_dwconv_ln_train_bwd"),
+    "RoITransformer": ("hbb_nms_mask", "nms_keep", "rotated_iou",
+                       "roi_align_rotated", "roi_align_rotated_bwd",
+                       "fused_dwconv_ln_train", "fused_dwconv_ln_train_bwd")}
+
+
+def refine_batch(np, rng, n, img, g):
+    """One modality's train batch of oriented gts, numpy."""
+    return {"img": rng.rand(n, img, img, 3).astype(np.float32),
+            "gt_obbs": np.stack([
+                rng.uniform(25, img - 25, (n, g)),
+                rng.uniform(25, img - 25, (n, g)),
+                rng.uniform(10, 60, (n, g)), rng.uniform(6, 30, (n, g)),
+                rng.uniform(-1.2, 1.2, (n, g))], -1).astype(np.float32),
+            "gt_labels": rng.randint(0, 26, (n, g)).astype(np.int32),
+            "gt_mask": np.ones((n, g), bool)}
+
+
+def phase10(torch, dev, smi, build):
+    """10. The zoo's refinement and cascade detectors on the card: (a)
+    ``R3Det``, ``S2ANet`` (``refine_reg_loss`` smooth_l1 and kfiou) and
+    ``RoITransformer`` at full width, fp32, 2 x 256^2: one forward +
+    backward on the card against the host with the same parameters, batch
+    and sampler keys (the host's RPN proposals replayed from the card's):
+    every loss within 1e-3 relative, each top-level subtree's gradient norm
+    within 1e-2; (b) ``S2ANet.simple_test`` and ``R3Det.simple_test`` at
+    the widths of ``dota_convnext_t_s2anet.py``, 8 x 800^2 bf16:
+    images/s, device busy time, host syncs (0 required), peak memory, the
+    launches a forward, and ``rotated_feature_align`` alone at level 0;
+    (c) bf16 AdamW train steps of ``S2ANet`` and ``RoITransformer``
+    through the library API, 2 x 800^2: images/s, syncs a step, peak
+    memory, finite losses, the launches a step. Returns (failures, record,
+    launches of one RoITransformer train step)."""
+    import copy
+    import os
+
+    import numpy as np
+
+    from sm3det_tpu_torch.models.builder import build_detector
+    from sm3det_tpu_torch.models.detectors import redet_roitrans as rt_mod
+    from sm3det_tpu_torch.ops.geometry_extras import rotated_feature_align
+    from sm3det_tpu_torch.train.optim import make_optimizer
+    from sm3det_tpu_torch.train.train_state import (
+        batch_to, build_train_step, init_train_state, trainable_params)
+    from sm3det_tpu_torch.utils.config import Config
+
+    failures, rec = [], {}
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False     # as main: fp32 is fp32
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def model_cfg(path, mtype=None, **extra):
+        mc = Config.fromfile(path).model.to_dict()
+        if mtype:
+            mc["type"] = mtype
+        mc.update(extra)
+        return mc
+
+    # (a) card against host, fp32
+    n_img, size = REFINE_HOST
+    hbatch = refine_batch(np, np.random.RandomState(10), n_img, size,
+                          REFINE_GTS)
+    real = rt_mod.hbb_rpn_get_proposals
+    rec["card_host"] = {}
+    for tag, mc in (
+            ("R3Det", model_cfg(REFINE_CFG, "R3Det")),
+            ("S2ANet smooth_l1", model_cfg(REFINE_CFG)),
+            ("S2ANet kfiou", model_cfg(REFINE_CFG,
+                                       refine_reg_loss="kfiou")),
+            ("RoITransformer", model_cfg(ROITRANS_CFG))):
+        t0 = time.perf_counter()
+        card = build_detector(mc, device=dev, compute_dtype="float32",
+                              seed=0, trainable=True)
+        host = copy.deepcopy(card).to("cpu")
+        # the proposal NMS is a discrete function of float noise: the
+        # host takes the card's proposals
+        recorded, replayed = [], [0]
+
+        def record(*a, **kw):
+            out = real(*a, **kw)
+            recorded.append(out)
+            return out
+
+        def replay(*a, **kw):
+            replayed[0] += 1
+            return tuple(t.cpu() for t in recorded[replayed[0] - 1])
+
+        runs = {}
+        for side, m, dv, patch in (("card", card, dev, record),
+                                   ("host", host, torch.device("cpu"),
+                                    replay)):
+            rt_mod.hbb_rpn_get_proposals = patch
+            try:
+                params = trainable_params(m)
+                losses = m(batch_to({"d": hbatch}, dv)["d"],
+                           gen=torch.Generator().manual_seed(5))
+                grads = torch.autograd.grad(
+                    sum(losses.values()), list(params.values()),
+                    allow_unused=True)
+                grads = [torch.zeros_like(p) if g is None else g
+                         for p, g in zip(params.values(), grads)]
+            finally:
+                rt_mod.hbb_rpn_get_proposals = real
+            runs[side] = ({k: float(v.detach()) for k, v in losses.items()},
+                          subtree_norms(torch, list(params), grads))
+            del losses, grads
+        (ld, nd), (lh, nh) = runs["card"], runs["host"]
+        bad = [k for k in lh if not (np.isfinite(ld[k]) and abs(
+            ld[k] - lh[k]) <= 1e-3 * abs(lh[k]) + 1e-7)]
+        bad += [f"|grad {k}|" for k in nh if not (np.isfinite(nd[k]) and abs(
+            nd[k] - nh[k]) <= 1e-2 * nh[k])]
+        worst_l = max(abs(ld[k] - lh[k]) / max(abs(lh[k]), 1e-12)
+                      for k in lh)
+        worst_g = max(abs(nd[k] - nh[k]) / max(nh[k], 1e-12) for k in nh)
+        rec["card_host"][tag] = dict(card_losses=ld, host_losses=lh,
+                                     card_norms=nd, host_norms=nh,
+                                     worst_loss_rel=worst_l,
+                                     worst_grad_norm_rel=worst_g)
+        log(f"[refine fp32] {tag}, {n_img} x {size}^2, card against host"
+            f"{' with the card proposals' if recorded else ''}: {len(lh)} "
+            f"losses, worst {worst_l:.2e} relative (tol 1e-3); {len(nh)} "
+            f"subtree gradient norms, worst {worst_g:.2e} (tol 1e-2); "
+            f"{time.perf_counter() - t0:.1f} s "
+            f"{'ok' if not bad else 'FAIL ' + str(bad)}")
+        for k in sorted(lh):
+            log(f"[refine fp32]   {k}: card {ld[k]:.6e} host {lh[k]:.6e}")
+        failures += [f"refine {tag} card/host {k}" for k in bad]
+        del card, host, recorded
+        torch.cuda.empty_cache()
+
+    # (b) the refinement detectors' simple_test, 8 x 800^2 bf16
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    imgs = torch.rand(N_IMGS, IMG, IMG, 3, generator=gen, device=dev)
+    rec["simple_test"] = {}
+    for name in ("S2ANet", "R3Det"):
+        model = build_detector(model_cfg(REFINE_CFG, name), device=dev,
+                               compute_dtype="bfloat16", seed=0)
+
+        def fwd():
+            return model.simple_test(imgs, (IMG, IMG))
+        out = fwd()
+        torch.cuda.synchronize()
+        build.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        out = fwd()
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        sites = host_syncs(torch, fwd)
+        busy = device_ms(torch, fwd, iters=3, warmup=0)
+        _, q1, med, q3 = timed_forwards(torch, fwd, n=6)
+        dets, labels, valid = out
+        n_valid = int(valid.sum())
+        n_syncs = sum(sites.values())
+        ok = bool(torch.isfinite(dets).all()) and n_valid > 0 and \
+            n_syncs == 0 and all(launches.get(k, 0) > 0
+                                 for k in REFINE_KERNELS)
+        rec["simple_test"][name] = dict(
+            images_per_s=N_IMGS / med,
+            images_per_s_quartiles=[N_IMGS / q3, N_IMGS / q1],
+            ms=med * 1e3, ms_quartiles=[q1 * 1e3, q3 * 1e3],
+            device_busy_ms=busy, peak_gib=peak, host_syncs=n_syncs,
+            sync_sites=sites,
+            launches={k: v for k, v in launches.items() if v},
+            valid=n_valid, dets_shape=list(dets.shape))
+        log(f"[refine] {name} ({os.path.basename(REFINE_CFG)}) simple_test "
+            f"8 x {IMG}^2 bf16: median {med * 1e3:.2f} ms (quartiles "
+            f"{q1 * 1e3:.2f} / {q3 * 1e3:.2f}), {N_IMGS / med:.2f} "
+            f"images/s (host clock); device busy {ms_str(busy)} a forward "
+            f"(torch.profiler); peak {peak:.2f} GiB; host syncs {n_syncs} "
+            f"{sites}; dets {tuple(dets.shape)}, {n_valid} valid; launches "
+            f"{rec['simple_test'][name]['launches']}; card {smi} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"refine {name} forward")
+        del model, out, dets, labels, valid
+        torch.cuda.empty_cache()
+
+    # rotated_feature_align alone at level 0, (8, 100, 100, 256) bf16
+    feats = (torch.randn(N_IMGS, IMG // 8, IMG // 8, 256, generator=gen,
+                         device=dev)).to(torch.bfloat16)
+    boxes = torch.cat([torch.rand(N_IMGS, IMG // 8, IMG // 8, 2,
+                                  generator=gen, device=dev) * IMG,
+                       8 + torch.rand(N_IMGS, IMG // 8, IMG // 8, 2,
+                                      generator=gen, device=dev) * 120,
+                       torch.rand(N_IMGS, IMG // 8, IMG // 8, 1,
+                                  generator=gen, device=dev) - 0.5], -1)
+
+    def rfa():
+        return rotated_feature_align(feats, boxes, points=5,
+                                     spatial_scale=1.0 / 8)
+    rfa_ms = cuda_ms(torch, rfa)
+    rfa_dev = device_ms(torch, rfa)
+    nbytes = 2 * feats.numel() * feats.element_size() + \
+        boxes.numel() * boxes.element_size()
+    rfa_bound = nbytes / H100_BYTES_PER_S * 1e3
+    rec["rotated_feature_align"] = dict(
+        shape=list(feats.shape), ms=rfa_ms, device_ms=rfa_dev,
+        bytes=nbytes, bytes_bound_ms=rfa_bound)
+    log(f"[refine] rotated_feature_align (plain PyTorch) at level 0 "
+        f"{tuple(feats.shape)} bf16, 5 points: {rfa_ms:.4f} ms, device "
+        f"{ms_str(rfa_dev)}; reads and writes {nbytes / 1e6:.1f} MB "
+        f"(features once, boxes once, output once): bound "
+        f"{rfa_bound:.4f} ms (bytes); card {smi}")
+    del feats, boxes, imgs
+    torch.cuda.empty_cache()
+
+    # (c) train steps through the library API, 2 x 800^2 bf16
+    n_img, size = REFINE_TRAIN
+    rec["train"] = {}
+    step_launches = {}
+    for name, path in (("S2ANet", REFINE_CFG),
+                       ("RoITransformer", ROITRANS_CFG)):
+        model = build_detector(model_cfg(path), device=dev,
+                               compute_dtype="bfloat16", seed=0,
+                               trainable=True)
+        init_fn, update_fn, _ = make_optimizer(
+            list(trainable_params(model)), warmup_iters=2)
+        state = init_train_state(model, init_fn)
+        step = build_train_step(model, update_fn)
+        tb = batch_to({"d": refine_batch(np, np.random.RandomState(11),
+                                         n_img, size, REFINE_GTS)},
+                      dev)["d"]
+        holder = {"state": state}
+
+        def one_step():
+            holder["state"], m = step(holder["state"], tb)
+            return m
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(2):
+            one_step()
+        torch.cuda.synchronize()
+        build.reset_launches()
+        metrics = one_step()
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in build.LAUNCHES.items() if v}
+        sites = host_syncs(torch, one_step)
+        _, q1, med, q3 = timed_forwards(torch, one_step, n=REFINE_TIMED)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        metrics = {k: float(v) for k, v in one_step().items()}
+        n_syncs = sum(sites.values())
+        ok = all(np.isfinite(v) for v in metrics.values()) and all(
+            launches.get(k, 0) > 0 for k in REFINE_TRAIN_KERNELS[name])
+        rec["train"][name] = dict(
+            images_per_s=n_img / med,
+            images_per_s_quartiles=[n_img / q3, n_img / q1],
+            step_ms=med * 1e3, step_ms_quartiles=[q1 * 1e3, q3 * 1e3],
+            syncs_per_step=n_syncs, sync_sites=sites, peak_gib=peak,
+            losses=metrics, launches_per_step=launches)
+        log(f"[refine train] {name} ({os.path.basename(path)}), {n_img} x "
+            f"{size}^2 bf16, AdamW: median step {med * 1e3:.1f} ms "
+            f"(quartiles {q1 * 1e3:.1f} / {q3 * 1e3:.1f}), "
+            f"{n_img / med:.2f} images/s (host clock); {n_syncs} syncs a "
+            f"step {sites}; peak {peak:.2f} GiB; card {smi} "
+            f"{'ok' if ok else 'FAIL'}")
+        log(f"[refine train]   launches a step: {launches}")
+        log("[refine train]   losses: " + ", ".join(
+            f"{k} {v:.5f}" for k, v in metrics.items()))
+        if not ok:
+            failures.append(f"refine train {name}")
+        step_launches[name] = launches
+        del model, state, step, holder, tb
+        torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[refine] phase 10 wall time {rec['phase_s']:.1f} s")
+    return failures, rec, step_launches
+
+
 def main():
     try:
         import torch
@@ -3669,6 +3961,16 @@ def main():
         if k in recs:
             recs[k].extra["h2r2_train_step_launches"] = n
 
+    # ---- 10. the refinement and cascade detectors --------------------------
+    torch.cuda.empty_cache()
+    ref_failures, ref_rec, ref_launches = phase10(torch, dev, smi, build)
+    if ref_failures:
+        fail(f"refinement and cascade phase failed: {ref_failures}")
+    for name, launched in ref_launches.items():
+        for k, n in launched.items():
+            if k in recs:
+                recs[k].extra[f"{name.lower()}_train_step_launches"] = n
+
     log(json.dumps({
         "kernels": [recs[k].json(launches[k]) for k in recs],
         "launches_from": "simple_test_joint [8:4:4]; rotated_nms_mask "
@@ -3691,7 +3993,7 @@ def main():
         "train_entry_launches": train_entry_launches,
         "lsk_van_reweight": lsk_rec,
         "variants_zoo": var_rec, "h2r2_train_step_launches": var_launches,
-        "card": smi}))
+        "refine_cascade": ref_rec, "card": smi}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -6,8 +6,10 @@ entries: ``backbone`` and ``neck``; the TriSource heads
 (``sar_bbox_head``, ``sar_rpn_head``, ``sar_roi_head``,
 ``{rgb,ifr}_{rpn,roi,bbox}_head``); the single-dataset detectors' heads
 (``rpn_head``, ``roi_head``, ``bbox_head``, the cascade's
-``bbox_head{i}``, and the horizontal RetinaNet's top-level
-``cls_conv{i}``, ``reg_conv{i}``, ``retina_cls`` and ``retina_reg``); and
+``bbox_head{i}``, the horizontal RetinaNet's top-level ``cls_conv{i}``,
+``reg_conv{i}``, ``retina_cls`` and ``retina_reg``, R3Det's and S2ANet's
+``refine_head{i}``, RoI Transformer's ``stage1_head`` and
+``stage2_head``); and
 ``mtl_sigma`` (the uncertainty reweighting's sigmas) where the tree has
 it. It raises on a leaf that no rule consumes and on a top-level entry it
 does not know.
@@ -18,7 +20,8 @@ for a ConvNeXt, LSKNet or VAN backbone:
 
 - conv kernels HWIO -> OIHW (the stems, patch embeds, 1x1 convs, the
   squeeze conv, the heads' convs), the depthwise (k, k, 1, C) ->
-  (C, 1, k, k);
+  (C, 1, k, k); ORConv's base ``weight`` (k, k, Cin, O_in, Cout) ->
+  (Cout, Cin, O_in, k, k);
 - the ConvNeXt pointwise Dense kernels keep the (in, out) layout that the
   GEMM kernel reads; the gate's ``cosine_projector`` and the RoI heads'
   Dense layers become Linear weights (out, in);
@@ -47,7 +50,8 @@ SUBTREES = ("backbone", "neck", "sar_bbox_head", "rgb_rpn_head",
             "ifr_rpn_head", "rgb_roi_head", "ifr_roi_head")
 # every top-level module name a detector of the port may have
 _TOP = re.compile(r"backbone|neck|((sar|rgb|ifr)_)?(bbox|rpn|roi)_head"
-                  r"|bbox_head\d+|(cls|reg)_conv\d+|retina_(cls|reg)")
+                  r"|bbox_head\d+|(cls|reg)_conv\d+|retina_(cls|reg)"
+                  r"|refine_head\d+|stage[12]_head")
 # top-level leaves a tree may hold: the uncertainty reweighting's sigmas
 OPTIONAL_LEAVES = ("mtl_sigma",)
 _LINEAR = {"cosine_projector", "shared_fc0", "shared_fc1", "fc_cls", "fc_reg"}
@@ -67,6 +71,7 @@ def _leaves(tree, path=()) -> Iterator[Tuple[tuple, np.ndarray]]:
 # the layout change of each rule and its inverse
 _HWIO_TO_OIHW = ((3, 2, 0, 1), (2, 3, 1, 0))
 _TRANSPOSE = ((1, 0), (1, 0))
+_ORCONV = ((4, 2, 3, 0, 1), (3, 4, 1, 2, 0))
 
 
 def _rule(path: tuple, v: np.ndarray):
@@ -76,6 +81,8 @@ def _rule(path: tuple, v: np.ndarray):
     name, perm = None, None
     if leaf == "kernel" and v.ndim == 4:
         name, perm = "weight", _HWIO_TO_OIHW
+    elif leaf == "weight" and v.ndim == 5 and parent == "or_conv":
+        name, perm = "weight", _ORCONV
     elif leaf == "kernel" and v.ndim == 2 and parent.startswith("pwconv"):
         name = "kernel"
     elif leaf == "kernel" and v.ndim == 2 and parent in _LINEAR:

@@ -9,8 +9,9 @@ what it has:
   ``LSKNet``, ``LSKNet_moe_MultiInput``, ``VAN``, ``VAN_moe_MultiInput``),
   ``TriSourceVariant`` (its ``sar_stages`` / ``rot_stages`` from the
   config), and the single-dataset ``OrientedRCNN``, ``GFL``,
-  ``RotatedRetinaNet``, ``FasterRCNN``, ``CascadeRCNN`` and ``RetinaNet``
-  on the single-stem ConvNeXt (``ConvNeXt_moe`` or no backbone type);
+  ``RotatedRetinaNet``, ``FasterRCNN``, ``CascadeRCNN``, ``RetinaNet``,
+  ``R3Det``, ``S2ANet`` and ``RoITransformer`` on the single-stem
+  ConvNeXt (``ConvNeXt_moe`` or no backbone type);
 - the ``MultitaskFPN``, and the heads those detectors use.
 
 Every other name the JAX package registers raises ``NotImplementedError``
@@ -36,10 +37,14 @@ from .dense_heads.oriented_rpn_head import OrientedRPNHead
 from .dense_heads.rotated_retina_head import CSLRetinaHead, RotatedRetinaHead
 from .dense_heads.rpn_head import RPNHead
 from .detectors.hbb_detectors import CascadeRCNN, FasterRCNN, RetinaNet
+from .detectors.redet_roitrans import RoITransformer
+from .detectors.refine_detectors import (ODMRefineHead, R3Det, RefineHead,
+                                         S2ANet)
 from .detectors.trisource import TriSourceDetector
 from .detectors.trisource_variants import DEFAULT_STAGES, TriSourceVariant
 from .detectors.zoo import GFLDetector, OrientedRCNN, RotatedRetinaNet
 from .necks.fpn import MultitaskFPN
+from .roi_heads.cascade_heads import HBB2OBBBBoxHead
 from .roi_heads.oriented_roi_head import RotatedShared2FCBBoxHead
 from .roi_heads.standard_roi_head import Shared2FCBBoxHead
 
@@ -67,10 +72,11 @@ for _name, _cls in (("TriSourceDetector", TriSourceDetector),
                     ("OrientedRCNN", OrientedRCNN), ("GFL", GFLDetector),
                     ("RotatedRetinaNet", RotatedRetinaNet),
                     ("FasterRCNN", FasterRCNN), ("CascadeRCNN", CascadeRCNN),
-                    ("RetinaNet", RetinaNet)):
+                    ("RetinaNet", RetinaNet), ("R3Det", R3Det),
+                    ("S2ANet", S2ANet), ("RoITransformer", RoITransformer)):
     DETECTORS.register_module(_name, module=_cls)
-# the JAX package's head names; KFIoURRetinaHead's box loss raises in
-# retina_loss, CSLRRetinaHead on construction
+# the JAX package's head names (the KFIoU ones select the box loss through
+# normalize_model_cfg); CSLRRetinaHead raises on construction
 for _name, _cls in (("GFLHead", GFLHead), ("OrientedRPNHead", OrientedRPNHead),
                     ("RotatedRetinaHead", RotatedRetinaHead),
                     ("RotatedAnchorHead", RotatedRetinaHead),
@@ -78,13 +84,16 @@ for _name, _cls in (("GFLHead", GFLHead), ("OrientedRPNHead", OrientedRPNHead),
                     ("CSLRRetinaHead", CSLRetinaHead), ("RPNHead", RPNHead),
                     ("RotatedRPNHead", RPNHead),
                     ("RotatedShared2FCBBoxHead", RotatedShared2FCBBoxHead),
-                    ("Shared2FCBBoxHead", Shared2FCBBoxHead)):
+                    ("Shared2FCBBoxHead", Shared2FCBBoxHead),
+                    ("HBB2OBBBBoxHead", HBB2OBBBBoxHead),
+                    ("ODMRefineHead", ODMRefineHead),
+                    ("RotatedRetinaRefineHead", RefineHead),
+                    ("KFIoUODMRefineHead", ODMRefineHead),
+                    ("KFIoURRetinaRefineHead", RefineHead)):
     HEADS.register_module(_name, module=_cls)
 for _name in ("RotatedFCOSHead", "OrientedRepPointsHead", "GVBBoxHead",
-              "HBB2OBBBBoxHead", "RotatedATSSHead", "RotatedRepPointsHead",
-              "SAMRepPointsHead", "CSLRFCOSHead", "ODMRefineHead",
-              "RotatedRetinaRefineHead", "KFIoUODMRefineHead",
-              "KFIoURRetinaRefineHead", "RotatedAnchorFreeHead"):
+              "RotatedATSSHead", "RotatedRepPointsHead", "SAMRepPointsHead",
+              "CSLRFCOSHead", "RotatedAnchorFreeHead"):
     HEADS.register_module(_name, module=_unported("head", _name, ZOO))
 
 for _name, _item in [("ConvNeXt_DA_MultiInput", LEFTOVERS)] + [
@@ -97,10 +106,9 @@ for _name, _item in [("ConvNeXt_DA_MultiInput", LEFTOVERS)] + [
 for _name, _item in (("FPN", LEFTOVERS), ("SimpleFPN", LEFTOVERS),
                      ("ReFPN", ZOO)):
     NECKS.register_module(_name, module=_unported("neck", _name, _item))
-for _name in ("R3Det", "S2ANet", "ReDet", "RoITransformer", "RotatedFCOS",
-              "GlidingVertex", "OrientedRepPoints", "RotatedFasterRCNN",
-              "RotatedRepPoints", "SAMRepPoints", "GRepPoints",
-              "RotatedATSS"):
+for _name in ("ReDet", "RotatedFCOS", "GlidingVertex", "OrientedRepPoints",
+              "RotatedFasterRCNN", "RotatedRepPoints", "SAMRepPoints",
+              "GRepPoints", "RotatedATSS"):
     DETECTORS.register_module(_name, module=_unported("detector", _name,
                                                       ZOO))
 

@@ -6,7 +6,8 @@ single-dataset ``RotatedRetinaNet``: ``RotatedRetinaHead`` (four 3x3 conv
 + ReLU layers a tower, then the 3x3 classifier, its bias at the 0.01
 prior, and the 3x3 regressor; 9 anchors a cell), the anchor generator and
 coder of the retina recipe, ``retina_loss`` (MaxIoU on rotated IoU over
-all anchors, sigmoid focal loss, L1 or Smooth L1 on the deltas) and
+all anchors, sigmoid focal loss, L1 or Smooth L1 on the deltas, or a
+decoded-box loss: GWD, KLD, KFIoU or the rotated IoU loss) and
 ``retina_get_bboxes`` (per-level top-k by best class score, decode,
 multi-class rotated NMS), batched over images instead of ``vmap``.
 
@@ -32,10 +33,11 @@ from ...core.bbox.coders import DeltaXYWHAOBBoxCoder
 from ...ops.nms import _take, _topk_scores, multiclass_nms_rotated
 from ...ops.rotated_iou import box_iou_rotated_chunked
 from ..layers import Conv2d
-from ..losses import l1_loss, sigmoid_focal_loss, smooth_l1_loss
+from ..losses import (gwd_loss, kfiou_loss, kld_loss, l1_loss,
+                      rotated_iou_loss, sigmoid_focal_loss, smooth_l1_loss)
 
-ZOO_LOSSES = "ROADMAP queue 1 item 7 (the other losses: KLD/GWD, KFIoU, " \
-    "rotated IoU)"
+REG_LOSSES = ("l1", "smooth_l1", "gwd", "kld", "kfiou", "riou")
+
 ANGLE_CODER = "ROADMAP queue 1 item 7 (angle_coder.py)"
 PRIOR_BIAS = -math.log((1 - 0.01) / 0.01)
 
@@ -123,14 +125,14 @@ def retina_loss(cls_scores, bbox_preds, gt_obbs, gt_labels, gt_mask,
                 reg_loss: str = "smooth_l1"):
     """Focal + regression loss over every anchor of a batch: per-level
     outputs in fp32, gts (B, G, 5) with labels and mask (B, G).
-    ``reg_loss``: ``"l1"`` or ``"smooth_l1"`` (``beta``) on the deltas;
-    the decoded-box families of the JAX function (``gwd``, ``kld``,
-    ``kfiou``, ``riou``) raise. Returns dict(loss_cls, loss_bbox), each
-    divided by the batch's count of positives."""
-    if reg_loss not in ("l1", "smooth_l1"):
-        raise NotImplementedError(
-            f"retina reg_loss {reg_loss!r} is not ported to "
-            f"sm3det_tpu_torch: {ZOO_LOSSES}")
+    ``reg_loss``: ``"l1"`` or ``"smooth_l1"`` (``beta``) on the deltas,
+    or on the boxes decoded from them: ``"gwd"``, ``"kld"``, ``"kfiou"``
+    (with Smooth L1 on the centre deltas) or ``"riou"`` (-log of the
+    rotated IoU). Returns dict(loss_cls, loss_bbox), each divided by the
+    batch's count of positives."""
+    if reg_loss not in REG_LOSSES:
+        raise ValueError(f"retina reg_loss {reg_loss!r}: one of "
+                         f"{REG_LOSSES}")
     dev = cls_scores[0].device
     featmap_sizes = [tuple(s.shape[1:3]) for s in cls_scores]
     anchors = torch.cat(anchor_generator.grid_anchors(featmap_sizes,
@@ -157,16 +159,32 @@ def retina_loss(cls_scores, bbox_preds, gt_obbs, gt_labels, gt_mask,
         l_cls = l_cls + sigmoid_focal_loss(
             flat_cls[i], cls_target, weight=(pos | neg).float(),
             avg_factor=1.0)
-        targets = coder.encode(anchors, gts[gt_idx])
-        w = pos[:, None].float()
-        l_reg = l_reg + (
-            l1_loss(flat_reg[i], targets, weight=w, avg_factor=1.0)
-            if reg_loss == "l1" else
-            smooth_l1_loss(flat_reg[i], targets, beta=beta, weight=w,
-                           avg_factor=1.0))
+        l_reg = l_reg + _reg_loss(reg_loss, flat_reg[i], anchors,
+                                  gts[gt_idx], pos, coder, beta)
         n_pos = n_pos + pos.sum()
     total = torch.clamp(torch.as_tensor(n_pos, device=dev).float(), min=1.0)
     return {"loss_cls": l_cls / total, "loss_bbox": l_reg / total}
+
+
+def _reg_loss(kind, reg, anchors, target_obbs, pos, coder, beta):
+    """One image's summed box loss of ``kind`` over its positives."""
+    if kind in ("l1", "smooth_l1"):
+        targets = coder.encode(anchors, target_obbs)
+        w = pos[:, None].float()
+        if kind == "l1":
+            return l1_loss(reg, targets, weight=w, avg_factor=1.0)
+        return smooth_l1_loss(reg, targets, beta=beta, weight=w,
+                              avg_factor=1.0)
+    decoded = coder.decode(anchors, reg)
+    w = pos.float()
+    if kind == "gwd":
+        return gwd_loss(decoded, target_obbs, weight=w, avg_factor=1.0)
+    if kind == "kld":
+        return kld_loss(decoded, target_obbs, weight=w, avg_factor=1.0)
+    if kind == "kfiou":
+        return kfiou_loss(reg, coder.encode(anchors, target_obbs), decoded,
+                          target_obbs, weight=w, avg_factor=1.0)
+    return rotated_iou_loss(decoded, target_obbs, weight=w, avg_factor=1.0)
 
 
 def retina_get_bboxes(cls_scores, bbox_preds,

@@ -1,0 +1,156 @@
+"""RoI Transformer: the cascade from horizontal to oriented RoIs.
+
+Port of ``RoITransformer`` of
+``sm3det_tpu/models/detectors/redet_roitrans.py`` (training losses only,
+as in JAX): a single-stem backbone, the ``MultitaskFPN`` from stride 4,
+
+1. the horizontal RPN on the gts' enclosing boxes (``rpn_head``: 64
+   sampled anchors an image; 256 proposals an image after its NMS, row 4's
+   mask mode and the keep scan on the card);
+2. stage 1 (``stage1_head``, ``HBB2OBBBBoxHead``): 128 horizontal RoIs an
+   image sampled among the gts and the proposals, pooled at angle 0,
+   classified and regressed to oriented boxes against ``hbb2obb`` of the
+   RoI (``s1_loss_cls``, ``s1_loss_bbox``);
+3. stage 2 (``stage2_head``, ``RotatedShared2FCBBoxHead``): 128 rotated
+   RoIs an image sampled among the gts and stage 1's boxes (no gradient
+   to them; the assigner's IoU is row 5's matrix mode on the card), the
+   rotated align, the R-CNN loss (``s2_loss_cls``, ``s2_loss_bbox``).
+
+The three samplers' keys come from ``SampleKeys``, in that order. ReDet
+(ReResNet, ReFPN, RiRoI align) is not ported.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ...core.bbox.coders import DeltaXYWHAOBBoxCoder, DeltaXYWHBBoxCoder
+from ...core.bbox.samplers import SampleKeys
+from ...ops.box_convert import hbb2obb, obb2xyxy
+from ..dense_heads.rpn_head import (RPNHead, hbb_rpn_get_proposals,
+                                    hbb_rpn_loss)
+from ..losses import smooth_l1_loss, softmax_cross_entropy
+from ..roi_heads.cascade_heads import HBB2OBBBBoxHead, roi_trans_stage1
+from ..roi_heads.oriented_roi_head import (RotatedShared2FCBBoxHead,
+                                           bbox_head_loss, candidate_gt_ious,
+                                           sample_rois_for_training)
+from ..roi_heads.standard_roi_head import (candidate_gt_overlaps,
+                                           sample_hbb_rois)
+from .hbb_detectors import make_hbb_rpn_anchor_generator
+from .trisource import make_rcnn_coder, roi_feats
+from .zoo import ZooDetector
+
+RPN_SAMPLE = 64         # anchors sampled an image by the RPN loss
+PROPOSALS = 256         # proposals an image (nms_pre and max_per_img)
+ROI_SAMPLE = 128        # RoIs sampled an image by each stage
+
+
+def make_stage1_coder(version="le90"):
+    """Stage 1's deltas of an oriented box against an ``hbb2obb`` prior."""
+    return DeltaXYWHAOBBoxCoder(angle_range=version, target_means=(0.,) * 5,
+                                target_stds=(0.1, 0.1, 0.2, 0.2, 0.1))
+
+
+class RoITransformer(ZooDetector):
+    """``rpn_head``, ``stage1_head`` and ``stage2_head``."""
+
+    start_level = 0
+
+    def build_heads(self, c, channels, gen):
+        self.rpn_head = RPNHead(in_channels=channels, gen=gen)
+        self.stage1_head = HBB2OBBBBoxHead(num_classes=c["num_classes"],
+                                           in_channels=channels, gen=gen)
+        self.stage2_head = RotatedShared2FCBBoxHead(
+            num_classes=c["num_classes"], in_channels=channels, gen=gen)
+
+    def forward(self, batch, gen: torch.Generator | None = None,
+                sample_keys=None):
+        """Training losses; ``gen`` draws the backbone's masks and noise,
+        then the RPN sampler's keys and each stage's RoI sampler's
+        (``sample_keys`` replaces the samplers' draws)."""
+        c = self.cfg
+        nc = c["num_classes"]
+        version = c.get("angle_version", "le90")
+        keys = SampleKeys(gen, sample_keys)
+        x, gate_loss = self.extract_feat_train(batch["img"], gen)
+        losses = {} if gate_loss is None else {"gate_loss": gate_loss}
+        gt_obbs, labels, mask = (batch["gt_obbs"], batch["gt_labels"],
+                                 batch["gt_mask"])
+        bsz = gt_obbs.shape[0]
+        dev = gt_obbs.device
+
+        # the horizontal RPN on the gts' enclosing boxes
+        gt_hbbs = obb2xyxy(gt_obbs, version)
+        anchor_gen = make_hbb_rpn_anchor_generator()
+        hbb_coder = DeltaXYWHBBoxCoder()
+        rpn_cls, rpn_reg = self.rpn_head(x)
+        rpn_cls = [s.float() for s in rpn_cls]
+        rpn_reg = [p.float() for p in rpn_reg]
+        n_anchors = sum(s[0].numel() for s in rpn_cls)
+        losses.update(hbb_rpn_loss(
+            keys(n_anchors, bsz, dev), rpn_cls, rpn_reg, gt_hbbs, mask,
+            anchor_gen, hbb_coder, num_sample=RPN_SAMPLE))
+        with torch.no_grad():
+            proposals, _, p_valid = hbb_rpn_get_proposals(
+                [s.detach() for s in rpn_cls], [p.detach() for p in rpn_reg],
+                anchor_gen, hbb_coder, None, nms_pre=PROPOSALS,
+                max_per_img=PROPOSALS)
+
+            # stage 1: horizontal RoIs regressed to oriented boxes
+            k1 = keys(gt_hbbs.shape[1] + proposals.shape[1], bsz, dev)
+            ious = candidate_gt_overlaps(proposals, gt_hbbs)
+            s1 = [sample_hbb_rois(
+                (k1[0][i], k1[1][i]), proposals[i], p_valid[i], gt_hbbs[i],
+                labels[i], mask[i], ious[i], num=ROI_SAMPLE)
+                for i in range(bsz)]
+            rois = torch.stack([sm["rois"] for sm in s1])
+            s = rois.shape[1]
+            bidx = torch.arange(bsz, dtype=rois.dtype, device=dev) \
+                .repeat_interleave(s)[:, None]
+            rois5 = torch.cat([bidx, rois.reshape(-1, 4)], dim=-1)
+        s1_coder = make_stage1_coder(version)
+        cls1, obbs1 = roi_trans_stage1(x, rois5, self.stage1_head, s1_coder,
+                                       version)
+        pos = torch.cat([sm["pos_mask"] for sm in s1])
+        valid = pos | torch.cat([sm["neg_mask"] for sm in s1])
+        gt_idx = torch.stack([sm["gt_idx"] for sm in s1])
+        gts_per_roi = torch.gather(
+            gt_obbs, 1, gt_idx[..., None].expand(-1, -1, 5)).reshape(-1, 5)
+        labels1 = torch.where(
+            pos, torch.gather(labels, 1, gt_idx).reshape(-1).long(), nc)
+        # the losses' averages: max(count, 1), divided on the device
+        losses["s1_loss_cls"] = softmax_cross_entropy(
+            cls1, labels1, weight=valid.float(), avg_factor=1.0) / \
+            torch.clamp(valid.sum().float(), min=1.0)
+        priors1 = hbb2obb(rois5[:, 1:5], version)
+        losses["s1_loss_bbox"] = smooth_l1_loss(
+            s1_coder.encode(priors1, obbs1),
+            s1_coder.encode(priors1, gts_per_roi), beta=1.0,
+            weight=pos[:, None].float(), avg_factor=1.0) / \
+            torch.clamp(pos.sum().float() * 5, min=1.0)
+
+        # stage 2: rotated RoIs among stage 1's boxes
+        with torch.no_grad():
+            obbs1 = obbs1.detach().reshape(bsz, s, 5)
+            k2 = keys(gt_obbs.shape[1] + s, bsz, dev)
+            ious = candidate_gt_ious(obbs1, gt_obbs)
+            every = torch.ones(s, dtype=torch.bool, device=dev)
+            s2 = [sample_rois_for_training(
+                (k2[0][i], k2[1][i]), obbs1[i], every, gt_obbs[i],
+                labels[i], mask[i], ious[i], num=ROI_SAMPLE)
+                for i in range(bsz)]
+            rois2 = torch.stack([sm["rois"] for sm in s2])
+        cl2, rp2 = self.stage2_head(roi_feats(x, rois2))
+        cl2 = cl2.reshape(bsz, rois2.shape[1], -1).float()
+        rp2 = rp2.reshape(bsz, rois2.shape[1], -1).float()
+        coder2 = make_rcnn_coder(version)
+        l_cls = l_reg = 0.0
+        n_valid = 0
+        for i in range(bsz):
+            lc, lr, nv, _ = bbox_head_loss(cl2[i], rp2[i], s2[i], gt_obbs[i],
+                                           labels[i], coder2, nc)
+            l_cls, l_reg, n_valid = l_cls + lc, l_reg + lr, n_valid + nv
+        total = torch.clamp(n_valid.float(), min=1.0)
+        losses["s2_loss_cls"] = l_cls / total
+        losses["s2_loss_bbox"] = l_reg / total
+        return losses

@@ -2,7 +2,10 @@
 
 Port of a subset of ``sm3det_tpu/models/losses.py``: sigmoid and softmax
 cross-entropy, sigmoid focal (RetinaNet), Quality Focal and Distribution
-Focal (GFL), Smooth L1, L1 and GIoU. Every loss takes an elementwise ``weight`` and an ``avg_factor``
+Focal (GFL), Smooth L1, L1 and GIoU, and the rotated-box losses of the
+refinement detectors and the retina head's ``reg_loss`` families: the
+Gaussian distances (``obb2gaussian``, GWD, KLD), KFIoU and the rotated IoU
+loss. Every loss takes an elementwise ``weight`` and an ``avg_factor``
 (the reference's ``weighted_loss`` contract): without ``avg_factor`` the
 mean, with it the sum divided by ``max(avg_factor, 1e-6)``.
 """
@@ -11,6 +14,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from ..ops.rotated_iou import box_iou_rotated
 
 
 def _reduce(loss, weight=None, avg_factor=None):
@@ -120,3 +125,164 @@ def giou_loss(pred, target, eps=1e-7, weight=None, avg_factor=None):
     area_c = wh_c[..., 0] * wh_c[..., 1] + eps
     giou = iou - (area_c - union) / area_c
     return _reduce(1 - giou, weight, avg_factor)
+
+
+def _clip(x, lo=None, hi=None):
+    """``jnp.clip``: ``minimum(maximum(x, lo), hi)``, so that a value on a
+    bound gets half the gradient, as in JAX (``torch.clamp`` gives all of
+    it); e.g. the IoU loss of a box equal to its target, IoU 1."""
+    if lo is not None:
+        x = torch.maximum(x, x.new_full((), lo))
+    if hi is not None:
+        x = torch.minimum(x, x.new_full((), hi))
+    return x
+
+
+def rotated_iou_loss(pred, target, mode="log", eps=1e-6, weight=None,
+                     avg_factor=None):
+    """Rotated IoU loss of aligned (..., 5) box pairs: the plain rotated IoU
+    (``ops/rotated_iou.py``, sort-free clipping) and its autograd, clipped
+    to [eps, 1]; ``mode`` ``"linear"`` (1 - IoU), ``"log"`` (-log IoU) or
+    ``"square"`` (1 - IoU^2)."""
+    ious = _clip(box_iou_rotated(pred, target, aligned=True), eps, 1.0)
+    if mode == "linear":
+        loss = 1 - ious
+    elif mode == "log":
+        loss = -torch.log(ious)
+    elif mode == "square":
+        loss = 1 - ious ** 2
+    else:
+        raise ValueError(mode)
+    return _reduce(loss, weight, avg_factor)
+
+
+# ---- Gaussian-distribution losses (mmrotate gaussian_dist_loss.py) ---------
+
+def _det2(m):
+    """Determinant of (..., 2, 2) matrices, ``a d - b c`` (as
+    ``jnp.linalg.det`` computes a 2 x 2 one)."""
+    return m[..., 0, 0] * m[..., 1, 1] - m[..., 0, 1] * m[..., 1, 0]
+
+
+def _trace2(m):
+    return m[..., 0, 0] + m[..., 1, 1]
+
+
+def _inv2(m):
+    """Inverse of (..., 2, 2) matrices by LU, as ``jnp.linalg.inv``; a
+    singular matrix gives inf / nan and raises nothing (no host sync)."""
+    return torch.linalg.inv_ex(m).inverse
+
+
+def obb2gaussian(obbs):
+    """OBBs (..., 5) -> (mean (..., 2), covariance (..., 2, 2)):
+    ``R diag(w/2, h/2)^2 R^T``, w and h clipped to [1e-7, 1e7]."""
+    xy = obbs[..., :2]
+    wh = _clip(obbs[..., 2:4], 1e-7, 1e7) * 0.5
+    r = obbs[..., 4]
+    cos_r, sin_r = torch.cos(r), torch.sin(r)
+    rmat = torch.stack([torch.stack([cos_r, -sin_r], -1),
+                        torch.stack([sin_r, cos_r], -1)], -2)
+    s = wh[..., None] * torch.eye(2, dtype=obbs.dtype, device=obbs.device)
+    sigma = rmat @ (s * s) @ rmat.transpose(-1, -2)
+    return xy, sigma
+
+
+def _gd_postprocess_v2(distance, fun, tau):
+    """Distance -> loss: ``fun`` ``"log1p"``, ``"sqrt"`` or ``"none"``,
+    then ``1 - 1 / (tau + d)`` when ``tau >= 1``."""
+    if fun == "log1p":
+        distance = torch.log1p(distance)
+    elif fun == "sqrt":
+        distance = torch.sqrt(_clip(distance, 1e-7))
+    elif fun != "none":
+        raise ValueError(fun)
+    return 1 - 1 / (tau + distance) if tau >= 1.0 else distance
+
+
+def gwd_loss(pred, target, fun="log1p", tau=1.0, alpha=1.0, normalize=True,
+             weight=None, avg_factor=None):
+    """Gaussian Wasserstein distance loss: the distance is
+    ``sqrt(xy_dist + alpha^2 whr_dist)``, then divided by
+    ``2 (det_p det_t)^(1/8)``, then post-processed."""
+    mu_p, sig_p = obb2gaussian(pred)
+    mu_t, sig_t = obb2gaussian(target)
+    xy_dist = ((mu_p - mu_t) ** 2).sum(-1)
+    whr = _trace2(sig_p) + _trace2(sig_t)
+    tr_prod = _trace2(sig_p @ sig_t)
+    det_sqrt = torch.sqrt(_clip(_det2(sig_p) * _det2(sig_t), 1e-7))
+    whr = whr - 2 * torch.sqrt(_clip(tr_prod + 2 * det_sqrt, 1e-7))
+    distance = torch.sqrt(_clip(xy_dist + alpha * alpha * whr,
+                                      1e-7))
+    if normalize:
+        scale = 2 * _clip(torch.sqrt(_clip(torch.sqrt(
+            _clip(det_sqrt, 1e-7)), 1e-7)), 1e-7)
+        distance = distance / scale
+    return _reduce(_gd_postprocess_v2(distance, fun, tau), weight,
+                   avg_factor)
+
+
+def kfiou_loss(pred, target, pred_decode, targets_decode, fun=None,
+               beta=1.0 / 9.0, eps=1e-6, weight=None, avg_factor=None):
+    """Kalman-filter IoU loss: Smooth L1 on the centre deltas of ``pred``
+    against ``target``, plus ``1 - KFIoU`` of the decoded boxes, with the
+    Kalman update's covariance ``Sp - Sp (Sp + St)^-1 Sp`` and volumes
+    ``4 sqrt(det)``; ``fun`` ``"ln"`` or ``"exp"`` reshapes the IoU
+    term."""
+    diff = (pred[..., :2] - target[..., :2]).abs()
+    xy_loss = torch.where(diff < beta, 0.5 * diff * diff / beta,
+                          diff - 0.5 * beta).sum(-1)
+    _, sig_p = obb2gaussian(pred_decode)
+    _, sig_t = obb2gaussian(targets_decode)
+    vb_p = 4 * torch.sqrt(_clip(_det2(sig_p), 0))
+    vb_t = 4 * torch.sqrt(_clip(_det2(sig_t), 0))
+    k = sig_p @ _inv2(sig_p + sig_t)
+    sigma = sig_p - k @ sig_p
+    vb = torch.nan_to_num(4 * torch.sqrt(_clip(_det2(sigma), 0)))
+    kfiou = vb / (vb_p + vb_t - vb + eps)
+    if fun == "ln":
+        kf = -torch.log(kfiou + eps)
+    elif fun == "exp":
+        kf = torch.exp(1 - kfiou) - 1
+    else:
+        kf = 1 - kfiou
+    return _reduce(_clip(xy_loss + kf, 0), weight, avg_factor)
+
+
+def _kld_gauss_distance(pred, target):
+    """Un-sqrted KL(pred || target) of the box Gaussians, the TARGET
+    covariance inverted (gaussian_dist_loss_v1's direction)."""
+    mu_p, sig_p = obb2gaussian(pred)
+    mu_t, sig_t = obb2gaussian(target)
+    delta = (mu_p - mu_t)[..., None]
+    inv_t = _inv2(sig_t)
+    term1 = (delta.transpose(-1, -2) @ inv_t @ delta)[..., 0, 0]
+    term2 = _trace2(inv_t @ sig_p)
+    term3 = torch.log(_clip(
+        _det2(sig_t) / _clip(_det2(sig_p), 1e-7), 1e-7))
+    return _clip(0.5 * (term1 + term2 + term3 - 2), 0)
+
+
+def _kld_v2_distance(pred, target, alpha=1.0, sqrt=True):
+    """gaussian_dist_loss's KLD distance, the PREDICTED covariance
+    inverted: ``0.5 d^T Sp^-1 d / alpha^2 + 0.5 Tr(Sp^-1 St)
+    + 0.5 (log|Sp| - log|St|) - 1``, square-rooted when ``sqrt``."""
+    mu_p, sig_p = obb2gaussian(pred)
+    mu_t, sig_t = obb2gaussian(target)
+    delta = (mu_p - mu_t)[..., None]
+    inv_p = _inv2(sig_p)
+    xy_dist = 0.5 * (delta.transpose(-1, -2) @ inv_p @ delta)[..., 0, 0]
+    whr = 0.5 * _trace2(inv_p @ sig_t)
+    whr = whr + 0.5 * (torch.log(_clip(_det2(sig_p), 1e-30))
+                       - torch.log(_clip(_det2(sig_t), 1e-30)))
+    dist = xy_dist / (alpha * alpha) + whr - 1.0
+    if sqrt:
+        dist = torch.sqrt(_clip(dist, 1e-7))
+    return dist
+
+
+def kld_loss(pred, target, fun="log1p", tau=1.0, alpha=1.0, sqrt=True,
+             weight=None, avg_factor=None):
+    """Kullback-Leibler divergence loss between the box Gaussians."""
+    d = _kld_v2_distance(pred, target, alpha=alpha, sqrt=sqrt)
+    return _reduce(_gd_postprocess_v2(d, fun, tau), weight, avg_factor)

@@ -1,8 +1,9 @@
 """Rotated-box representation conversions.
 
-Port of the part of ``sm3det_tpu/ops/box_convert.py`` that inference calls:
-``norm_angle``, ``poly2obb`` (long-edge conventions), ``obb2poly`` and
-``obb2xyxy``, and the host numpy variants ``_norm_angle_np``,
+Port of the part of ``sm3det_tpu/ops/box_convert.py`` that the port's
+detectors call: ``norm_angle``, ``poly2obb`` (long-edge conventions),
+``obb2poly``, ``obb2xyxy``, ``obb2hbb`` and ``hbb2obb`` (RoI Transformer's
+stage-1 priors), and the host numpy variants ``_norm_angle_np``,
 ``poly2obb_np`` and ``obb2poly_np`` that the datasets and the DOTA
 submission writer use. Oriented boxes are ``(cx, cy, w, h, theta)`` in image
 coordinates (y down); ``'le90'`` keeps theta in [-pi/2, pi/2) with ``w`` the
@@ -82,6 +83,29 @@ def obb2xyxy(obbs: torch.Tensor, version: str = "le90") -> torch.Tensor:
     return torch.stack([x - dw / 2, y - dh / 2, x + dw / 2, y + dh / 2],
                        dim=-1)
 
+
+
+def hbb2obb(hbbs: torch.Tensor, version: str = "oc") -> torch.Tensor:
+    """xyxy horizontal boxes ``(..., 4)`` -> OBBs ``(..., 5)`` of angle 0,
+    or with the edges swapped at +-pi/2 where the box is taller than wide
+    (``le90`` -pi/2, ``le135`` pi/2); ``oc`` always swaps, at pi/2."""
+    x = (hbbs[..., 0] + hbbs[..., 2]) * 0.5
+    y = (hbbs[..., 1] + hbbs[..., 3]) * 0.5
+    w = hbbs[..., 2] - hbbs[..., 0]
+    h = hbbs[..., 3] - hbbs[..., 1]
+    if version == "oc":
+        return torch.stack([x, y, h, w, torch.full_like(x, PI / 2)], dim=-1)
+    swap = w < h
+    theta = torch.where(swap, PI / 2 if version == "le135" else -PI / 2,
+                        torch.zeros_like(x))
+    return torch.stack([x, y, torch.where(swap, h, w),
+                        torch.where(swap, w, h), theta], dim=-1)
+
+
+def obb2hbb(obbs: torch.Tensor, version: str = "oc") -> torch.Tensor:
+    """The enclosing horizontal box of OBBs, as an OBB (``hbb2obb`` of
+    ``obb2xyxy``)."""
+    return hbb2obb(obb2xyxy(obbs, version), version)
 
 # ---- host numpy variants (annotation loading, eval, submission files) -----
 

@@ -198,17 +198,19 @@ def test_flagship_configs_reach_the_detector(monkeypatch, arch):
     assert "pretrained" not in m.cfg["backbone"]
 
 
-@pytest.mark.parametrize("path,name", [
-    ("configs/local_configs/main_DA_convnext_t_orcnn_gfl.py",
+@pytest.mark.parametrize("path,mtype,name", [
+    ("configs/local_configs/main_DA_convnext_t_orcnn_gfl.py", None,
      "da_block_inds"),
-    ("configs/local_configs/dota_lsk_t_orcnn.py", "LSKNet_moe"),
-    ("configs/local_configs/dota_convnext_t_s2anet.py", "S2ANet"),
-    ("configs/local_configs/dota_convnext_t_roitrans.py",
-     "RoITransformer")])
-def test_unported_types_raise_by_name(path, name):
-    cfg = Config.fromfile(_cfg(path))
+    ("configs/local_configs/dota_lsk_t_orcnn.py", None, "LSKNet_moe"),
+    ("configs/local_configs/dota_convnext_t_s2anet.py", "ReDet", "ReDet"),
+    ("configs/local_configs/dota_convnext_t_roitrans.py", "GlidingVertex",
+     "GlidingVertex")])
+def test_unported_types_raise_by_name(path, mtype, name):
+    cfg = Config.fromfile(_cfg(path)).model.to_dict()
+    if mtype:
+        cfg["type"] = mtype
     with pytest.raises(NotImplementedError, match=name):
-        builder.build_detector(cfg.model, device="cpu")
+        builder.build_detector(cfg, device="cpu")
 
 
 def test_unported_keys_raise():

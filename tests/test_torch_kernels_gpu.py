@@ -1412,3 +1412,119 @@ def test_roi_align_on_horizontal_integer_rois(cuda, dtype):
     for a, a2, r in zip(bwd, again, ref):
         _check(a, r, dtype)
         assert torch.equal(a, a2)
+
+
+# ---- the refinement and cascade detectors (S2ANet, R3Det, RoITransformer) --
+
+REFINE_CFG = "configs/local_configs/dota_convnext_t_s2anet.py"
+ROITRANS_CFG = "configs/local_configs/dota_convnext_t_roitrans.py"
+
+
+def _zoo_model(path, mtype, device, trainable=False):
+    from sm3det_tpu_torch.models.builder import build_detector
+    from sm3det_tpu_torch.utils.config import Config
+    mc = Config.fromfile(path).model.to_dict()
+    if mtype:
+        mc["type"] = mtype
+    return build_detector(mc, device=device, compute_dtype="bfloat16",
+                          seed=0, trainable=trainable)
+
+
+@pytest.mark.parametrize("mtype", ["S2ANet", "R3Det"])
+def test_refine_detectors_bf16_make_no_host_sync(cuda, mtype):
+    """``simple_test`` of the S2ANet config (and R3Det on it) at full
+    width, 8 x 800^2 bf16, under ``set_sync_debug_mode("error")``: no host
+    synchronisation, the backbone's kernels and one launch each of row 6's
+    banded mask and the keep scan, the outputs equal an earlier run's."""
+    model = _zoo_model(REFINE_CFG, mtype, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    imgs = torch.rand(8, 800, 800, 3, generator=gen, device=cuda)
+    first = model.simple_test(imgs, (800, 800))
+    torch.cuda.synchronize()
+    build.reset_launches()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        second = model.simple_test(imgs, (800, 800))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["rotated_nms_mask_banded"] == 1
+    assert build.LAUNCHES["nms_keep"] == 1
+    assert build.LAUNCHES["fused_convnext_block"] == 18
+    assert build.LAUNCHES["fused_layernorm"] > 0
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    assert bool(torch.isfinite(second[0]).all())
+    assert int(second[2].sum()) > 0
+
+
+def test_refine_assigner_iou_and_feature_align_at_full_width(cuda):
+    """The refine stage's assigner IoU, row 5's matrix mode on the refined
+    anchors of 2 x 800^2 images (13343 a image) against 512 gts, every
+    defined IoU equal to the plain version's; and
+    ``rotated_feature_align`` at level 0 of 8 x 800^2 (8, 100, 100, 256)
+    on the card against the host, fp32, within 1e-4 of scale."""
+    from sm3det_tpu_torch.ops.geometry_extras import rotated_feature_align
+    from sm3det_tpu_torch.ops.rotated_iou import box_iou_rotated_chunked
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    n = sum(s * s for s in (100, 50, 25, 13, 7))
+    anchors = _rboxes(gen, 2, n, cuda, span=800.0)
+    gts = _rboxes(gen, 2, 512, cuda, span=800.0)
+    build.reset_launches()
+    got = box_iou_rotated_chunked(anchors, gts)
+    assert build.LAUNCHES["rotated_iou"] == 1
+    ref = rik.rotated_iou_ref(anchors, gts)
+    ok = ((anchors[..., 2] * anchors[..., 3]) > 0)[..., :, None] == \
+        ((gts[..., 2] * gts[..., 3]) > 0)[..., None, :]
+    assert torch.equal(got * ok, ref * ok)
+    feats = _rand(gen, 8, 100, 100, 256)
+    boxes = torch.cat([torch.rand(8, 100, 100, 2, generator=gen,
+                                  device=cuda) * 880 - 40,
+                       8 + torch.rand(8, 100, 100, 2, generator=gen,
+                                      device=cuda) * 120,
+                       (torch.rand(8, 100, 100, 1, generator=gen,
+                                   device=cuda) - 0.5) * 3.1], -1)
+    out = rotated_feature_align(feats, boxes, points=5, spatial_scale=1 / 8)
+    host = rotated_feature_align(feats.cpu(), boxes.cpu(), points=5,
+                                 spatial_scale=1 / 8)
+    _check(out.cpu(), host, torch.float32)
+
+
+@pytest.mark.parametrize("mtype", ["S2ANet", "RoITransformer"])
+def test_zoo_train_steps_go_through_the_train_kernels(cuda, mtype):
+    """One bf16 AdamW step of S2ANet (the S2ANet config) and RoI
+    Transformer through the library API, 2 x 800^2 with 16 gts an image:
+    finite losses; S2ANet launches row 5 for its two assigners and row 10
+    forward and backward; RoI Transformer row 4's mask and the keep scan
+    (its proposals), row 5 (stage 2's assigner), rows 7 and 8 for both
+    stages, row 10."""
+    from sm3det_tpu_torch.train.optim import make_optimizer
+    from sm3det_tpu_torch.train.train_state import (build_train_step,
+                                                    init_train_state,
+                                                    trainable_params)
+    path = ROITRANS_CFG if mtype == "RoITransformer" else REFINE_CFG
+    model = _zoo_model(path, None, cuda, trainable=True)
+    assert type(model).__name__ == mtype
+    init_fn, update_fn, _ = make_optimizer(list(trainable_params(model)),
+                                           warmup_iters=1)
+    state = init_train_state(model, init_fn)
+    step = build_train_step(model, update_fn)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    gts = _rboxes(gen, 2, 16, cuda, span=700.0) + torch.tensor(
+        [50.0, 50.0, 8.0, 8.0, 0.0], device=cuda)
+    batch = {"img": torch.rand(2, 800, 800, 3, generator=gen, device=cuda),
+             "gt_obbs": gts,
+             "gt_labels": torch.randint(0, 26, (2, 16), generator=gen,
+                                        device=cuda),
+             "gt_mask": torch.ones(2, 16, dtype=torch.bool, device=cuda)}
+    build.reset_launches()
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(v)) for v in metrics.values()), metrics
+    want = {"rotated_iou": 2, "fused_dwconv_ln_train": 18,
+            "fused_dwconv_ln_train_bwd": 18}
+    if mtype == "RoITransformer":
+        want = {"hbb_nms_mask": 1, "nms_keep": 1, "rotated_iou": 1,
+                "roi_align_rotated": 2, "roi_align_rotated_bwd": 2,
+                "fused_dwconv_ln_train": 18, "fused_dwconv_ln_train_bwd": 18}
+    assert {k: build.LAUNCHES[k] for k in want} == want

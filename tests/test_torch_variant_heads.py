@@ -8,7 +8,8 @@ losses, the chunked rotated IoU (more rows than a chunk), the heads'
 outputs (``RPNHead``, ``Shared2FCBBoxHead``, ``RotatedRetinaHead``, flax
 inits carried over by ``convert_tree``), the horizontal RPN's loss and
 proposals, the horizontal RoI sampling, loss, align and detections, and
-the retina loss (L1 and Smooth L1) and detections. The samplers are handed
+the retina loss (L1, Smooth L1 and the decoded-box GWD, KLD, KFIoU and
+rotated IoU losses) and detections. The samplers are handed
 the uniform keys ``jax.random`` drew for the JAX function.
 
 Tolerances: the coder, anchors and sampling exactly or within 1e-5 of
@@ -356,7 +357,8 @@ def _retina_outputs(rng, b):
     return cls, reg
 
 
-@pytest.mark.parametrize("reg_loss", ["l1", "smooth_l1"])
+@pytest.mark.parametrize("reg_loss", ["l1", "smooth_l1", "gwd", "kld",
+                                      "kfiou", "riou"])
 def test_retina_loss(reg_loss):
     rng = np.random.RandomState(9)
     cls, reg = _retina_outputs(rng, 2)
@@ -395,12 +397,12 @@ def test_retina_get_bboxes():
 
 def test_unported_retina_parts_raise():
     cls, reg = _retina_outputs(np.random.RandomState(0), 1)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="gwd"):
         prh.retina_loss([_t(c) for c in cls], [_t(r) for r in reg],
                         torch.zeros(1, G, 5), torch.zeros(1, G, dtype=int),
                         torch.ones(1, G, dtype=bool),
                         prh.make_retina_anchor_generator(),
-                        prh.make_retina_coder(), NC, reg_loss="kld")
+                        prh.make_retina_coder(), NC, reg_loss="csl")
     with pytest.raises(NotImplementedError, match="angle_coder"):
         prh.CSLRetinaHead(num_classes=NC)
     with pytest.raises(NotImplementedError, match="angle_coder"):

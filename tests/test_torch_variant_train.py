@@ -6,10 +6,10 @@ The fixture is ``tests/test_detector_variants.py``'s (ConvNeXt ``atto``
 with one two-expert MoE block, 64 px, 4 classes, [2 SAR : 1 RGB : 1
 infrared], four gts an image) without gate noise and stochastic depth:
 jax.random and torch.Generator cannot make the same normal draws. The
-parameters are flax's own inits: one ``init_trisource`` of the 2/2
-variant (backbone, neck, the horizontal and oriented R-CNN heads), and
-the GFL and rotated RetinaNet heads initialised on their own; ``from_flax``
-carries each variant's tree into the port. The RPN regressors are scaled
+parameters are flax's own inits of each module (the multi-input
+backbone, the neck, the horizontal and oriented R-CNN heads, the GFL and
+rotated RetinaNet heads), made in one compile; ``from_flax`` carries each
+variant's tree into the port. The RPN regressors are scaled
 by 0.2 (midpoint offsets inside their clamp) and the layer scales drawn
 from U(0.3, 0.8) (active blocks), as a trained model has them.
 
@@ -40,15 +40,23 @@ import torch
 from flax import linen as nn
 
 from sm3det_tpu.models.dense_heads.gfl_head import GFLHead as JaxGFLHead
+from sm3det_tpu.models.dense_heads.oriented_rpn_head import \
+    OrientedRPNHead as JaxORPN
 from sm3det_tpu.models.dense_heads.rotated_retina_head import \
     RotatedRetinaHead as JaxRetinaHead
+from sm3det_tpu.models.dense_heads.rpn_head import RPNHead as JaxRPN
+from sm3det_tpu.models.detectors.trisource import build_multi_input_backbone
 from sm3det_tpu.models.detectors.trisource_variants import \
     TriSourceVariant as JaxVariant
+from sm3det_tpu.models.necks.fpn import MultitaskFPN as JaxFPN
+from sm3det_tpu.models.roi_heads.oriented_roi_head import \
+    RotatedShared2FCBBoxHead as JaxRoIHead
+from sm3det_tpu.models.roi_heads.standard_roi_head import \
+    Shared2FCBBoxHead as JaxHBBRoIHead
 from sm3det_tpu.train.dla import dla_multipliers as jax_dla_multipliers
 from sm3det_tpu.train.dla import make_dla_config as jax_dla_config
 from sm3det_tpu.train.dla import reweight_for_variant as jax_reweight
 from sm3det_tpu.train.optim import make_optimizer as jax_make_optimizer
-from sm3det_tpu.train.train_state import init_trisource
 from sm3det_tpu_torch.convert import from_flax, to_flax
 from sm3det_tpu_torch.models.detectors.trisource_variants import \
     TriSourceVariant
@@ -128,23 +136,50 @@ def _flat(tree, path=()):
         yield "/".join(path), np.asarray(tree)
 
 
+def _init_modules(key):
+    """Flax inits of every module of the four variants, in one compile:
+    the multi-input backbone, the neck, the 2/2 variant's horizontal and
+    oriented R-CNN heads and the GFL and rotated RetinaNet heads."""
+    ks = jax.random.split(key, 9)
+    ch = CFG["neck"]["out_channels"]
+    nc = CFG["num_classes"]
+    imgs = jnp.zeros((4, IMG, IMG, 3))
+    bb = build_multi_input_backbone(CFG["backbone"])
+    n = CFG["neck"]
+    neck = JaxFPN(in_channels=tuple(n["in_channels"]),
+                  out_channels=ch, num_outs=n["num_outs"],
+                  extra_level=n.get("extra_level", 1))
+    feats = [jnp.zeros((1, IMG // s, IMG // s, c)) for s, c in
+             zip((4, 8, 16, 32), n["in_channels"])]
+    lv_r = [jnp.zeros((1, IMG // s, IMG // s, ch)) for s in (4, 8, 16, 32)] \
+        + [jnp.zeros((1, 1, 1, ch))]
+    levels = [jnp.zeros((1, s, s, ch)) for s in (8, 4, 2, 1, 1)]
+    roi = jnp.zeros((2, 7, 7, ch))
+    full = {"backbone": bb.init(
+        {"params": ks[0], "moe_noise": ks[1], "dropout": ks[1]}, imgs,
+        train=False, dataset_ids=jnp.asarray([0, 0, 1, 2]))["params"],
+        "neck": neck.init(ks[2], feats)["params"],
+        "sar_rpn_head": JaxRPN().init(ks[3], lv_r)["params"],
+        "sar_roi_head": JaxHBBRoIHead(num_classes=nc).init(ks[4], roi)
+        ["params"]}
+    for m, k in (("rgb", ks[5]), ("ifr", ks[6])):
+        k1, k2 = jax.random.split(k)
+        full[f"{m}_rpn_head"] = JaxORPN().init(k1, lv_r)["params"]
+        full[f"{m}_roi_head"] = JaxRoIHead(num_classes=nc).init(k2, roi)[
+            "params"]
+    heads = {"gfl": JaxGFLHead(num_classes=nc).init(ks[7], levels)
+             ["params"],
+             "retina": JaxRetinaHead(num_classes=nc).init(ks[8], levels)
+             ["params"]}
+    return full, heads
+
+
 @pytest.fixture(scope="module")
 def setup():
     """Every subtree the four variants need, from flax inits."""
     batch = _batch(np.random.RandomState(0))
-    full = init_trisource(jax.random.PRNGKey(0),
-                          JaxVariant(cfg=CFG, sar_stages=2, rot_stages=2),
-                          batch)
-    full = jax.tree.map(np.asarray, full)
-    ch = CFG["neck"]["out_channels"]
-    levels = [jnp.zeros((1, s, s, ch)) for s in (8, 4, 2, 1, 1)]
-    heads = {}
-    for name, mod in (("gfl", JaxGFLHead(num_classes=CFG["num_classes"])),
-                      ("retina", JaxRetinaHead(
-                          num_classes=CFG["num_classes"]))):
-        heads[name] = jax.tree.map(np.asarray, jax.jit(
-            lambda x, m=mod: m.init(jax.random.PRNGKey(7), x))(levels)
-            ["params"])
+    full, heads = jax.tree.map(np.asarray, jax.jit(_init_modules)(
+        jax.random.PRNGKey(0)))
     rng = np.random.RandomState(1)
     full = jax.tree_util.tree_map_with_path(
         lambda p, v: rng.uniform(0.3, 0.8, v.shape).astype(np.float32)
