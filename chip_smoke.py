@@ -101,7 +101,22 @@ Phases (any failure exits non-zero):
    and ``rotated_feature_align`` alone at level 0 beside its bytes;
    (c) bf16 AdamW train steps of ``S2ANet`` and ``RoITransformer``
    through the library API at 2 x 800^2: images/s, syncs a step, peak
-   memory, finite losses, the launches a step.
+   memory, finite losses, the launches a step;
+11. the Domain-Attention baseline
+   (``configs/local_configs/main_DA_convnext_t_orcnn_gfl.py``) and the
+   backbone / neck / NMS leftovers: (a) fp32 at 2 images a modality x
+   256^2, card against host: the features, necks, GFL / RPN outputs and
+   R-CNN logits of each ``simple_test`` and of the joint forward within
+   1e-3 of scale, one train forward's losses within 1e-3 relative and
+   subtree gradient norms within 1e-2; (b) the joint [8:4:4] x 800^2 bf16
+   forward: images/s, device busy time, 0 host syncs, and launches by
+   kernel equal to the config's own (``DA_JOINT_LAUNCHES``), the FFN
+   kernel of the DA blocks alone against its plain version; (c)
+   ``tools.train`` bf16 [2:1:1] x 800^2, 6 iterations, DLA on after 2;
+   (d) ``tools.test`` rgb and sar over 16 synthetic images; (e) the
+   flagship with ``gate="linear"`` (row 3 launched), ``soft_nms`` and the
+   GRN block on the card against their plain versions. The phase must
+   take at most 120 s, the whole script 1200 s.
 
 Phase 3 also holds the variants' new shapes: row 4's mask mode and the
 keep scan at the H2 SAR RPN's 4507 candidates an image, row 5's matrix
@@ -371,7 +386,7 @@ def align_read_model(torch, sample_taps, feats, rois, lvls,
         if n == 0:
             continue
         hgt, wid = feats[lvl].shape[1], feats[lvl].shape[2]
-        y0, x0, y1, x1 = sample_taps(r, hgt, wid, out, st, sn)[:4]
+        y0, x0, y1, x1 = sample_taps(r, hgt, wid, out, 1.0 / st, sn)[:4]
         # each tap row's span of columns, row by row of the level
         slot = (torch.arange(n, device=r.device) * hgt).view(n, 1, 1, 1, 1)
         slot = torch.stack([slot + y0, slot + y1]).reshape(-1)
@@ -2299,7 +2314,487 @@ def phase10(torch, dev, smi, build):
     return failures, rec, step_launches
 
 
+DA_CFG = "configs/local_configs/main_DA_convnext_t_orcnn_gfl.py"
+DA_HOST = (2, 256)          # 11a: images a modality, size
+DA_WORK = "work_dirs/chip_smoke_da"     # gitignored; removed at the end
+DA_TRAIN_ITERS = 6
+# the DA config's joint forward: 11 dense blocks through row 1 (each one
+# dwconv_ln launch as well), 7 DA blocks through row 2 and the FFN kernel,
+# the stem, 3 downsample and 4 output LayerNorms, the flagship's NMS and
+# align launches
+DA_JOINT_LAUNCHES = {
+    "fused_convnext_block": 11, "dwconv_ln": 18, "convnext_ffn": 7,
+    "moe_ffn_grouped": 0, "fused_layernorm": 8, "hbb_iou": 0,
+    "rotated_iou": 0, "rotated_iou_banded": 0, "roi_align_rotated": 1,
+    "roi_align_rotated_bwd": 0, "fused_dwconv_ln_train": 0,
+    "fused_dwconv_ln_train_bwd": 0, "hbb_nms_mask": 2,
+    "rotated_nms_mask": 0, "rotated_nms_mask_banded": 1, "nms_keep": 3}
+DA_TRAIN_KERNELS = ("hbb_nms_mask", "nms_keep", "rotated_iou",
+                    "roi_align_rotated", "roi_align_rotated_bwd",
+                    "fused_dwconv_ln_train", "fused_dwconv_ln_train_bwd")
+# the DA blocks of ConvNeXt-T at 800^2: (H = W, C, blocks)
+DA_FFN_SHAPES = ((50, 384, 5), (25, 768, 2))
+DA_PHASE_LIMIT_S = 120
+SCRIPT_LIMIT_S = 1200      # the whole script, kernel builds included, must end within this
+
+
+def phase11(torch, dev, smi, build):
+    """11. The Domain-Attention baseline (``main_DA_convnext_t_orcnn_gfl``:
+    ConvNeXt-T without MoE blocks, DA in stage-2 blocks 0/2/4/6/8 and
+    stage-3 blocks 0/2) and the leftovers on the card: (a) fp32, 2 images a
+    modality x 256^2, card against host: the features, necks, GFL and RPN
+    outputs and R-CNN logits of each ``simple_test`` and of the joint
+    forward within 1e-3 of scale (the host's RoIs the card's proposals);
+    one train forward's losses within 1e-3 relative and each top-level
+    subtree's gradient norm within 1e-2 (the host's proposals the card's);
+    (b) the joint [8:4:4] x 800^2 bf16 forward at full width: images/s
+    (median and quartiles of 10), device busy time, host syncs (0), and the
+    launches by kernel, which must equal ``DA_JOINT_LAUNCHES``; the FFN
+    kernel alone at the DA blocks' shapes against its plain version;
+    (c) ``tools.train`` on the DA config, bf16, [2:1:1] x 800^2,
+    ``DA_TRAIN_ITERS`` iterations, DLA on after 2: images/s, syncs a step
+    by part, the launches a step; (d) ``tools.test`` on it, RGB and SAR
+    mAP over 16 synthetic images; (e) the flagship with ``gate="linear"``
+    in the bf16 joint forward (row 3 launched 7 times), ``soft_nms`` on the
+    card against the host (the selections bit for bit) and the GRN block
+    on the card against its plain path. Returns (failures, record, the
+    launches of (b)'s forward)."""
+    import copy
+    import os
+    import shutil
+
+    import numpy as np
+
+    from sm3det_tpu_torch.models.backbones.convnext import ConvNeXtBlock
+    from sm3det_tpu_torch.models.builder import build_detector
+    from sm3det_tpu_torch.models.detectors import trisource as tri_mod
+    from sm3det_tpu_torch.models.detectors.trisource import (
+        DEFAULT_MODEL_CFG, TriSourceDetector)
+    from sm3det_tpu_torch.models.layers import gelu
+    from sm3det_tpu_torch.ops import nms as nms_mod
+    from sm3det_tpu_torch.ops.cuda import convnext_block_kernel as cbk
+    from sm3det_tpu_torch.ops.cuda.hbb_iou_kernel import hbb_iou
+    from sm3det_tpu_torch.ops.cuda.moe_groupgemm_kernel import ffn_ref
+    from sm3det_tpu_torch.tools import test as test_cli
+    from sm3det_tpu_torch.tools import train as train_cli
+    from sm3det_tpu_torch.train.train_state import (batch_to,
+                                                    trainable_params)
+    from sm3det_tpu_torch.utils.config import Config
+
+    failures, rec = [], {}
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False     # as main: fp32 is fp32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mc = Config.fromfile(DA_CFG).model.to_dict()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    cpu = torch.device("cpu")
+
+    def close(tag, a, b, tol=1e-3):
+        """a on the card, b on the host: within tol of b's scale."""
+        err, scale = max_err(a.cpu(), b)
+        ok = bool(torch.isfinite(a.float()).all()) and a.shape == b.shape \
+            and err <= tol * max(scale, 1.0)
+        rec["card_host"][tag] = dict(err=err, scale=scale)
+        if not ok:
+            failures.append(f"DA card/host {tag}")
+            log(f"[da fp32]   {tag} {tuple(a.shape)}: max abs err {err:.3e} "
+                f"(max |ref| {scale:.3e}) FAIL")
+        return err / max(scale, 1.0)
+
+    # (a) card against host, fp32
+    t0 = time.perf_counter()
+    n_img, size = DA_HOST
+    card = build_detector(mc, device=dev, compute_dtype="float32", seed=0)
+    host = copy.deepcopy(card).to(cpu)
+    imgs = {k: torch.rand(n_img, size, size, 3, generator=gen, device=dev)
+            for k in ("sar", "rgb", "ifr")}
+    rec["card_host"] = {}
+    worst = 0.0
+    with torch.no_grad():
+        for sub, d in (("sar", 0), ("rgb", 1), ("ifr", 2)):
+            ic, ih = imgs[sub], imgs[sub].cpu()
+            fd, fh = card.extract_feat(ic, d), host.extract_feat(ih, d)
+            outs = [(f"{sub} features {i}", a, b)
+                    for i, (a, b) in enumerate(zip(fd, fh))]
+            if sub == "sar":
+                hd = card.sar_bbox_head(card.neck_sar(fd))
+                hh = host.sar_bbox_head(host.neck_sar(fh))
+                outs += [(f"sar gfl {j} {i}", a, b) for j in range(2)
+                         for i, (a, b) in enumerate(zip(hd[j], hh[j]))]
+            else:
+                xd, xh = card.neck_rcnn(fd), host.neck_rcnn(fh)
+                rd, rh = card.head_rpn(xd, sub), host.head_rpn(xh, sub)
+                outs += [(f"{sub} rpn {j} {i}", a, b) for j in range(2)
+                         for i, (a, b) in enumerate(zip(rd[j], rh[j]))]
+                props = card.get_proposals(*rd, (size, size))[0]
+                head_d, head_h = card._heads(sub)[1], host._heads(sub)[1]
+                ld = head_d(card.roi_feats(xd, props))
+                lh = head_h(host.roi_feats(xh, props.cpu()))
+                outs += [(f"{sub} rcnn logits", ld[0], lh[0]),
+                         (f"{sub} rcnn deltas", ld[1], lh[1])]
+            for tag, a, b in outs:
+                worst = max(worst, close(tag, a, b))
+        args = [imgs[k] for k in ("sar", "rgb", "ifr")]
+        jd = card.head_joint(*args)
+        jh = host.head_joint(*[a.cpu() for a in args])
+        outs = [(f"joint sar {j} {i}", a, b) for j in range(2)
+                for i, (a, b) in enumerate(zip(jd[0][j], jh[0][j]))]
+        outs += [(f"joint neck {i}", a, b) for i, (a, b) in
+                 enumerate(zip(jd[1], jh[1]))]
+        outs += [(f"joint rpn {j} {i}", a, b) for j in range(2)
+                 for i, (a, b) in enumerate(zip(jd[2][j], jh[2][j]))]
+        props = card.get_proposals(*jd[2], (size, size))[0]
+        ld = card.roi_logits_joint(card.roi_feats(jd[1], props), n_img,
+                                   n_img)
+        lh = host.roi_logits_joint(host.roi_feats(jh[1], props.cpu()), n_img,
+                                   n_img)
+        outs += [("joint rcnn logits", ld[0], lh[0]),
+                 ("joint rcnn deltas", ld[1], lh[1])]
+        for tag, a, b in outs:
+            worst = max(worst, close(tag, a, b))
+    rec["card_host_worst"] = worst
+    log(f"[da fp32] {DA_CFG}, {n_img} x {size}^2 a modality, card against "
+        f"host: {len(rec['card_host'])} outputs (features, necks, GFL and "
+        f"RPN heads, R-CNN logits on the card's proposals; the three "
+        f"simple_test and the joint forward), worst {worst:.2e} of scale "
+        f"(tol 1e-3); {time.perf_counter() - t0:.1f} s")
+    del card, host, imgs, fd, fh, jd, jh, props, ld, lh
+
+    t0 = time.perf_counter()
+    card = build_detector(mc, device=dev, compute_dtype="float32", seed=0,
+                          trainable=True)
+    host = copy.deepcopy(card).to(cpu)
+    tbatch = make_train_batch(np.random.RandomState(12), (n_img,) * 3, size,
+                              TRAIN_GTS)
+    real = tri_mod.rpn_get_proposals
+    recorded, replayed = [], [0]
+
+    def record(*a, **kw):
+        out = real(*a, **kw)
+        recorded.append(out)
+        return out
+
+    def replay(*a, **kw):
+        replayed[0] += 1
+        return tuple(t.cpu() for t in recorded[replayed[0] - 1])
+
+    runs = {}
+    for side, m, dv, patch in (("card", card, dev, record),
+                               ("host", host, cpu, replay)):
+        tri_mod.rpn_get_proposals = patch
+        try:
+            params = trainable_params(m)
+            losses = m(batch_to(tbatch, dv),
+                       gen=torch.Generator().manual_seed(5))
+            grads = torch.autograd.grad(sum(losses.values()),
+                                        list(params.values()))
+        finally:
+            tri_mod.rpn_get_proposals = real
+        runs[side] = ({k: float(v.detach()) for k, v in losses.items()},
+                      subtree_norms(torch, list(params), grads))
+        del losses, grads
+    (ld, nd), (lh, nh) = runs["card"], runs["host"]
+    bad = [k for k in lh if not (np.isfinite(ld[k]) and abs(
+        ld[k] - lh[k]) <= 1e-3 * abs(lh[k]) + 1e-7)]
+    bad += [f"|grad {k}|" for k in nh if not (np.isfinite(nd[k]) and abs(
+        nd[k] - nh[k]) <= 1e-2 * nh[k])]
+    worst_l = max(abs(ld[k] - lh[k]) / max(abs(lh[k]), 1e-12) for k in lh)
+    worst_g = max(abs(nd[k] - nh[k]) / max(nh[k], 1e-12) for k in nh)
+    rec["train_card_host"] = dict(card_losses=ld, host_losses=lh,
+                                  card_norms=nd, host_norms=nh,
+                                  worst_loss_rel=worst_l,
+                                  worst_grad_norm_rel=worst_g)
+    log(f"[da fp32] train forward + backward, [{n_img}:{n_img}:{n_img}] x "
+        f"{size}^2, card against host (the host's RoIs from the card's "
+        f"proposals): {len(lh)} losses {sorted(lh)}, worst {worst_l:.2e} "
+        f"relative (tol 1e-3); {len(nh)} subtree gradient norms, worst "
+        f"{worst_g:.2e} (tol 1e-2); {time.perf_counter() - t0:.1f} s "
+        f"{'ok' if not bad else 'FAIL ' + str(bad)}")
+    if "gate_loss" in lh:
+        bad.append("a gate loss without MoE blocks")
+    failures += [f"DA train card/host {k}" for k in bad]
+    del card, host, recorded
+    torch.cuda.empty_cache()
+
+    # (b) the joint forward, full width, bf16
+    t0 = time.perf_counter()
+    model = build_detector(mc, device=dev, compute_dtype="bfloat16", seed=0)
+    n_sar, n_rgb, n_ifr = JOINT
+    sar_i, rgb_i, ifr_i = (torch.rand(n, IMG, IMG, 3, generator=gen,
+                                      device=dev) for n in JOINT)
+    with torch.no_grad():
+        model.sar_bbox_head.gfl_cls.bias.fill_(0.0)
+        _, x, rpn = model.head_joint(sar_i, rgb_i, ifr_i)
+        props, _, _ = model.get_proposals(*rpn)
+        rf = model.roi_feats(x, props)
+        spread_class_scores(model.rgb_roi_head, rf[:n_rgb * N_PROPOSALS])
+        spread_class_scores(model.ifr_roi_head, rf[n_rgb * N_PROPOSALS:])
+    del x, rpn, props, rf
+
+    def joint():
+        return model.simple_test_joint(sar_i, rgb_i, ifr_i)
+
+    for _ in range(2):
+        joint()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    sar_o, rgb_o, ifr_o = joint()
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    off = {k: (v, DA_JOINT_LAUNCHES[k]) for k, v in launches.items()
+           if v != DA_JOINT_LAUNCHES[k]}
+    if off:
+        failures.append(f"DA joint launches (got, expected): {off}")
+    valid = [int(o[2].sum()) for o in (sar_o, rgb_o, ifr_o)]
+    if not all(v > 0 for v in valid) or not all(
+            bool(torch.isfinite(o[0]).all()) for o in (sar_o, rgb_o, ifr_o)):
+        failures.append(f"DA joint outputs: valid {valid}")
+    sites = host_syncs(torch, joint)
+    busy = device_ms(torch, joint, iters=3, warmup=0)
+    walls, q1, med, q3 = timed_forwards(torch, joint)
+    n_syncs = sum(sites.values())
+    if n_syncs:
+        failures.append(f"DA joint host syncs {sites}")
+    n_joint = sum(JOINT)
+    rec["joint"] = dict(
+        images_per_s=n_joint / med,
+        images_per_s_quartiles=[n_joint / q3, n_joint / q1],
+        ms=med * 1e3, ms_quartiles=[q1 * 1e3, q3 * 1e3],
+        device_busy_ms=busy, peak_gib=peak, host_syncs=n_syncs,
+        launches={k: v for k, v in launches.items() if v}, valid=valid)
+    log(f"[da joint] {DA_CFG} [{n_sar}:{n_rgb}:{n_ifr}] x {IMG}^2 bf16: "
+        f"median {med * 1e3:.2f} ms (quartiles {q1 * 1e3:.2f} / "
+        f"{q3 * 1e3:.2f}), {n_joint / med:.2f} images/s (host clock); "
+        f"device busy {ms_str(busy)} a forward (torch.profiler); peak "
+        f"{peak:.2f} GiB; host syncs {n_syncs} {sites}; valid {valid}; "
+        f"card {smi}")
+    log(f"[da joint]   launches in one forward: {rec['joint']['launches']} "
+        f"(expected {DA_JOINT_LAUNCHES}) {'ok' if not off else 'FAIL'}")
+    log(f"[da joint]   forward wall times (ms): "
+        f"{' '.join(f'{w * 1e3:.2f}' for w in walls)}")
+    del sar_o, rgb_o, ifr_o
+
+    # the FFN kernel of the DA blocks alone, against its plain version and
+    # the library's matrix products, at the 8-image shapes
+    rec["convnext_ffn"] = []
+    for hw, c, n_blocks in DA_FFN_SHAPES:
+        xt = torch.randn(N_IMGS * hw * hw, c, generator=gen,
+                         device=dev).to(torch.bfloat16)
+        w1 = (torch.randn(c, 4 * c, generator=gen, device=dev)
+              * c ** -0.5).to(torch.bfloat16)
+        w2 = (torch.randn(4 * c, c, generator=gen, device=dev)
+              * (4 * c) ** -0.5).to(torch.bfloat16)
+        b1 = (torch.randn(4 * c, generator=gen, device=dev) * 0.1) \
+            .to(torch.bfloat16)
+        b2 = (torch.randn(c, generator=gen, device=dev) * 0.1) \
+            .to(torch.bfloat16)
+        with torch.no_grad():
+            got = cbk.convnext_ffn(xt, w1, b1, w2, b2)
+            ref = ffn_ref(xt, w1, b1, w2, b2)
+        err, scale = max_err(got, ref)
+        ok = err <= 2.0 ** -6 * max(scale, 1.0)
+        ms = cuda_ms(torch, lambda: cbk.convnext_ffn(xt, w1, b1, w2, b2))
+        plain = cuda_ms(torch, lambda: ffn_ref(xt, w1, b1, w2, b2))
+        lib = cuda_ms(torch, lambda: torch.nn.functional.linear(
+            gelu(torch.nn.functional.linear(xt, w1.t(), b1)), w2.t(), b2))
+        m_tok = xt.shape[0]
+        b_ms, kind = bound_ms(
+            2 * (2 * m_tok * c + 2 * c * 4 * c + 5 * c),
+            [(4 * m_tok * c * 4 * c, "bfloat16")])
+        rec["convnext_ffn"].append(dict(
+            shape=[m_tok, c], blocks=n_blocks, ms=ms, plain_ms=plain,
+            library_ms=lib, bound_ms=b_ms, bound_by=kind, max_abs_err=err,
+            scale=scale))
+        log(f"[da ffn] convnext_ffn ({m_tok}, {c}) bf16, hidden {4 * c}: "
+            f"kernel {ms:.4f} ms, plain {plain:.4f} ms, library (F.linear + "
+            f"gelu + F.linear) {lib:.4f} ms, bound {b_ms:.4f} ms ({kind}); "
+            f"max abs err {err:.3e} of {scale:.3e} "
+            f"{'ok' if ok else 'FAIL'}; card {smi}")
+        if not ok:
+            failures.append(f"convnext_ffn C={c}: {err} of {scale}")
+    log(f"[da] (a) + (b) {time.perf_counter() - t0:.1f} s")
+
+    # (d) the eval entry point on the model of (b)
+    t0 = time.perf_counter()
+    rec["eval"] = {}
+    for sub in ("rgb", "sar"):
+        build.reset_launches()
+        out = test_cli.main([DA_CFG, "--subdataset", sub,
+                             "--synthetic-data", "--num-images", "16",
+                             "--batch-size", "8", "--cfg-options",
+                             "evaluation.metric=mAP"], model=model)
+        n_det = sum(len(d) for img in out["det_results"] for d in img)
+        m_ap = out["metrics"]["mAP"]
+        ffn = build.LAUNCHES["convnext_ffn"]
+        rec["eval"][sub] = dict(mAP=m_ap, detections=n_det,
+                                images_per_s=out["img_per_s"],
+                                convnext_ffn_launches=ffn)
+        log(f"[da eval] tools.test {DA_CFG} --subdataset {sub} "
+            f"--synthetic-data, 16 images: mAP {m_ap:.4f}, {n_det} "
+            f"detections, {out['img_per_s']:.2f} images/s; launches "
+            f"{ {k: v for k, v in build.LAUNCHES.items() if v} }")
+        # 7 DA blocks a forward: the tool's warm-up batch and 2 of 8
+        if not (0.0 <= m_ap <= 1.0) or n_det == 0 or ffn != 7 * 3:
+            failures.append(f"DA eval {sub}: mAP {m_ap}, {n_det} dets, "
+                            f"convnext_ffn {ffn} (7 a forward, 3 "
+                            f"forwards)")
+    del model, out
+    torch.cuda.empty_cache()
+    log(f"[da eval] (d) {time.perf_counter() - t0:.1f} s")
+
+    # (c) the train entry point
+    t0 = time.perf_counter()
+    shutil.rmtree(DA_WORK, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    out, parts, sites = syncs_by_part(torch, lambda: train_cli.main(
+        [DA_CFG, "--synthetic-data", "--work-dir", DA_WORK, "--max-iters",
+         str(DA_TRAIN_ITERS), "--cfg-options", "evaluation=None",
+         "model.compute_dtype=bfloat16", "lr_config.warmup_iters=2",
+         "log_interval=2"]))
+    st = out["stats"]
+    done = st["iters"]
+    steps = np.diff(st["iter_end_s"][2:]) * 1e3
+    n_img = sum(Config.fromfile(DA_CFG).source_ratio)
+    q = statistics.quantiles(steps, n=4)
+    launched = {k: v / max(done, 1) for k, v in build.LAUNCHES.items() if v}
+    mults = dict(out["state"].opt.mults)
+    rec["train"] = dict(
+        iterations=done, median_iteration_ms=q[1],
+        iteration_ms_quartiles=[q[0], q[2]], images_per_s=n_img / q[1] * 1e3,
+        images_per_s_quartiles=[n_img / q[2] * 1e3, n_img / q[0] * 1e3],
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30, syncs=parts,
+        syncs_per_step=parts["step"] / max(done, 1), step_sync_sites=sites,
+        launches_per_step=launched, mults=mults,
+        last_log=st["log_lines"][-1] if st["log_lines"] else None)
+    log(f"[da train] tools.train {DA_CFG} --synthetic-data, bf16 "
+        f"[2:1:1] x {IMG}^2: {done} iterations; median iteration "
+        f"{q[1]:.1f} ms (quartiles {q[0]:.1f} / {q[2]:.1f}), "
+        f"{rec['train']['images_per_s']:.2f} images/s (host clock); peak "
+        f"{rec['train']['peak_gib']:.2f} GiB; syncs by part {parts} "
+        f"({rec['train']['syncs_per_step']:.1f} a step) {sites}; card {smi}")
+    log(f"[da train]   launches a step: {launched}")
+    log(f"[da train]   DLA multipliers at the end: {mults}")
+    log(f"[da train]   last log line: {rec['train']['last_log']}")
+    if done != DA_TRAIN_ITERS or not st["log_lines"] or not all(
+            np.isfinite(v) for x in st["log_lines"] for v in x.values()):
+        failures.append("DA train: iterations or a logged value")
+    if any("gate_loss" in x for x in st["log_lines"]):
+        failures.append("DA train logged a gate loss")
+    if not mults or all(abs(m - 1.0) < 1e-6 for m in mults.values()):
+        failures.append(f"DA train: DLA multipliers {mults}")
+    for k in DA_TRAIN_KERNELS:
+        if launched.get(k, 0) <= 0:
+            failures.append(f"DA train launches {k}=0")
+    shutil.rmtree(DA_WORK, ignore_errors=True)
+    del out
+    torch.cuda.empty_cache()
+    log(f"[da train] (c) {time.perf_counter() - t0:.1f} s")
+
+    # (e) the linear gate, soft_nms and the GRN block
+    t0 = time.perf_counter()
+    cfg = copy.deepcopy(DEFAULT_MODEL_CFG)
+    cfg["backbone"]["gate"] = "linear"
+    cfg["compute_dtype"] = "bfloat16"
+    model = TriSourceDetector(cfg, device=dev, seed=0)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("ffn.w_gate"):
+                p.copy_(torch.randn(p.shape, generator=gen, device=dev)
+                        * 0.05)
+
+    def lin():
+        return model.simple_test_joint(sar_i, rgb_i, ifr_i)
+    lin()
+    torch.cuda.synchronize()
+    build.reset_launches()
+    outs = lin()
+    torch.cuda.synchronize()
+    lin_launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    _, q1, med, q3 = timed_forwards(torch, lin, n=5)
+    ok = lin_launches.get("moe_ffn_grouped") == 7 and all(
+        bool(torch.isfinite(o[0]).all()) for o in outs)
+    rec["linear_gate_joint"] = dict(
+        launches=lin_launches, ms=med * 1e3, ms_quartiles=[q1 * 1e3,
+                                                           q3 * 1e3],
+        images_per_s=n_joint / med)
+    log(f"[da linear gate] the flagship with gate='linear' (w_gate ~ "
+        f"N(0, 0.05)), joint [{n_sar}:{n_rgb}:{n_ifr}] x {IMG}^2 bf16: "
+        f"median {med * 1e3:.2f} ms (quartiles {q1 * 1e3:.2f} / "
+        f"{q3 * 1e3:.2f}), {n_joint / med:.2f} images/s; launches "
+        f"{lin_launches} {'ok' if ok else 'FAIL'}; card {smi}")
+    if not ok:
+        failures.append(f"linear gate joint: launches {lin_launches}")
+    del model, outs, sar_i, rgb_i, ifr_i
+    torch.cuda.empty_cache()
+
+    n_box = N_PROPOSALS
+    xy = torch.rand(n_box, 2, generator=gen, device=dev) * 700
+    boxes = torch.cat([xy, xy + 10 + torch.rand(
+        n_box, 2, generator=gen, device=dev) * 90], -1)
+    scores = torch.rand(n_box, generator=gen, device=dev)
+    rec["soft_nms"] = {}
+    for method in ("linear", "gaussian", "naive"):
+        ref = nms_mod.soft_nms(boxes.cpu(), scores.cpu(), 0.3, 100,
+                               method=method)
+        build.reset_launches()
+        got = nms_mod.soft_nms(boxes, scores, 0.3, 100, method=method)
+        torch.cuda.synchronize()
+        n_iou = build.LAUNCHES["hbb_iou"]
+        same = torch.equal(got[1].cpu(), ref[1]) and torch.equal(
+            got[2].cpu(), ref[2])
+        err = float((got[0].cpu() - ref[0]).abs().max())
+        ms = cuda_ms(torch, lambda: nms_mod.soft_nms(boxes, scores, 0.3, 100,
+                                                     method=method), iters=3)
+        iou_ms = cuda_ms(torch, lambda: hbb_iou(boxes, boxes))
+        rec["soft_nms"][method] = dict(selections_equal=same, dets_err=err,
+                                       ms=ms, hbb_iou_launches=n_iou,
+                                       iou_matrix_ms=iou_ms)
+        log(f"[da soft_nms] {method}, {n_box} boxes, 100 selections: card "
+            f"against host selections equal {same}, dets max abs err "
+            f"{err:.2e}; {ms:.3f} ms on the card (of it the IoU matrix, row "
+            f"4's matrix mode, {iou_ms:.4f} ms, {n_iou} launch); card {smi}")
+        if not (same and n_iou == 1 and err <= 1e-5):
+            failures.append(f"soft_nms {method}")
+
+    g = torch.Generator().manual_seed(13)
+    blk = ConvNeXtBlock(384, use_grn=True, gen=g)
+    with torch.no_grad():
+        blk.grn.gamma.uniform_(0.3, 0.8, generator=g)
+        blk.grn.beta.uniform_(-0.1, 0.1, generator=g)
+    blk = blk.eval().requires_grad_(False).to(dev, torch.bfloat16)
+    xb = torch.randn(N_IMGS, 50, 50, 384, generator=gen,
+                     device=dev).to(torch.bfloat16)
+    with torch.no_grad():
+        build.reset_launches()
+        got = blk(xb)
+        torch.cuda.synchronize()
+        n_dw = build.LAUNCHES["dwconv_ln"]
+        dw, ln = blk.dwconv, blk.norm
+        ref = xb + blk._mlp(cbk.dwconv_ln_ref(xb, dw.weight, dw.bias,
+                                              ln.weight, ln.bias))
+    err, scale = max_err(got, ref)
+    ok = n_dw == 1 and err <= 2.0 ** -6 * max(scale, 1.0)
+    rec["grn_block"] = dict(shape=list(xb.shape), max_abs_err=err,
+                            scale=scale, dwconv_ln_launches=n_dw)
+    log(f"[da grn] GRN block {tuple(xb.shape)} bf16 on the card (row 2, "
+        f"then matrix products and GRN) against its plain path: max abs "
+        f"err {err:.3e} of {scale:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"GRN block: {err} of {scale}, {n_dw} launches")
+    log(f"[da] (e) {time.perf_counter() - t0:.1f} s")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[da] phase 11 wall time {rec['phase_s']:.1f} s (limit "
+        f"{DA_PHASE_LIMIT_S} s)")
+    if rec["phase_s"] > DA_PHASE_LIMIT_S:
+        failures.append(f"phase 11 took {rec['phase_s']:.1f} s")
+    return failures, rec, launches
+
+
 def main():
+    t_main = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -2431,6 +2926,16 @@ def main():
                      "sm3det_tpu_torch/ops/cuda/csrc/dwconv_ln_bwd.cu",
                      "sm3det_tpu_torch/ops/cuda/csrc/dwconv_core.cuh",
                      "sm3det_tpu_torch/ops/cuda/convnext_block_kernel.py"]),
+        # the dense block's FFN alone, for the Domain-Attention blocks (JAX
+        # computes that FFN with XLA products, convnext.py:218-221, beside
+        # its fused_dwconv_ln); timed in phase 11
+        "convnext_ffn": KernelRecord(
+            "convnext_ffn", "sm3det_tpu_torch/ops/cuda/csrc/ffn_wgmma.cu",
+            "sm3det_tpu/ops/pallas/convnext_block_kernel.py:313 (its FFN "
+            "half)", "F.linear + F.gelu + F.linear",
+            sources=["sm3det_tpu_torch/ops/cuda/csrc/ffn_wgmma.cu",
+                     "sm3det_tpu_torch/ops/cuda/csrc/wgmma_sm90.cuh",
+                     "sm3det_tpu_torch/ops/cuda/csrc/grouped_ffn.cu"]),
     }
     failures = []
 
@@ -3549,7 +4054,7 @@ def main():
     sar_launches = dict(build.LAUNCHES)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"[e2e bf16] sar: launches in one forward: {sar_launches}")
-    want = {"fused_convnext_block": 11, "dwconv_ln": 18,
+    want = {"fused_convnext_block": 11, "dwconv_ln": 18, "convnext_ffn": 0,
             "moe_ffn_grouped": 7, "fused_layernorm": 8, "hbb_iou": 0,
             "rotated_iou": 0, "rotated_iou_banded": 0,
             "roi_align_rotated": 0, "roi_align_rotated_bwd": 0,
@@ -3613,7 +4118,7 @@ def main():
     log(f"[joint bf16] launches in one forward: {launches}")
     # hbb_nms_mask: the SAR NMS, and the RPN NMS of 8 images x 5 levels in
     # one; rotated_nms_mask_banded: the R-CNN NMS; a keep scan each
-    want = {"fused_convnext_block": 11, "dwconv_ln": 18,
+    want = {"fused_convnext_block": 11, "dwconv_ln": 18, "convnext_ffn": 0,
             "moe_ffn_grouped": 7, "fused_layernorm": 8, "hbb_iou": 0,
             "rotated_iou": 0, "rotated_iou_banded": 0,
             "roi_align_rotated": 1, "roi_align_rotated_bwd": 0,
@@ -3971,6 +4476,26 @@ def main():
             if k in recs:
                 recs[k].extra[f"{name.lower()}_train_step_launches"] = n
 
+    # ---- 11. the Domain-Attention baseline and the leftovers ---------------
+    torch.cuda.empty_cache()
+    da_failures, da_rec, da_launches = phase11(torch, dev, smi, build)
+    if da_failures:
+        fail(f"Domain-Attention phase failed: {da_failures}")
+    ffn_rec = recs["convnext_ffn"]
+    for r in da_rec["convnext_ffn"]:
+        ffn_rec.add(r["blocks"], r["ms"], r["plain_ms"], r["bound_ms"],
+                    r["bound_by"], r["library_ms"])
+        ffn_rec.err = max(ffn_rec.err, r["max_abs_err"])
+    launches["convnext_ffn"] = da_launches["convnext_ffn"]
+    for k, n in da_launches.items():
+        if k in recs:
+            recs[k].extra["da_joint_launches"] = n
+
+    script_s = time.perf_counter() - t_main
+    log(f"[smoke] whole script wall time {script_s:.1f} s (limit "
+        f"{SCRIPT_LIMIT_S} s)")
+    if script_s > SCRIPT_LIMIT_S:
+        fail(f"the script took {script_s:.1f} s")
     log(json.dumps({
         "kernels": [recs[k].json(launches[k]) for k in recs],
         "launches_from": "simple_test_joint [8:4:4]; rotated_nms_mask "
@@ -3979,7 +4504,9 @@ def main():
                          "fused_dwconv_ln_train from one flagship train "
                          "step; rotated_iou_banded (matrix mode) from the "
                          "eval entry point's rgb mAP over 32 images, "
-                         "hbb_iou (matrix mode) from its SAR mAP over 16",
+                         "hbb_iou (matrix mode) from its SAR mAP over 16; "
+                         "convnext_ffn from the DA config's joint forward "
+                         "[8:4:4] (phase 11b)",
         "eval": eval_rec, "eval_launches": eval_launches,
         "train_step_launches": train_launches,
         "train_images_per_s": train_ips, "train_step_ms": train_dt * 1e3,
@@ -3993,7 +4520,8 @@ def main():
         "train_entry_launches": train_entry_launches,
         "lsk_van_reweight": lsk_rec,
         "variants_zoo": var_rec, "h2r2_train_step_launches": var_launches,
-        "refine_cascade": ref_rec, "card": smi}))
+        "refine_cascade": ref_rec, "da_baseline": da_rec,
+        "script_s": script_s, "card": smi}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -23,14 +23,19 @@ for a ConvNeXt, LSKNet or VAN backbone:
   (C, 1, k, k); ORConv's base ``weight`` (k, k, Cin, O_in, Cout) ->
   (Cout, Cin, O_in, k, k);
 - the ConvNeXt pointwise Dense kernels keep the (in, out) layout that the
-  GEMM kernel reads; the gate's ``cosine_projector`` and the RoI heads'
-  Dense layers become Linear weights (out, in);
+  GEMM kernel reads, and ``SimpleFPN``'s transposed-conv kernels
+  (``fpn1_up1``, ``fpn1_up2``, ``fpn2_up``) their flax (2, 2, in, out)
+  layout, which ``UpConv2x2`` reads; the gate's ``cosine_projector``, the
+  RoI heads' Dense layers and the Domain-Attention layers' bias-free
+  ``fc{d}_{0,1}`` become Linear weights (out, in);
 - MoE stacks ``w1 (E, d, h)``, ``b1``, ``w2 (E, h, d)``, ``b2`` and the
   linear experts' ``w (E, d, o)``, ``b (E, o)`` stay stacked, as do
-  ``w_gate/{temperature, sim_matrix}`` and ``w_noise``;
+  ``w_gate/{temperature, sim_matrix}``, the linear gate's ``w_gate (d,
+  E)`` and ``w_noise``;
 - LayerNorm/GroupNorm ``scale``/``bias`` -> ``weight``/``bias``; the
-  ``gamma`` and ``layer_scale_{1,2}`` vectors, ``mtl_sigma`` and the
-  scalar ``Scale``s keep their names.
+  ``gamma`` and ``layer_scale_{1,2}`` vectors, GRN's ``gamma`` / ``beta``,
+  ``mtl_sigma`` and the scalar ``Scale``s keep their names (a block
+  without layer scale has no ``gamma``, in either tree).
 
 ``to_flax(tensors, template)`` is the reverse map, for the port's
 gradients or parameters: it lays them out as the flax tree ``template``
@@ -54,9 +59,13 @@ _TOP = re.compile(r"backbone|neck|((sar|rgb|ifr)_)?(bbox|rpn|roi)_head"
                   r"|refine_head\d+|stage[12]_head")
 # top-level leaves a tree may hold: the uncertainty reweighting's sigmas
 OPTIONAL_LEAVES = ("mtl_sigma",)
-_LINEAR = {"cosine_projector", "shared_fc0", "shared_fc1", "fc_cls", "fc_reg"}
-_KEPT = {"gamma", "temperature", "sim_matrix", "w_noise", "w1", "b1", "w2",
-         "b2", "w", "b", "layer_scale_1", "layer_scale_2", "mtl_sigma"}
+_LINEAR = re.compile(r"cosine_projector|shared_fc[01]|fc_cls|fc_reg"
+                     r"|fc\d+_[01]")
+_KEPT = {"gamma", "beta", "temperature", "sim_matrix", "w_gate", "w_noise",
+         "w1", "b1", "w2", "b2", "w", "b", "layer_scale_1", "layer_scale_2",
+         "mtl_sigma"}
+# SimpleFPN's transposed convs: the kernel stays in the flax layout
+_UPCONV = {"fpn1_up1", "fpn1_up2", "fpn2_up"}
 _NORM = re.compile(r".*norm\d*|(cls|reg)_gn\d+")
 
 
@@ -79,13 +88,15 @@ def _rule(path: tuple, v: np.ndarray):
     *mods, leaf = path
     parent = mods[-1] if mods else ""
     name, perm = None, None
-    if leaf == "kernel" and v.ndim == 4:
+    if leaf == "kernel" and v.ndim == 4 and parent in _UPCONV:
+        name = "kernel"
+    elif leaf == "kernel" and v.ndim == 4:
         name, perm = "weight", _HWIO_TO_OIHW
     elif leaf == "weight" and v.ndim == 5 and parent == "or_conv":
         name, perm = "weight", _ORCONV
     elif leaf == "kernel" and v.ndim == 2 and parent.startswith("pwconv"):
         name = "kernel"
-    elif leaf == "kernel" and v.ndim == 2 and parent in _LINEAR:
+    elif leaf == "kernel" and v.ndim == 2 and _LINEAR.fullmatch(parent):
         name, perm = "weight", _TRANSPOSE
     elif leaf == "bias":
         name = "bias"

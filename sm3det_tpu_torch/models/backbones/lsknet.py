@@ -206,8 +206,10 @@ class LSKNetMoE(nn.Module):
         conv = getattr(self, "stem_single" if i == 0 else f"patch_embed{i}")
         return conv(x)
 
-    def forward(self, x):
-        """x: (B, H, W, 3) -> tuple of (B, H/s, W/s, C_i) features."""
+    def forward(self, x, dataset_ids=None):
+        """x: (B, H, W, 3) -> tuple of (B, H/s, W/s, C_i) features. The
+        images' ``dataset_ids`` are taken and not read, as in JAX (no
+        domain attention)."""
         outs = []
         for i, depth in enumerate(self.depths):
             x = getattr(self, f"embed_norm{i}")(self._embed(i, x))
@@ -217,12 +219,14 @@ class LSKNetMoE(nn.Module):
                 outs.append(getattr(self, f"out_norm{i}")(x))
         return tuple(outs)
 
-    def forward_train(self, x, gen: torch.Generator | None = None):
+    def forward_train(self, x, gen: torch.Generator | None = None,
+                      dataset_ids=None):
         """Training forward: x (B, H, W, 3) -> (features, gate_loss), the
         gate loss the mean of the MoE blocks' aux losses (None without MoE
-        blocks). The draws come from ``gen`` (on its device, then moved to
-        x's), block by block in order: the fc1 and fc2 gates' normal noise,
-        then the two stochastic-depth masks."""
+        blocks); ``dataset_ids`` as in :meth:`forward`. The draws come
+        from ``gen`` (on its device, then moved to x's), block by block in
+        order: the fc1 and fc2 gates' normal noise, then the two
+        stochastic-depth masks."""
         gdev = gen.device if gen is not None else None
         outs, gate_losses = [], []
         for i, depth in enumerate(self.depths):

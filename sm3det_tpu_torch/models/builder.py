@@ -4,15 +4,23 @@ Port of the registry part of ``sm3det_tpu/models/__init__.py``: the names a
 config's ``type`` may take, and ``normalize_model_cfg``. The port registers
 what it has:
 
-- detectors: ``TriSourceDetector`` with a ConvNeXt-MoE, LSKNet-MoE or
-  VAN-MoE backbone (``ConvNeXt_moe``, ``ConvNeXt_moe_MultiInput``,
-  ``LSKNet``, ``LSKNet_moe_MultiInput``, ``VAN``, ``VAN_moe_MultiInput``),
+- detectors: ``TriSourceDetector`` with a ConvNeXt-MoE (Domain Attention
+  included), LSKNet-MoE or VAN-MoE backbone (``ConvNeXt_moe``,
+  ``ConvNeXt_moe_MultiInput``, ``ConvNeXt_DA_MultiInput``, ``LSKNet``,
+  ``LSKNet_moe_MultiInput``, ``VAN``, ``VAN_moe_MultiInput``),
   ``TriSourceVariant`` (its ``sar_stages`` / ``rot_stages`` from the
   config), and the single-dataset ``OrientedRCNN``, ``GFL``,
   ``RotatedRetinaNet``, ``FasterRCNN``, ``CascadeRCNN``, ``RetinaNet``,
   ``R3Det``, ``S2ANet`` and ``RoITransformer`` on the single-stem
   ConvNeXt (``ConvNeXt_moe`` or no backbone type);
-- the ``MultitaskFPN``, and the heads those detectors use.
+- the necks ``MultitaskFPN`` and ``FPN`` (the same module: every detector
+  builds it and calls it with ``add_extra_convs="on_output"`` on each
+  branch, as JAX's do, so a config's ``add_extra_convs`` and
+  ``relu_before_extra_convs`` are checked but reach no detector, as in
+  JAX; they are the module's own options, library API) and ``SimpleFPN``
+  (library API: it takes one stride-16 map, which no ported backbone
+  makes, so a detector config naming it raises), and the heads those
+  detectors use.
 
 Every other name the JAX package registers raises ``NotImplementedError``
 naming the ROADMAP item that ports it; nothing falls back to the flagship.
@@ -43,13 +51,12 @@ from .detectors.refine_detectors import (ODMRefineHead, R3Det, RefineHead,
 from .detectors.trisource import TriSourceDetector
 from .detectors.trisource_variants import DEFAULT_STAGES, TriSourceVariant
 from .detectors.zoo import GFLDetector, OrientedRCNN, RotatedRetinaNet
-from .necks.fpn import MultitaskFPN
+from .necks.fpn import FPN, MultitaskFPN, SimpleFPN, check_extra_convs
 from .roi_heads.cascade_heads import HBB2OBBBBoxHead
 from .roi_heads.oriented_roi_head import RotatedShared2FCBBoxHead
 from .roi_heads.standard_roi_head import Shared2FCBBoxHead
 
 ZOO = "ROADMAP queue 1 item 7 (the zoo)"
-LEFTOVERS = "ROADMAP queue 1 item 5 (backbone and neck leftovers)"
 
 
 def _unported(kind: str, name: str, item: str):
@@ -60,13 +67,16 @@ def _unported(kind: str, name: str, item: str):
     return build
 
 
-BACKBONES.register_module("ConvNeXt_moe", module=ConvNeXtMoE)
-BACKBONES.register_module("ConvNeXt_moe_MultiInput", module=ConvNeXtMoE)
+for _name in ("ConvNeXt_moe", "ConvNeXt_moe_MultiInput",
+              "ConvNeXt_DA_MultiInput"):
+    BACKBONES.register_module(_name, module=ConvNeXtMoE)
 for _name, _cls in (("LSKNet", LSKNetMoE), ("LSKNet_moe_MultiInput",
                                             LSKNetMoE),
                     ("VAN", VANMoE), ("VAN_moe_MultiInput", VANMoE)):
     BACKBONES.register_module(_name, module=_cls)
-NECKS.register_module("MultitaskFPN", module=MultitaskFPN)
+for _name, _cls in (("MultitaskFPN", MultitaskFPN), ("FPN", FPN),
+                    ("SimpleFPN", SimpleFPN)):
+    NECKS.register_module(_name, module=_cls)
 for _name, _cls in (("TriSourceDetector", TriSourceDetector),
                     ("TriSourceVariant", TriSourceVariant),
                     ("OrientedRCNN", OrientedRCNN), ("GFL", GFLDetector),
@@ -96,16 +106,12 @@ for _name in ("RotatedFCOSHead", "OrientedRepPointsHead", "GVBBoxHead",
               "CSLRFCOSHead", "RotatedAnchorFreeHead"):
     HEADS.register_module(_name, module=_unported("head", _name, ZOO))
 
-for _name, _item in [("ConvNeXt_DA_MultiInput", LEFTOVERS)] + [
-        (n, ZOO) for n in (
-            "LSKNet_moe", "VAN_moe", "SwinTransformer_moe",
-            "SwinTransformer_MoE", "SwinTransformer", "InternViT",
-            "InternViTAdapter", "ReResNet")]:
+for _name in ("LSKNet_moe", "VAN_moe", "SwinTransformer_moe",
+              "SwinTransformer_MoE", "SwinTransformer", "InternViT",
+              "InternViTAdapter", "ReResNet"):
     BACKBONES.register_module(_name, module=_unported("backbone", _name,
-                                                      _item))
-for _name, _item in (("FPN", LEFTOVERS), ("SimpleFPN", LEFTOVERS),
-                     ("ReFPN", ZOO)):
-    NECKS.register_module(_name, module=_unported("neck", _name, _item))
+                                                      ZOO))
+NECKS.register_module("ReFPN", module=_unported("neck", "ReFPN", ZOO))
 for _name in ("ReDet", "RotatedFCOS", "GlidingVertex", "OrientedRepPoints",
               "RotatedFasterRCNN", "RotatedRepPoints", "SAMRepPoints",
               "GRepPoints", "RotatedATSS"):
@@ -113,13 +119,14 @@ for _name in ("ReDet", "RotatedFCOS", "GlidingVertex", "OrientedRepPoints",
                                                       ZOO))
 
 # the backbone keys TriSourceDetector reads (besides pretrained)
-_BACKBONE_KEYS = {"type", "arch", "drop_path_rate", "moe_block_inds", "num_experts",
-                  "top_k", "gate", "noisy_gating", "capacity_factor",
-                  "use_da", "embed_dims", "depths", "moe_block_inds_fc1",
-                  "moe_block_inds_fc2"}
-_INDEX_KEYS = ("moe_block_inds", "moe_block_inds_fc1", "moe_block_inds_fc2")
+_BACKBONE_KEYS = {"type", "arch", "drop_path_rate", "moe_block_inds",
+                  "num_experts", "top_k", "gate", "noisy_gating",
+                  "capacity_factor", "use_da", "da_block_inds", "embed_dims",
+                  "depths", "moe_block_inds_fc1", "moe_block_inds_fc2"}
+_INDEX_KEYS = ("moe_block_inds", "da_block_inds", "moe_block_inds_fc1",
+               "moe_block_inds_fc2")
 _NECK_KEYS = {"in_channels", "out_channels", "num_outs", "extra_level",
-              "add_extra_convs"}
+              "add_extra_convs", "relu_before_extra_convs"}
 
 
 def normalize_model_cfg(mc):
@@ -138,21 +145,17 @@ def normalize_model_cfg(mc):
     return mc
 
 
-def build_detector(cfg_model: Dict[str, Any], device=None,
-                   compute_dtype: Optional[str] = None, seed: int = 0,
-                   trainable: bool = False):
-    """A detector from a config's ``model`` dict, parameters from ``seed``,
-    on ``device`` (the card unless ``"cpu"``). ``compute_dtype``
-    ``"bfloat16"`` runs the forward in bf16: an inference model holds its
-    parameters in it; a ``trainable`` one holds fp32 masters that require
-    grad, in train mode (the train step hands the forward a copy in the
-    compute dtype). A config's ``model.compute_dtype`` is used when
-    ``compute_dtype`` is None."""
+def resolve_model_cfg(cfg_model: Dict[str, Any],
+                      compute_dtype: Optional[str] = None):
+    """What ``build_detector`` builds from a config's ``model`` dict, without
+    building it: ``(detector class, its cfg, constructor keywords)``.
+    Raises as ``build_detector`` does for a type, key or mode the port does
+    not take."""
     if hasattr(cfg_model, "to_dict"):
         cfg_model = cfg_model.to_dict()
     mc = normalize_model_cfg(copy.deepcopy(dict(cfg_model)))
     det_type = mc.pop("type", "TriSourceDetector")
-    det_cls = DETECTORS.get(det_type)
+    _check_built(DETECTORS, det_type)
     kwargs = {}
     if det_type == "TriSourceVariant":
         kwargs = dict(sar_stages=mc.pop("sar_stages", DEFAULT_STAGES),
@@ -163,21 +166,42 @@ def build_detector(cfg_model: Dict[str, Any], device=None,
     extra = sorted(set(b) - _BACKBONE_KEYS)
     if extra:
         raise NotImplementedError(
-            f"backbone keys {extra} are not ported: {LEFTOVERS}")
+            f"backbone keys {extra} are not taken: the detectors' backbone "
+            f"factories read none of them (the JAX package's ignore them)")
     for key in _INDEX_KEYS:
         if key in b:
             b[key] = tuple(tuple(x) for x in b[key])
     n = mc["neck"]
-    _check_built(NECKS, n.pop("type", "MultitaskFPN"))
-    extra = sorted(set(n) - _NECK_KEYS)
-    if extra or n.get("add_extra_convs", "on_output") != "on_output":
+    neck_type = n.pop("type", "MultitaskFPN")
+    _check_built(NECKS, neck_type)
+    if neck_type == "SimpleFPN":
         raise NotImplementedError(
-            f"neck settings {extra or n['add_extra_convs']!r} are not "
-            f"ported: {LEFTOVERS}")
+            f"neck 'SimpleFPN' takes one stride-16 map, from the ViT "
+            f"backbones, which are not ported: {ZOO}")
+    extra = sorted(set(n) - _NECK_KEYS)
+    if extra:
+        raise NotImplementedError(
+            f"neck keys {extra} are not taken: the detectors' necks read "
+            f"none of them (the JAX package's ignore them)")
+    check_extra_convs(n.get("add_extra_convs", "on_output"))
     if compute_dtype:
         mc["compute_dtype"] = compute_dtype
     if mc.get("compute_dtype") == "float32":
         del mc["compute_dtype"]
+    return DETECTORS.get(det_type), mc, kwargs
+
+
+def build_detector(cfg_model: Dict[str, Any], device=None,
+                   compute_dtype: Optional[str] = None, seed: int = 0,
+                   trainable: bool = False):
+    """A detector from a config's ``model`` dict, parameters from ``seed``,
+    on ``device`` (the card unless ``"cpu"``). ``compute_dtype``
+    ``"bfloat16"`` runs the forward in bf16: an inference model holds its
+    parameters in it; a ``trainable`` one holds fp32 masters that require
+    grad, in train mode (the train step hands the forward a copy in the
+    compute dtype). A config's ``model.compute_dtype`` is used when
+    ``compute_dtype`` is None."""
+    det_cls, mc, kwargs = resolve_model_cfg(cfg_model, compute_dtype)
     return det_cls(cfg=mc, device=device, seed=seed, trainable=trainable,
                    **kwargs)
 

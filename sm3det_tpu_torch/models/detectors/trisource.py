@@ -1,10 +1,11 @@
 """TriSource detector.
 
 Port of ``sm3det_tpu/models/detectors/trisource.py::TriSourceDetector``:
-the shared backbone (ConvNeXt-MoE, LSKNet-MoE or VAN-MoE in MultiInput
-mode, ``build_multi_input_backbone``), the MultitaskFPN, the SAR GFL head
-and the RGB and infrared Oriented R-CNN branches (oriented RPN, pyramid
-rotated RoI align, shared-2fc head).
+the shared backbone (ConvNeXt-MoE, with Domain Attention for
+``ConvNeXt_DA_MultiInput`` / ``use_da``, LSKNet-MoE or VAN-MoE in
+MultiInput mode, ``build_multi_input_backbone``), the MultitaskFPN, the
+SAR GFL head and the RGB and infrared Oriented R-CNN branches (oriented
+RPN, pyramid rotated RoI align, shared-2fc head).
 
 - Inference: ``simple_test_sar/rgb/ifr``, ``simple_test_joint`` (one
   backbone pass over the three modalities, one proposal NMS, one align and
@@ -12,6 +13,10 @@ rotated RoI align, shared-2fc head).
   split into ``head_*`` (the network) and ``get_*``/``get_bboxes_*``
   (decode and NMS), so that a caller can feed the same network outputs to
   two devices.
+- Every backbone pass hands it the images' dataset ids as JAX's does: 0
+  for ``simple_test_sar``, 1 / 2 for the RGB / infrared ``simple_test``
+  (and so ``aug_test``), the batch composition for ``simple_test_joint``
+  and training. Only DA blocks read them.
 - Training: ``forward(batch, gen)`` returns the loss dict of the JAX
   ``__call__`` (GFL losses of the SAR images, RPN and R-CNN losses of the
   RGB and infrared images, the MoE gate loss); the random draws come from
@@ -122,6 +127,15 @@ REWEIGHT_LOSS_KEYS = (
     "rgb_loss_bbox", "ifr_loss_rpn_cls", "ifr_loss_rpn_bbox",
     "ifr_loss_cls", "ifr_loss_bbox")
 REWEIGHT_MODES = (None, "uncertainty", "dwa")
+# the dataset id of each modality, as the JAX entry points pass them to the
+# backbone's domain attention
+DATASET_IDS = {"sar": 0, "rgb": 1, "ifr": 2}
+
+
+def composition_ids(n_sar: int, n_rgb: int, n_ifr: int):
+    """The dataset ids of a batch of SAR, then RGB, then infrared images:
+    Python ints, the batch composition (JAX's static ``source_ratio``)."""
+    return (0,) * n_sar + (1,) * n_rgb + (2,) * n_ifr
 
 
 def build_multi_input_backbone(b: Dict[str, Any],
@@ -135,12 +149,15 @@ def build_multi_input_backbone(b: Dict[str, Any],
         gate=b.get("gate", "cosine"),
         noisy_gating=b.get("noisy_gating", True),
         capacity_factor=b.get("capacity_factor", 1.5), gen=gen)
-    if btype in ("ConvNeXt", "ConvNeXt_moe", "ConvNeXt_moe_MultiInput"):
+    if btype in ("ConvNeXt", "ConvNeXt_moe", "ConvNeXt_moe_MultiInput",
+                 "ConvNeXt_DA_MultiInput"):
         return ConvNeXtMoE(
             arch=b.get("arch", "tiny"),
             moe_block_inds=tuple(tuple(i) for i in b.get(
                 "moe_block_inds", ((), (), (), ()))),
-            use_da=b.get("use_da", False), **common)
+            use_da=b.get("use_da", False),
+            da_block_inds=tuple(tuple(i) for i in b.get(
+                "da_block_inds", ((), (), (), ()))), **common)
     if btype in ("LSKNet", "LSKNet_moe_MultiInput", "VAN",
                  "VAN_moe_MultiInput"):
         cls = LSKNetMoE if btype.startswith("LSK") else VANMoE
@@ -152,10 +169,6 @@ def build_multi_input_backbone(b: Dict[str, Any],
             moe_block_inds_fc2=tuple(tuple(i) for i in b.get(
                 "moe_block_inds_fc2", ((), (), (), ()))),
             **common)
-    if btype == "ConvNeXt_DA_MultiInput":
-        raise NotImplementedError(
-            f"backbone {btype!r}: domain attention is not ported "
-            f"(ROADMAP queue 1 item 5)")
     if btype in ("SwinTransformer_moe", "Swin", "InternViTAdapter"):
         raise NotImplementedError(f"backbone {btype!r} is not ported: {ZOO}")
     raise ValueError(f"unknown backbone type {btype!r}")
@@ -271,12 +284,16 @@ class TriSourceDetector(DetectorBase):
             self.mtl_sigma = nn.Parameter(torch.ones(len(REWEIGHT_LOSS_KEYS)))
         self._place(c, device, trainable)
 
-    def extract_feat(self, imgs):
-        return self.backbone(self._cast_in(imgs))
+    def extract_feat(self, imgs, dataset_id: int | None = None):
+        """The backbone's levels of images of one modality; ``dataset_id``
+        (0 SAR, 1 RGB, 2 infrared) reaches the DA blocks, as the JAX
+        entry points pass it (None: the DA blocks are skipped)."""
+        ids = None if dataset_id is None else (dataset_id,) * imgs.shape[0]
+        return self.backbone(self._cast_in(imgs), ids)
 
     def head_sar(self, imgs):
         """Backbone, neck and GFL head; outputs in the compute dtype."""
-        return self.head_sar_from_feats(self.extract_feat(imgs))
+        return self.head_sar_from_feats(self.extract_feat(imgs, 0))
 
     def neck_sar(self, feats):
         """Neck of the SAR branch (start_level=1, extra convs on output)."""
@@ -354,7 +371,7 @@ class TriSourceDetector(DetectorBase):
 
     def _simple_test_rcnn(self, imgs, subdataset, img_shape,
                           max_per_img=None):
-        x = self.neck_rcnn(self.extract_feat(imgs))
+        x = self.neck_rcnn(self.extract_feat(imgs, DATASET_IDS[subdataset]))
         rpn_cls, rpn_reg = self.head_rpn(x, subdataset)
         proposals, _, p_valid = self.get_proposals(rpn_cls, rpn_reg,
                                                    img_shape)
@@ -395,7 +412,8 @@ class TriSourceDetector(DetectorBase):
         n_sar, n_rgb = sar_imgs.shape[0], rgb_imgs.shape[0]
         imgs = torch.cat([self._cast_in(sar_imgs), self._cast_in(rgb_imgs),
                           self._cast_in(ifr_imgs)], dim=0)
-        feats = self.backbone(imgs)
+        feats = self.backbone(imgs, composition_ids(
+            n_sar, n_rgb, ifr_imgs.shape[0]))
         sar_out = self.head_sar_from_feats([f[:n_sar] for f in feats])
         x = self.neck_rcnn([f[n_sar:] for f in feats])
         rgb_cls, rgb_reg = self.rgb_rpn_head([f[:n_rgb] for f in x])
@@ -507,14 +525,16 @@ class TriSourceDetector(DetectorBase):
         ifr_x), gate_loss)."""
         imgs = [self._cast_in(batch[k]["img"]) for k in ("sar", "rgb", "ifr")]
         n_sar, n_rgb = imgs[0].shape[0], imgs[1].shape[0]
-        feats, gate_loss = self.backbone.forward_train(torch.cat(imgs, 0),
-                                                       gen)
+        feats, gate_loss = self.backbone.forward_train(
+            torch.cat(imgs, 0), gen,
+            composition_ids(n_sar, n_rgb, imgs[2].shape[0]))
         sar_x = self.neck_sar([f[:n_sar] for f in feats])
         rgb_x = self.neck_rcnn([f[n_sar:n_sar + n_rgb] for f in feats])
         ifr_x = self.neck_rcnn([f[n_sar + n_rgb:] for f in feats])
         return (sar_x, rgb_x, ifr_x), gate_loss
 
-    def forward(self, batch, gen: torch.Generator | None = None):
+    def forward(self, batch, gen: torch.Generator | None = None,
+                sample_keys=None):
         """Training forward: the loss dict of the JAX ``__call__``.
 
         ``batch``: {"sar": {img (B, H, W, 3), gt_bboxes (B, G, 4), gt_labels,
@@ -522,10 +542,12 @@ class TriSourceDetector(DetectorBase):
         gt_mask}}, tensors on the model's device. ``gen`` draws, in order,
         the backbone's stochastic-depth masks and gate noise, then per R-CNN
         branch the RPN sampler's keys and the RoI sampler's keys.
+        ``sample_keys`` (a list of (key_pos, key_neg) pairs) replaces the
+        samplers' draws.
         """
         c = self.cfg
         r = c["rgb"]
-        keys = SampleKeys(gen)
+        keys = SampleKeys(gen, sample_keys)
         (sar_x, rgb_x, ifr_x), gate_loss = self.extract_feat_train(batch,
                                                                   gen)
         losses: Dict[str, torch.Tensor] = {}

@@ -42,7 +42,7 @@ from ..roi_heads.oriented_roi_head import RotatedShared2FCBBoxHead
 from ..roi_heads.standard_roi_head import Shared2FCBBoxHead
 from .base import DetectorBase
 from .hbb_detectors import hbb_rcnn_losses
-from .trisource import (build_multi_input_backbone,
+from .trisource import (build_multi_input_backbone, composition_ids,
                         make_rpn_anchor_generator, make_sar_anchor_generator,
                         oriented_rcnn_losses, roi_feats)
 
@@ -114,8 +114,9 @@ class TriSourceVariant(DetectorBase):
         keys = SampleKeys(gen, sample_keys)
         imgs = [self._cast_in(batch[k]["img"]) for k in ("sar", "rgb", "ifr")]
         n_sar, n_rgb = imgs[0].shape[0], imgs[1].shape[0]
-        feats, gate_loss = self.backbone.forward_train(torch.cat(imgs, 0),
-                                                       gen)
+        feats, gate_loss = self.backbone.forward_train(
+            torch.cat(imgs, 0), gen,
+            composition_ids(n_sar, n_rgb, imgs[2].shape[0]))
         losses: Dict[str, torch.Tensor] = {}
         if gate_loss is not None:
             losses["gate_loss"] = gate_loss

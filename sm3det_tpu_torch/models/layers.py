@@ -1,6 +1,6 @@
 """Common building blocks, NHWC at every public function.
 
-Port of ``sm3det_tpu/models/layers.py`` (GELU policy, ``Scale``,
+Port of ``sm3det_tpu/models/layers.py`` (GELU policy, ``GRN``, ``Scale``,
 ``DropPath``) plus the NHWC convolution and flax-style GroupNorm the neck
 and head use.
 """
@@ -40,6 +40,23 @@ def drop_path(x: torch.Tensor, rate: float, keep_mask=None) -> torch.Tensor:
     mask = keep_mask.to(x.device).reshape((-1,) + (1,) * (x.dim() - 1))
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
+
+
+class GRN(nn.Module):
+    """Global Response Normalization (ConvNeXt-V2) on NHWC ``x``: the L2
+    norm over the spatial axes 1 and 2, divided by its channel mean, then
+    ``gamma * (x * nx) + beta + x``; ``gamma`` and ``beta`` start at 0."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.gamma = nn.Parameter(torch.zeros(dim))
+        self.beta = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x):
+        gx = torch.sqrt(torch.sum(x * x, dim=(1, 2), keepdim=True))
+        nx = gx / (gx.mean(dim=-1, keepdim=True) + self.eps)
+        return self.gamma * (x * nx) + self.beta + x
 
 
 class Scale(nn.Module):

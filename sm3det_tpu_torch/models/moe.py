@@ -1,7 +1,10 @@
 """Grid-level sparse Mixture-of-Experts.
 
-Port of ``sm3det_tpu/models/moe.py`` (cosine gate): two-layer FFN experts
-(ConvNeXt) and single-projection linear experts (the LSKNet / VAN MLP's
+Port of ``sm3det_tpu/models/moe.py``: the cosine gate and the linear gate
+(``x @ w_gate``, zeros at init, so that the first routes are decided by
+tie-breaking alone: ``stable_topk`` picks the lower index, as
+``lax.top_k``); two-layer FFN experts (ConvNeXt, optionally with GRN after
+the GELU) and single-projection linear experts (the LSKNet / VAN MLP's
 fc1 / fc2, ``expert_kind="linear"``).
 
 - Inference of FFN experts (``MoELayer.forward``): the no-drop
@@ -10,7 +13,9 @@ fc1 / fc2, ``expert_kind="linear"``).
   layout belongs to one expert; ``x_slots`` and ``tile_expert`` match the
   JAX layout exactly, and the expert FFN runs through
   ``ops/cuda/moe_groupgemm_kernel``. No route is dropped.
-- Inference of linear experts, and training of both kinds
+- Inference of linear experts and of GRN experts (GRN normalises over an
+  expert's whole bucket, which the fused FFN kernel cannot hold between
+  its GELU and fc2), and training of every kind
   (``MoELayer.forward_train``: the noisy top-k gate with its normal noise
   passed in, the CV^2 importance/load balance loss): the capacity-bucketed
   dispatch with its drops. Every (token, choice) route takes the next place
@@ -32,10 +37,11 @@ import torch
 from torch import nn
 
 from ..ops.cuda.moe_groupgemm_kernel import moe_ffn_grouped
-from .layers import gelu, trunc_normal_
+from .layers import GRN, gelu, trunc_normal_
 
 
 LOSS_COEF = 1e-2      # weight of the balance loss (the JAX ``loss_coef``)
+GATES = ("cosine", "linear")
 
 
 def cv_squared(x: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
@@ -101,18 +107,22 @@ class CosineTopKGate(nn.Module):
 
 class ExpertFFN(nn.Module):
     """All experts' FFN weights stacked on a leading expert axis, in the
-    JAX layout: w1 (E, d, h), b1 (E, h), w2 (E, h, d), b2 (E, d)."""
+    JAX layout: w1 (E, d, h), b1 (E, h), w2 (E, h, d), b2 (E, d); with
+    ``use_grn`` a GRN after the GELU, over each expert's bucket."""
 
     def __init__(self, num_experts: int, dim: int, hidden: int,
+                 use_grn: bool = False,
                  gen: torch.Generator | None = None):
         super().__init__()
         e = num_experts
+        self.num_experts, self.hidden = e, hidden
         self.w1 = nn.Parameter(trunc_normal_(
             torch.empty(e, dim, hidden), 1 / math.sqrt(e * dim), gen))
         self.b1 = nn.Parameter(torch.zeros(e, hidden))
         self.w2 = nn.Parameter(trunc_normal_(
             torch.empty(e, hidden, dim), 1 / math.sqrt(e * hidden), gen))
         self.b2 = nn.Parameter(torch.zeros(e, dim))
+        self.grn = GRN(hidden) if use_grn else None
 
     def grouped(self, x_slots, tile_expert):
         return moe_ffn_grouped(x_slots, tile_expert, self.w1, self.b1,
@@ -124,6 +134,10 @@ class ExpertFFN(nn.Module):
         rounded to x.dtype before the GELU."""
         h = torch.bmm(x, self.w1).float() + self.b1[:, None].float()
         h = gelu(h.to(x.dtype))
+        if self.grn is not None:
+            # the JAX layout: (E, cap, 1, h), normalised over the bucket
+            e, hid = self.num_experts, self.hidden
+            h = self.grn(h.reshape(e, -1, 1, hid)).reshape(e, -1, hid)
         y = torch.bmm(h, self.w2).float() + self.b2[:, None].float()
         return y.to(x.dtype)
 
@@ -228,31 +242,39 @@ def group_aligned_dispatch(top_k_idx: torch.Tensor, num_experts: int,
 class MoELayer(nn.Module):
     """Grid-level sparse MoE over flattened spatial tokens.
 
+    ``gating`` ``"cosine"`` (:class:`CosineTopKGate`) or ``"linear"``
+    (``w_gate`` (d, E), zeros at init). The JAX package builds the cosine
+    gate for any name but ``"linear"``; the port raises on other names.
     ``expert_kind`` ``"ffn"`` (FFN experts of width ``hidden``, output
-    width ``dim``) or ``"linear"`` (one projection to ``out_dim``, default
-    ``dim``). ``w_noise`` is the noisy gate's projection (zeros at init, as
-    in JAX), read only in training.
+    width ``dim``, a GRN after the GELU with ``use_grn``) or ``"linear"``
+    (one projection to ``out_dim``, default ``dim``). ``w_noise`` is the
+    noisy gate's projection (zeros at init, as in JAX), read only in
+    training.
     """
 
     def __init__(self, dim: int, hidden: int, num_experts: int = 8,
                  top_k: int = 2, gating: str = "cosine",
                  noisy_gating: bool = True, capacity_factor: float = 1.5,
                  expert_kind: str = "ffn", out_dim: int | None = None,
+                 use_grn: bool = False,
                  gen: torch.Generator | None = None):
         super().__init__()
-        if gating != "cosine":
-            raise NotImplementedError(
-                f"gating {gating!r}: only the cosine gate is ported "
-                f"(ROADMAP queue 1 item 5)")
+        if gating not in GATES:
+            raise ValueError(f"gating {gating!r}: one of {GATES}")
         self.dim, self.num_experts, self.top_k = dim, num_experts, top_k
+        self.gating, self.use_grn = gating, use_grn
         self.noisy_gating = noisy_gating
         self.capacity_factor = capacity_factor
-        self.w_gate = CosineTopKGate(dim, num_experts, gen=gen)
+        if gating == "linear":
+            self.w_gate = nn.Parameter(torch.zeros(dim, num_experts))
+        else:
+            self.w_gate = CosineTopKGate(dim, num_experts, gen=gen)
         if noisy_gating:
             self.w_noise = nn.Parameter(torch.zeros(dim, num_experts))
         if expert_kind == "ffn":
             self.out_dim = dim
-            self.experts = ExpertFFN(num_experts, dim, hidden, gen=gen)
+            self.experts = ExpertFFN(num_experts, dim, hidden,
+                                     use_grn=use_grn, gen=gen)
         elif expert_kind == "linear":
             self.out_dim = out_dim or dim
             self.experts = ExpertLinear(num_experts, dim, self.out_dim,
@@ -269,7 +291,7 @@ class MoELayer(nn.Module):
         """
         n, d = x.shape
         e, k = self.num_experts, self.top_k
-        clean_logits = self.w_gate(x)
+        clean_logits = self.gate_logits(x)
         if self.noisy_gating:
             if noise is None:
                 raise ValueError("noisy gating needs its normal draws")
@@ -310,21 +332,27 @@ class MoELayer(nn.Module):
             (top_k_gates.reshape(-1) * keep)[:, None].to(out_buf.dtype)
         return weighted.reshape(n, k, o).sum(dim=1).to(x.dtype)
 
+    def gate_logits(self, x):
+        """The clean gate logits (N, E)."""
+        if self.gating == "linear":
+            return x @ self.w_gate
+        return self.w_gate(x)
+
     def route(self, x):
         """The inference gate: (top-k expert ids (N, k), their softmax
         weights (N, k))."""
         k = self.top_k
-        top_logits, top_idx = stable_topk(self.w_gate(x),
+        top_logits, top_idx = stable_topk(self.gate_logits(x),
                                           min(k + 1, self.num_experts))
         return top_idx[:, :k], torch.softmax(top_logits[:, :k], dim=-1)
 
     def forward(self, x):
-        """x: (N, d) tokens -> (N, out_dim) in x.dtype. Linear experts take
-        the capacity dispatch, drops included, as in JAX."""
+        """x: (N, d) tokens -> (N, out_dim) in x.dtype. Linear and GRN
+        experts take the capacity dispatch, drops included, as in JAX."""
         n, d = x.shape
         e, k = self.num_experts, self.top_k
         top_k_idx, gates = self.route(x)
-        if self.expert_kind == "linear":
+        if self.expert_kind == "linear" or self.use_grn:
             return self._capacity_forward(x, top_k_idx, gates)
         src_token, tile_e, _, pos_route = group_aligned_dispatch(
             top_k_idx, e, d)

@@ -1,14 +1,15 @@
 """Rotated-box representation conversions.
 
-Port of the part of ``sm3det_tpu/ops/box_convert.py`` that the port's
-detectors call: ``norm_angle``, ``poly2obb`` (long-edge conventions),
-``obb2poly``, ``obb2xyxy``, ``obb2hbb`` and ``hbb2obb`` (RoI Transformer's
-stage-1 priors), and the host numpy variants ``_norm_angle_np``,
+Port of ``sm3det_tpu/ops/box_convert.py``: ``norm_angle``, ``poly2obb``
+(all three conventions), ``obb2poly``, ``obb2xyxy``, ``obb2hbb`` and
+``hbb2obb`` (RoI Transformer's stage-1 priors), ``rbbox_flip``,
+``gaussian2bbox``, and the host numpy variants ``_norm_angle_np``,
 ``poly2obb_np`` and ``obb2poly_np`` that the datasets and the DOTA
 submission writer use. Oriented boxes are ``(cx, cy, w, h, theta)`` in image
 coordinates (y down); ``'le90'`` keeps theta in [-pi/2, pi/2) with ``w`` the
-long edge, ``'le135'`` in [-pi/4, 3pi/4). Every function broadcasts over
-leading dimensions.
+long edge, ``'le135'`` in [-pi/4, 3pi/4), ``'oc'`` in (0, pi/2] with ``w``
+the edge the y axis reaches when turned by theta. Every function broadcasts
+over leading dimensions.
 """
 
 from __future__ import annotations
@@ -52,11 +53,32 @@ def _poly2obb_long_edge(polys: torch.Tensor, version: str) -> torch.Tensor:
                         torch.minimum(edge1, edge2), angle], dim=-1)
 
 
+def _poly2obb_oc(polys: torch.Tensor) -> torch.Tensor:
+    """Rectangle polygons ``(..., 8)`` -> OBBs in the OpenCV convention:
+    the centre is the vertices' mean, theta the first edge's angle to the
+    y axis taken modulo pi/2, with w and h swapped where that takes an
+    even number of quarter turns."""
+    polys = polys.reshape(polys.shape[:-1] + (4, 2))
+    ctr = polys.mean(dim=-2)
+    pt0, pt1, pt2 = polys[..., 0, :], polys[..., 1, :], polys[..., 2, :]
+    _w = _norm2(pt0 - pt1)
+    _h = _norm2(pt1 - pt2)
+    _theta = torch.atan2(-(pt1[..., 0] - pt0[..., 0]),
+                         pt1[..., 1] - pt0[..., 1])
+    odd = torch.remainder(torch.floor(_theta / (PI * 0.5)), 2) == 0
+    w = torch.where(odd, _h, _w)
+    h = torch.where(odd, _w, _h)
+    theta = torch.remainder(_theta, PI * 0.5)
+    return torch.stack([ctr[..., 0], ctr[..., 1], w, h, theta], dim=-1)
+
+
 def poly2obb(polys: torch.Tensor, version: str = "le90") -> torch.Tensor:
+    """Rectangle polygons ``(..., 8)`` -> OBBs ``(..., 5)``."""
+    if version == "oc":
+        return _poly2obb_oc(polys)
     if version in ("le135", "le90"):
         return _poly2obb_long_edge(polys, version)
-    raise NotImplementedError(
-        f"poly2obb: angle version {version!r} is not ported")
+    raise NotImplementedError(f"poly2obb: unknown angle version {version!r}")
 
 
 def obb2poly(obbs: torch.Tensor, version: str = "le90") -> torch.Tensor:
@@ -106,6 +128,48 @@ def obb2hbb(obbs: torch.Tensor, version: str = "oc") -> torch.Tensor:
     """The enclosing horizontal box of OBBs, as an OBB (``hbb2obb`` of
     ``obb2xyxy``)."""
     return hbb2obb(obb2xyxy(obbs, version), version)
+
+
+FLIP_DIRECTIONS = ("horizontal", "vertical", "diagonal")
+
+
+def rbbox_flip(obbs: torch.Tensor, img_shape, direction: str = "horizontal",
+               version: str = "le90") -> torch.Tensor:
+    """OBBs mirrored inside an image of ``img_shape`` (H, W): the centre is
+    reflected (x -> W - x, y -> H - y); a horizontal or vertical mirror
+    negates the angle (``oc``: swaps the edges and takes pi/2 - a, except
+    at a = pi/2), a diagonal one (a half turn) keeps it."""
+    if direction not in FLIP_DIRECTIONS:
+        raise ValueError(f"rbbox_flip: direction {direction!r}, one of "
+                         f"{FLIP_DIRECTIONS}")
+    x, y, w, h, a = (obbs[..., i] for i in range(5))
+    hgt, wid = img_shape[0], img_shape[1]
+    if direction in ("horizontal", "diagonal"):
+        x = wid - x
+    if direction in ("vertical", "diagonal"):
+        y = hgt - y
+    if direction != "diagonal":
+        if version == "oc":
+            rot = a != PI / 2
+            w, h = torch.where(rot, h, w), torch.where(rot, w, h)
+            a = torch.where(rot, PI / 2 - a, a)
+        else:
+            a = norm_angle(-a, version)
+    return torch.stack([x, y, w, h, a], dim=-1)
+
+
+def gaussian2bbox(mu: torch.Tensor, var: torch.Tensor) -> torch.Tensor:
+    """2-D Gaussians ``mu`` (..., 2), ``var`` (..., 2, 2) -> the corner
+    polygons ``(..., 8)`` of their 3-sigma boxes, through an SVD of
+    ``var``: the half sizes are 3 sqrt(s), the axes the rows of ``vt``.
+    An SVD fixes each singular vector up to its sign: a flipped row of
+    ``vt`` gives the same box with its vertices in the other order."""
+    _, s, vt = torch.linalg.svd(var)
+    size_half = 3.0 * torch.sqrt(torch.clamp(s, min=0.0))[..., None, :]
+    signs = torch.tensor([[-1.0, 1.0], [1.0, 1.0], [1.0, -1.0],
+                          [-1.0, -1.0]], dtype=mu.dtype, device=mu.device)
+    corners = mu[..., None, :] + (size_half * signs) @ vt
+    return corners.reshape(corners.shape[:-2] + (8,))
 
 # ---- host numpy variants (annotation loading, eval, submission files) -----
 

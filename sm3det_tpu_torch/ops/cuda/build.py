@@ -33,7 +33,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # launches per kernel wrapper; reset with reset_launches()
-LAUNCHES = {"dwconv_ln": 0, "fused_convnext_block": 0,
+LAUNCHES = {"dwconv_ln": 0, "fused_convnext_block": 0, "convnext_ffn": 0,
             "moe_ffn_grouped": 0, "hbb_iou": 0, "fused_layernorm": 0,
             "rotated_iou": 0, "rotated_iou_banded": 0,
             "roi_align_rotated": 0, "roi_align_rotated_bwd": 0,

@@ -1,5 +1,6 @@
-"""ConvNeXt kernels: ``fused_dwconv_ln``, ``fused_convnext_block`` and
-``fused_layernorm``, each a CUDA path (``csrc/dwconv_ln.cu``; its MLP
+"""ConvNeXt kernels: ``fused_dwconv_ln``, ``fused_convnext_block``,
+``convnext_ffn`` (the block's MLP alone, for the Domain-Attention blocks)
+and ``fused_layernorm``, each a CUDA path (``csrc/dwconv_ln.cu``; its MLP
 ``csrc/ffn_wgmma.cu`` in bf16, ``csrc/grouped_ffn.cu`` in fp32;
 ``csrc/layernorm.cu``) and a plain PyTorch version,
 and ``fused_dwconv_ln_train``, the trainable dw7x7 + LN, whose backward is
@@ -37,8 +38,8 @@ import torch.nn.functional as F
 
 from ...models.layers import gelu
 from . import build
-from .moe_groupgemm_kernel import (EPI_GELU, EPI_RESIDUAL, ffn_fused,
-                                   grouped_gemm)
+from .moe_groupgemm_kernel import (EPI_BIAS, EPI_GELU, EPI_RESIDUAL,
+                                   ffn_fused, ffn_ref, grouped_gemm)
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 # the widest C the LayerNorm and dw7x7 + LN kernels take, ConvNeXt-XL's
@@ -390,3 +391,30 @@ def fused_convnext_block(x, dwk, dwb, lns, lnb, w1, b1, w2, b2, gamma,
                            shortcut=x.reshape(-1, c), gamma=gamma)
     build.LAUNCHES["fused_convnext_block"] += 1
     return out.reshape(b, h, w, c)
+
+
+def convnext_ffn(x, w1, b1, w2, b2):
+    """The dense block's MLP alone, ``fc2(gelu(fc1(x)))`` on (M, C) tokens,
+    under the FFN contract of ``fused_convnext_block`` (products summed in
+    fp32, GELU at ``x.dtype``, output in ``x.dtype``): the Domain-Attention
+    blocks, whose attention sits between the MLP and the layer scale.
+
+    On a CUDA tensor the same FFN kernels as ``fused_convnext_block``: in
+    bf16 one launch of :func:`ffn_fused` (one expert, no epilogue), in fp32
+    the fp32 grouped GEMM twice (GELU epilogue, then the bias epilogue);
+    one count of ``convnext_ffn`` either way. On a CPU tensor
+    :func:`ffn_ref`.
+    """
+    if x.device.type == "cpu":
+        return ffn_ref(x, w1, b1, w2, b2)
+    if not x.is_cuda:
+        raise ValueError(f"convnext_ffn: unsupported device {x.device}")
+    build.forbid_grad("convnext_ffn", x, w1, b1, w2, b2)
+    dt = x.dtype
+    if dt == torch.bfloat16:
+        out = ffn_fused(x, w1[None], b1, w2[None], b2)
+    else:
+        hid = grouped_gemm(x, w1.to(dt)[None], b1, EPI_GELU)
+        out = grouped_gemm(hid, w2.to(dt)[None], b2, EPI_BIAS)
+    build.LAUNCHES["convnext_ffn"] += 1
+    return out

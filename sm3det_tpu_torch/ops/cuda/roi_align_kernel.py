@@ -160,7 +160,7 @@ def touched_boxes_ref(rois, lvls, level_shapes, featmap_strides=(4, 8, 16,
             continue
         hgt, wid = level_shapes[lvl][1], level_shapes[lvl][2]
         y0, x0, y1, x1, ly, lx, keep = sample_taps(
-            rois[sel], hgt, wid, out_size, stride, sample_num)
+            rois[sel], hgt, wid, out_size, 1.0 / stride, sample_num)
         hy, hx = 1.0 - ly, 1.0 - lx
         ys = torch.stack([y0, y0, y1, y1], -1).flatten(1)
         xs = torch.stack([x0, x1, x0, x1], -1).flatten(1)

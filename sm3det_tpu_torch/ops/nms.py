@@ -1,9 +1,12 @@
 """Static-shape NMS, horizontal and rotated.
 
-Port of ``sm3det_tpu/ops/nms.py`` (all but ``soft_nms``): every function
-returns fixed-size outputs with a validity mask. Each function takes one
-image (``(N, 4)`` or ``(N, 5)`` boxes) or a batch (``(B, N, ...)``); a batch
-is one suppression-mask launch and one keep launch for all its images.
+Port of ``sm3det_tpu/ops/nms.py``: every function returns fixed-size
+outputs with a validity mask. Each greedy function takes one image
+(``(N, 4)`` or ``(N, 5)`` boxes) or a batch (``(B, N, ...)``); a batch is
+one suppression-mask launch and one keep launch for all its images.
+``soft_nms`` takes one image: its IoU matrix is
+``ops/cuda/hbb_iou_kernel.hbb_iou``'s (the kernel's matrix mode on the
+card), and its ``max_out`` selection steps are device operations.
 
 The suppression decisions ``iou > thr`` of the score-ordered boxes come as
 packed bits from ``ops/cuda/hbb_iou_kernel.hbb_nms_mask`` or
@@ -18,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from .cuda.hbb_iou_kernel import hbb_nms_mask
+from .cuda.hbb_iou_kernel import hbb_iou, hbb_nms_mask
 from .cuda.nms_keep_kernel import greedy_keep, nms_keep  # noqa: F401
 from .cuda.rotated_iou_kernel import INERT_GROUP, rotated_nms_mask
 
@@ -113,6 +116,52 @@ def nms(boxes, scores, iou_threshold: float, max_out: int,
     keep = nms_keep(hbb_nms_mask(boxes_s, iou_threshold), eligible)
     ob, os_, oi, ov = _finalize(boxes_s, scores_s, order, keep, max_out)
     return torch.cat([ob, os_[..., None]], dim=-1), oi, ov
+
+
+SOFT_NMS_METHODS = ("linear", "gaussian", "naive")
+
+
+def soft_nms(boxes, scores, iou_threshold: float = 0.3, max_out: int = 100,
+             sigma: float = 0.5, min_score: float = 1e-3,
+             method: str = "linear"):
+    """Soft-NMS with static output size (mmcv ``soft_nms``), one image.
+
+    ``max_out`` times, the box of the highest current score is selected
+    (the first of equal maxima) and decays the scores of the others by its
+    IoU with them: ``linear`` ``s *= 1 - iou`` where ``iou > thr``,
+    ``gaussian`` ``s *= exp(-iou^2 / sigma)``, ``naive`` ``s = 0`` where
+    ``iou > thr``. boxes (N, 4) xyxy, scores (N,). Returns (dets (max_out,
+    5) with the decayed scores, idx (max_out,) into the input or -1, valid
+    (max_out,): a selection scoring above ``min_score``).
+    """
+    if method not in SOFT_NMS_METHODS:
+        raise ValueError(f"soft_nms: method {method!r}, one of "
+                         f"{SOFT_NMS_METHODS}")
+    n = boxes.shape[0]
+    iou = hbb_iou(boxes, boxes)
+    iou = iou * (1.0 - torch.eye(n, dtype=iou.dtype, device=iou.device))
+    cur = scores.float()
+    sel, sel_scores = [], []
+    for _ in range(max_out):
+        i = torch.argmax(cur, dim=0, keepdim=True)             # (1,)
+        row = iou.index_select(0, i)[0]
+        if method == "gaussian":
+            w = torch.exp(-(row * row) / sigma)
+        elif method == "naive":
+            w = torch.where(row > iou_threshold, 0.0, 1.0)
+        else:
+            w = torch.where(row > iou_threshold, 1.0 - row, 1.0)
+        sel.append(i)
+        sel_scores.append(cur.gather(0, i))
+        cur = (cur * w).scatter(0, i, NEG_INF)
+    sel = torch.cat(sel)
+    sel_scores = torch.cat(sel_scores)
+    valid = sel_scores > min_score
+    out_boxes = boxes.index_select(0, torch.where(valid, sel, 0)) \
+        * valid[:, None]
+    out_scores = torch.where(valid, sel_scores, 0.0)
+    dets = torch.cat([out_boxes, out_scores[:, None]], dim=-1)
+    return dets, torch.where(valid, sel, -1), valid
 
 
 @_batched

@@ -1,7 +1,9 @@
-"""Multi-level rotated RoI align, plain PyTorch.
+"""Rotated RoI align, plain PyTorch: one level and the pyramid.
 
-Port of ``sm3det_tpu/ops/roi_align_rotated.py::roi_align_rotated_pyramid``
-and of the level rule of ``extract_rotated_roi_feats``: for each RoI
+Port of ``sm3det_tpu/ops/roi_align_rotated.py``: ``roi_align_rotated`` (one
+feature map, with mmcv's ``aligned`` and ``clockwise`` flags; no Pallas
+kernel computes it in JAX either), ``roi_align_rotated_pyramid`` and the
+level rule of ``extract_rotated_roi_feats``: for each RoI
 ``(batch_idx, cx, cy, w, h, theta)`` an ``out x out`` grid of ``sample x
 sample`` points is rotated into its pyramid level and read bilinearly, then
 averaged per bin. This is the plain version of the CUDA kernel
@@ -27,20 +29,25 @@ def route_levels(rois: torch.Tensor, finest_scale: int = 56,
     return torch.clamp(lvls, 0, num_levels - 1).to(torch.int32)
 
 
-def sample_taps(rois, hgt, wid, out_size, stride, sample_num):
+def sample_taps(rois, hgt, wid, out_size, spatial_scale, sample_num,
+                aligned: bool = True, clockwise: bool = True):
     """The bilinear taps of every sample of ``rois`` (n, 6) on a level of
-    ``hgt`` x ``wid`` pixels: rows ``y0 <= y1``, columns ``x0 <= x1``
-    (int64, clipped to the level), fractions ``ly``, ``lx`` and ``keep``
-    (0 for a sample outside the level), each (n, out, g, out, g) for bin
-    row, sample row, bin column, sample column. Pixel centres are at
-    half-integers (mmcv's ``aligned=True``) and the angle turns clockwise
-    (``clockwise=True``)."""
-    inv = 1.0 / stride
-    cx = rois[:, 1] * inv - 0.5
-    cy = rois[:, 2] * inv - 0.5
-    w = rois[:, 3] * inv
-    h = rois[:, 4] * inv
-    theta = -rois[:, 5]
+    ``hgt`` x ``wid`` pixels at ``spatial_scale`` (1 / stride): rows
+    ``y0 <= y1``, columns ``x0 <= x1`` (int64, clipped to the level),
+    fractions ``ly``, ``lx`` and ``keep`` (0 for a sample outside the
+    level), each (n, out, g, out, g) for bin row, sample row, bin column,
+    sample column. With ``aligned`` pixel centres are at half-integers
+    (mmcv's ``aligned=True``), without it a RoI is at least a pixel wide
+    and high; with ``clockwise`` the angle turns clockwise."""
+    offset = 0.5 if aligned else 0.0
+    cx = rois[:, 1] * spatial_scale - offset
+    cy = rois[:, 2] * spatial_scale - offset
+    w = rois[:, 3] * spatial_scale
+    h = rois[:, 4] * spatial_scale
+    theta = -rois[:, 5] if clockwise else rois[:, 5]
+    if not aligned:
+        w = torch.clamp(w, min=1.0)
+        h = torch.clamp(h, min=1.0)
     g = sample_num
     sub = (torch.arange(g, dtype=rois.dtype, device=rois.device) + 0.5) / g
     ph = torch.arange(out_size, dtype=rois.dtype, device=rois.device)
@@ -68,12 +75,14 @@ def sample_taps(rois, hgt, wid, out_size, stride, sample_num):
     return y0, x0, y1, x1, ly, lx, (~oob).to(y.dtype)
 
 
-def _align_one_level(feat, rois, out_size, stride, sample_num):
+def _align_one_level(feat, rois, out_size, spatial_scale, sample_num,
+                     aligned: bool = True, clockwise: bool = True):
     """feat (B, H, W, C); rois (n, 6), all on this level -> (n, out, out,
     C) fp32."""
     hgt, wid = feat.shape[1], feat.shape[2]
-    y0, x0, y1, x1, ly, lx, keep = sample_taps(rois, hgt, wid, out_size,
-                                               stride, sample_num)
+    y0, x0, y1, x1, ly, lx, keep = sample_taps(
+        rois, hgt, wid, out_size, spatial_scale, sample_num, aligned,
+        clockwise)
     hy, hx = 1.0 - ly, 1.0 - lx
     flat = feat.reshape(-1, feat.shape[-1])
     base = rois[:, 0].long()[:, None, None, None, None] * (hgt * wid)
@@ -108,6 +117,21 @@ def roi_align_rotated_pyramid(feats: Sequence[torch.Tensor], rois,
         for c0 in range(0, idx.numel(), roi_chunk):
             sel = idx[c0:c0 + roi_chunk]
             out[sel] = _align_one_level(
-                feats[lvl], rois[sel], out_size, stride,
+                feats[lvl], rois[sel], out_size, 1.0 / stride,
                 sample_num).to(out.dtype)
     return out
+
+
+def roi_align_rotated(features, rois, out_size: int, spatial_scale: float,
+                      sample_num: int = 2, aligned: bool = True,
+                      clockwise: bool = True):
+    """Rotated RoI align on one feature map.
+
+    features: (B, H, W, C); rois: (N, 6) ``(batch_idx, cx, cy, w, h,
+    theta)`` in image coordinates; ``spatial_scale`` the stride's
+    reciprocal. Returns (N, out, out, C) in the promoted dtype of the
+    features and fp32, as the JAX function's bilinear weights promote it.
+    """
+    out = _align_one_level(features, rois.float(), out_size, spatial_scale,
+                           sample_num, aligned, clockwise)
+    return out.to(torch.promote_types(features.dtype, torch.float32))

@@ -1,7 +1,9 @@
 """Rotated-box IoU by sort-free convex clipping, plain PyTorch.
 
 Port of ``sm3det_tpu/ops/rotated_iou.py`` (``obb_corners``,
-``_edge_clip_contrib``, ``rotated_intersection_area``, ``box_iou_rotated``).
+``_edge_clip_contrib``, ``rotated_intersection_area``, ``box_iou_rotated``,
+and ``rotated_intersection_area_sorted``, the classic 24-candidate angular
+sort that the JAX tests keep as an oracle).
 The boundary of the intersection of two convex quads A and B is (the part
 of A's boundary inside B) plus (the part of B's boundary inside A); each
 straight piece adds ``0.5 * cross(start, end)`` to the shoelace sum, in any
@@ -96,6 +98,80 @@ def rotated_intersection_area(corners1, corners2):
     area = _edge_clip_contrib(c1, c2, 1e-4) + \
         _edge_clip_contrib(c2, c1, -1e-4)
     return torch.clamp(area, min=0.0)
+
+
+def _cross(o, a, b):
+    """2-D cross product of (a - o) x (b - o) over the trailing dim 2."""
+    return ((a[..., 0] - o[..., 0]) * (b[..., 1] - o[..., 1])
+            - (a[..., 1] - o[..., 1]) * (b[..., 0] - o[..., 0]))
+
+
+def _corners_in_quad(pts, quad):
+    """(..., 4) whether each point of ``pts`` (..., 4, 2) lies in the convex
+    quad (..., 4, 2) of either winding, to 1e-3 px of signed distance to
+    every edge (a distance, not a cross product: an absolute epsilon on the
+    product breaks in fp32 at image-scale coordinates)."""
+    o = quad[..., None, :, :]
+    nxt = torch.roll(quad, -1, dims=-2)
+    cr = _cross(o, nxt[..., None, :, :], pts[..., :, None, :])
+    edge = nxt - quad
+    edge_len = torch.sqrt(edge[..., 0] * edge[..., 0]
+                          + edge[..., 1] * edge[..., 1])
+    dist = cr / torch.clamp(edge_len[..., None, :], min=_EPS)
+    return (dist >= -1e-3).all(-1) | (dist <= 1e-3).all(-1)
+
+
+def rotated_intersection_area_sorted(corners1, corners2):
+    """Intersection area of two convex quads ``(..., 4, 2)`` the classic
+    way: the 16 edge-edge intersections and the 8 corners inside the other
+    quad, the valid ones sorted by angle about their centroid (a stable
+    sort, invalid candidates last), then a shoelace sum over them; 0 with
+    fewer than 3. The test oracle of the sort-free function."""
+    c1 = corners1.float()
+    c2 = corners2.float()
+    a1, a2 = c1, c2
+    b1 = torch.roll(c1, -1, dims=-2)
+    b2 = torch.roll(c2, -1, dims=-2)
+    p = a1[..., :, None, :]
+    r = (b1 - a1)[..., :, None, :]
+    q = a2[..., None, :, :]
+    s = (b2 - a2)[..., None, :, :]
+    denom = r[..., 0] * s[..., 1] - r[..., 1] * s[..., 0]       # (..., 4, 4)
+    qp = q - p
+    t_num = qp[..., 0] * s[..., 1] - qp[..., 1] * s[..., 0]
+    u_num = qp[..., 0] * r[..., 1] - qp[..., 1] * r[..., 0]
+    flat = denom.abs() < _EPS
+    safe = torch.where(flat, torch.ones_like(denom), denom)
+    t = t_num / safe
+    u = u_num / safe
+    edge_valid = ~flat & (t >= 0) & (t <= 1) & (u >= 0) & (u <= 1)
+    batch = denom.shape[:-2]
+    edge_pts = (p + t[..., None] * r).reshape(batch + (16, 2))
+    edge_valid = edge_valid.reshape(batch + (16,))
+
+    pts = torch.cat([edge_pts, c1, c2], dim=-2)                  # (..., 24, 2)
+    valid = torch.cat([edge_valid, _corners_in_quad(c1, c2),
+                       _corners_in_quad(c2, c1)], dim=-1)         # (..., 24)
+    num_valid = valid.sum(-1)
+    vf = valid[..., None].float()
+    centroid = (pts * vf).sum(-2, keepdim=True) / torch.clamp(
+        vf.sum(-2, keepdim=True), min=1.0)
+    rel = pts - centroid
+    ang = torch.where(valid, torch.atan2(rel[..., 1], rel[..., 0]),
+                      torch.full_like(rel[..., 0], float("inf")))
+    order = torch.sort(ang, dim=-1, stable=True).indices
+    sorted_pts = torch.gather(pts, -2, order[..., None].expand(
+        order.shape + (2,)))
+    idx = torch.arange(24, device=pts.device)
+    nv = torch.clamp(num_valid, min=1)[..., None]
+    nxt = torch.where(idx + 1 < nv, idx + 1, torch.zeros_like(idx))
+    nxt_pts = torch.gather(sorted_pts, -2, nxt[..., None].expand(
+        nxt.shape + (2,)))
+    contrib = sorted_pts[..., 0] * nxt_pts[..., 1] \
+        - sorted_pts[..., 1] * nxt_pts[..., 0]
+    contrib = torch.where(idx < nv, contrib, torch.zeros_like(contrib))
+    area = 0.5 * contrib.sum(-1).abs()
+    return torch.where(num_valid >= 3, area, torch.zeros_like(area))
 
 
 def _iou_from_corners(c1, c2, area1, area2, mode):

@@ -102,8 +102,10 @@ def test_poly2obb_matches_jax(version):
     ref = np.asarray(jbc.poly2obb(polys, version))
     _same_rectangles(got, ref)
     _same_rectangles(got, b)                                  # round trip
-    with pytest.raises(NotImplementedError):
-        tbc.poly2obb(_t(polys), "oc")
+    # the oc convention, refused until the leftovers were ported, now
+    # gives JAX's boxes too
+    _same_rectangles(tbc.poly2obb(_t(polys), "oc").numpy(),
+                     np.asarray(jbc.poly2obb(polys, "oc")))
 
 
 # ---- coders ----------------------------------------------------------------
@@ -172,12 +174,16 @@ def test_rpn_anchor_generator_matches_jax():
 IOU_TOL = 2e-5
 
 
+# the JAX reference jitted: one compile a shape and mode
+_jit_iou = jax.jit(jax_iou, static_argnames=("mode", "aligned"))
+
+
 def test_box_iou_rotated_matches_jax():
     rng = np.random.RandomState(5)
     b1, b2 = _obbs(rng, 300, span=200), _obbs(rng, 170, span=200)
     b2[:5] = b1[:5]                                           # identical
     got = box_iou_rotated(_t(b1), _t(b2), row_chunk=64).numpy()
-    ref = np.asarray(jax_iou(b1, b2))
+    ref = np.asarray(_jit_iou(b1, b2))
     assert got.shape == (300, 170)
     assert np.abs(got - ref).max() <= IOU_TOL
     assert np.abs(got[:5, :5].diagonal() - 1).max() <= 1e-4   # self-IoU
@@ -187,10 +193,10 @@ def test_box_iou_rotated_matches_jax():
     for mode in ("iou", "iof"):
         g = box_iou_rotated(_t(b1[:170]), _t(b2), mode=mode,
                             aligned=True).numpy()
-        r = np.asarray(jax_iou(b1[:170], b2, mode=mode, aligned=True))
+        r = np.asarray(_jit_iou(b1[:170], b2, mode=mode, aligned=True))
         assert g.shape == (170,) and np.abs(g - r).max() <= IOU_TOL
     g = box_iou_rotated(_t(b1), _t(b2), mode="iof").numpy()
-    assert np.abs(g - np.asarray(jax_iou(b1, b2, mode="iof"))).max() \
+    assert np.abs(g - np.asarray(_jit_iou(b1, b2, mode="iof"))).max() \
         <= IOU_TOL
     # leading batch dimensions
     gb = box_iou_rotated(_t(b1).reshape(2, 150, 5),

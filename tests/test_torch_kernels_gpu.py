@@ -993,6 +993,7 @@ def test_sar_slice_bf16_goes_through_every_kernel(cuda):
     # atto: 2+2+6+2 blocks, one of them MoE; the stem, 3 downsample and 4
     # output LayerNorms
     assert build.LAUNCHES == {"dwconv_ln": 12, "fused_convnext_block": 11,
+                              "convnext_ffn": 0,
                               "moe_ffn_grouped": 1, "hbb_iou": 0,
                               "fused_layernorm": 8, "rotated_iou": 0,
                               "rotated_iou_banded": 0,
@@ -1030,6 +1031,7 @@ def test_joint_slice_bf16_goes_through_every_kernel(cuda):
     # one backbone pass; the SAR NMS and the RPN NMS of 3 images x 5
     # levels (horizontal masks), the R-CNN NMS (banded mask); a keep each
     assert build.LAUNCHES == {"dwconv_ln": 12, "fused_convnext_block": 11,
+                              "convnext_ffn": 0,
                               "moe_ffn_grouped": 1, "hbb_iou": 0,
                               "fused_layernorm": 8, "rotated_iou": 0,
                               "rotated_iou_banded": 0,
@@ -1528,3 +1530,99 @@ def test_zoo_train_steps_go_through_the_train_kernels(cuda, mtype):
                 "roi_align_rotated": 2, "roi_align_rotated_bwd": 2,
                 "fused_dwconv_ln_train": 18, "fused_dwconv_ln_train_bwd": 18}
     assert {k: build.LAUNCHES[k] for k in want} == want
+
+
+# ---- the Domain-Attention baseline and the backbone / NMS leftovers -------
+
+BLOCK_KINDS = ["da", "grn", "no_layer_scale"]
+# each kind's kernel launches at inference on the card: the DA block is
+# row 2 and the dense block's FFN kernels, the GRN block row 2 and plain
+# products, the block without layer scale row 1 (a scale of ones)
+BLOCK_LAUNCHES = {
+    "da": {"dwconv_ln": 1, "convnext_ffn": 1},
+    "grn": {"dwconv_ln": 1},
+    "no_layer_scale": {"dwconv_ln": 1, "fused_convnext_block": 1}}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hw,c", [(50, 384), (25, 768)])
+@pytest.mark.parametrize("kind", BLOCK_KINDS)
+def test_block_options_card_match_host(cuda, dtype, hw, c, kind):
+    """The DA block, the GRN block and the block without layer scale at the
+    DA config's stage-2 and stage-3 shapes: the card's kernels against the
+    same block's plain path on the host, in the same dtype; DA with two
+    images of two datasets."""
+    from sm3det_tpu_torch.models.backbones.convnext import ConvNeXtBlock
+    g = torch.Generator().manual_seed(c + hw)
+    blk = ConvNeXtBlock(c, layer_scale_init_value=0.0
+                        if kind == "no_layer_scale" else 1e-6,
+                        use_grn=kind == "grn", use_da=kind == "da", gen=g)
+    with torch.no_grad():
+        for name, p in blk.named_parameters():
+            if name.endswith(("gamma", "beta")):
+                p.uniform_(0.3, 0.8, generator=g)
+    blk.eval().requires_grad_(False)
+    x = torch.randn(2, hw, hw, c, generator=g).to(dtype)
+    ids = (0, 2) if kind == "da" else None
+    host = copy.deepcopy(blk).to(dtype)
+    card = copy.deepcopy(blk).to(cuda, dtype)
+    with torch.no_grad():
+        ref = host(x, ids)
+        build.reset_launches()
+        got = card(x.to(cuda), ids)
+        torch.cuda.synchronize()
+    launched = {k: v for k, v in build.LAUNCHES.items() if v}
+    assert launched == BLOCK_LAUNCHES[kind]
+    _check(got.cpu(), ref, dtype)
+
+
+@pytest.mark.parametrize("method", ["linear", "gaussian", "naive"])
+def test_soft_nms_card_matches_host(cuda, method):
+    """``soft_nms`` on the card (its IoU matrix from row 4's matrix mode,
+    one launch) against the host's plain run, the selections bit for bit,
+    with no host synchronisation over its 200 selection steps."""
+    g = torch.Generator().manual_seed(3)
+    n = 1500
+    xy = torch.rand(n, 2, generator=g) * 700
+    boxes = torch.cat([xy, xy + 10 + torch.rand(n, 2, generator=g) * 90],
+                      -1)
+    scores = torch.rand(n, generator=g)
+    scores[100:110] = scores[5]                       # ties
+    ref = nms_mod.soft_nms(boxes, scores, 0.3, 200, method=method)
+    b, s = boxes.to(cuda), scores.to(cuda)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = nms_mod.soft_nms(b, s, 0.3, 200, method=method)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["hbb_iou"] == 1
+    assert torch.equal(got[1].cpu(), ref[1])
+    assert torch.equal(got[2].cpu(), ref[2])
+    _check(got[0].cpu(), ref[0], torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_linear_gate_moe_goes_through_row_3(cuda, dtype):
+    """A linear-gate MoE layer at the flagship's stage-2 width: inference
+    launches the grouped expert FFN (row 3) once; at fp32 its output
+    matches the host's plain path (the same routes)."""
+    g = torch.Generator().manual_seed(4)
+    layer = MoELayer(384, 1536, num_experts=8, top_k=3, gating="linear",
+                     gen=g)
+    with torch.no_grad():
+        layer.w_gate.normal_(0.0, 0.1, generator=g)
+    layer.eval().requires_grad_(False)
+    x = torch.randn(2500, 384, generator=g)
+    card = copy.deepcopy(layer).to(cuda, dtype)
+    build.reset_launches()
+    with torch.no_grad():
+        got = card(x.to(cuda, dtype))
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["moe_ffn_grouped"] == 1
+    assert bool(torch.isfinite(got.float()).all())
+    if dtype == torch.float32:
+        with torch.no_grad():
+            _check(got.cpu(), layer(x), dtype)

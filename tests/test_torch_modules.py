@@ -216,10 +216,26 @@ def test_atto_backbone():
 
 
 def test_unported_backbone_options_raise():
-    with pytest.raises(NotImplementedError):
-        convnext.ConvNeXtMoE(arch="atto", use_grn=True)
-    with pytest.raises(NotImplementedError):
-        convnext.ConvNeXtMoE(arch="atto", use_da=True)
+    """GRN and domain attention, once refused, now build as in JAX: GRN in
+    every block, none with a layer scale; DA only in the ``da_block_inds``
+    blocks, read only where the images' dataset ids are given."""
+    m = convnext.ConvNeXtMoE(arch="atto", use_grn=True)
+    blocks = {n: b for n, b in m.named_children() if "_block" in n}
+    assert len(blocks) == 12 and all(
+        b.gamma is None and isinstance(b.grn, layers.GRN)
+        for b in blocks.values())
+    assert not any(b.use_da for b in convnext.ConvNeXtMoE(
+        arch="atto", use_da=True).children()
+        if isinstance(b, convnext.ConvNeXtBlock))
+    m = convnext.ConvNeXtMoE(arch="atto", use_da=True,
+                             da_block_inds=((), (), (1,), ()))
+    assert [n for n, b in m.named_children() if getattr(b, "use_da", False)
+            ] == ["stage2_block1"]
+    x = torch.rand(2, 32, 32, 3, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        plain, da = m(x), m(x, (0, 2))
+    torch.testing.assert_close(da[1], plain[1], rtol=0, atol=0)
+    assert float((da[2] - plain[2]).abs().max()) > 0
 
 
 # ---- neck and head ---------------------------------------------------------
@@ -233,11 +249,13 @@ def test_multitask_fpn(start_level):
              for i, c in enumerate(chans)]
     fpn = JaxFPN(in_channels=chans, out_channels=16, num_outs=5)
     jf = [jnp.asarray(f) for f in feats]
-    params = fpn.init(jax.random.PRNGKey(0), jf, start_level=start_level,
-                      add_extra_convs="on_output")["params"]
+    params = jax.jit(lambda f: fpn.init(
+        jax.random.PRNGKey(0), f, start_level=start_level,
+        add_extra_convs="on_output"))(jf)["params"]
     params = _randomize(params, rng, 0.05)
-    ref = fpn.apply({"params": params}, jf, start_level=start_level,
-                    add_extra_convs="on_output")
+    ref = jax.jit(lambda p, f: fpn.apply(
+        {"params": p}, f, start_level=start_level,
+        add_extra_convs="on_output"))(params, jf)
     port = _load(MultitaskFPN(in_channels=chans, out_channels=16,
                               num_outs=5), params)
     got = port([_t(f) for f in feats], start_level=start_level,
@@ -253,9 +271,10 @@ def test_gfl_head_and_integral():
     head = jgfl.GFLHead(num_classes=5, in_channels=64, feat_channels=64,
                         stacked_convs=2, strides=(8, 16, 32))
     jf = [jnp.asarray(f) for f in feats]
-    params = _randomize(head.init(jax.random.PRNGKey(0), jf)["params"],
-                        rng, 0.05)
-    ref_cls, ref_reg = head.apply({"params": params}, jf)
+    params = _randomize(jax.jit(lambda f: head.init(
+        jax.random.PRNGKey(0), f))(jf)["params"], rng, 0.05)
+    ref_cls, ref_reg = jax.jit(lambda p, f: head.apply({"params": p}, f))(
+        params, jf)
     port = _load(gfl_head.GFLHead(num_classes=5, in_channels=64,
                                   feat_channels=64, stacked_convs=2,
                                   strides=(8, 16, 32)), params)

@@ -84,6 +84,11 @@ def _groups(rng, n):
     return g
 
 
+# the JAX references, jitted: one compile a box count, shared by the cases
+_jax_hbb_iou = jax.jit(lambda x: jnms.bbox_overlaps(x, x))
+_jax_rotated_iou = jax.jit(lambda x: box_iou_rotated_chunked(x, x))
+
+
 @pytest.fixture(scope="module")
 def cases():
     """Per (kind, n, b): the boxes (and groups), the port's plain mask and
@@ -99,9 +104,7 @@ def cases():
             boxes = np.stack([_hbb(rng, n) for _ in range(b)])
             groups = None
             mask = hik.hbb_nms_mask_ref(_t(boxes), HBB_THR)
-            ious = [np.asarray(jnms.bbox_overlaps(jnp.asarray(x),
-                                                  jnp.asarray(x)))
-                    for x in boxes]
+            ious = [np.asarray(_jax_hbb_iou(x)) for x in boxes]
             thr = HBB_THR
         else:
             boxes = np.stack([_obb(rng, n) for _ in range(b)])
@@ -109,8 +112,7 @@ def cases():
                 if kind == "banded" else None
             mask = rik.rotated_nms_mask_ref(
                 _t(boxes), ROT_THR, None if groups is None else _t(groups))
-            ious = [np.asarray(box_iou_rotated_chunked(
-                jnp.asarray(x), jnp.asarray(x))) for x in boxes]
+            ious = [np.asarray(_jax_rotated_iou(x)) for x in boxes]
             if groups is not None:
                 ious = [iou * (g[:, None] == g[None, :])
                         for iou, g in zip(ious, groups)]

@@ -78,6 +78,19 @@ def _jax_rpn(m, imgs, which):
     return x, head(x)
 
 
+_RPN_JIT = {}
+
+
+def rpn_ref(jmodel, which):
+    """The jitted ``_jax_rpn`` of one modality, made once and shared by the
+    tests that read it (a jitted lambda made per test compiles again)."""
+    key = (id(jmodel), which)
+    if key not in _RPN_JIT:
+        _RPN_JIT[key] = jax.jit(lambda v, a: jmodel.apply(
+            v, a, which, method=_jax_rpn))
+    return _RPN_JIT[key]
+
+
 def _jax_roi_head(m, roi_feats, which):
     head = m.rgb_roi_head if which == "rgb" else m.ifr_roi_head
     return head(roi_feats)
@@ -174,8 +187,8 @@ def test_from_flax_consumes_the_whole_tree(pair):
 @pytest.mark.parametrize("which", ["rgb", "ifr"])
 def test_rpn_head_outputs(pair, which):
     jmodel, variables, port, imgs = pair
-    x_ref, (cls_ref, reg_ref) = jax.jit(lambda v, a: jmodel.apply(
-        v, a, which, method=_jax_rpn))(variables, imgs[which])
+    x_ref, (cls_ref, reg_ref) = rpn_ref(jmodel, which)(variables,
+                                                       imgs[which])
     x = port.neck_rcnn(port.extract_feat(imgs[which]))
     cls, reg = port.head_rpn(x, which)
     assert len(x) == len(cls) == 5
@@ -187,8 +200,7 @@ def test_rpn_head_outputs(pair, which):
 
 def test_rpn_get_proposals_from_the_same_outputs(pair):
     jmodel, variables, port, imgs = pair
-    _, (cls_ref, reg_ref) = jax.jit(lambda v, a: jmodel.apply(
-        v, a, "rgb", method=_jax_rpn))(variables, imgs["rgb"])
+    _, (cls_ref, reg_ref) = rpn_ref(jmodel, "rgb")(variables, imgs["rgb"])
     sizes = [int(np.prod(c.shape[1:])) for c in cls_ref]
     assert min(sizes) < 50 < max(sizes)        # the level padding runs
     r = port.cfg["rgb"]
@@ -210,8 +222,8 @@ def test_rpn_get_proposals_from_the_same_outputs(pair):
 
 def test_roi_feats_and_logits_from_the_same_proposals(pair):
     jmodel, variables, port, imgs = pair
-    x_ref, (cls_ref, reg_ref) = jax.jit(lambda v, a: jmodel.apply(
-        v, a, "rgb", method=_jax_rpn))(variables, imgs["rgb"])
+    x_ref, (cls_ref, reg_ref) = rpn_ref(jmodel, "rgb")(variables,
+                                                       imgs["rgb"])
     x = [torch.from_numpy(np.asarray(f)) for f in x_ref]
     proposals, _, _ = port.get_proposals(
         [torch.from_numpy(np.asarray(c)) for c in cls_ref],
@@ -321,8 +333,7 @@ def test_aug_test_rgb_at_half_scale(pair):
         torch.from_numpy(x).permute(0, 3, 1, 2), size=half, mode="bilinear",
         align_corners=False, antialias=True).permute(0, 2, 3, 1)
     _close(got_img, ref_img, atol=1e-5, rtol=1e-5)
-    x_ref, (cls_ref, reg_ref) = jax.jit(lambda v, a: jmodel.apply(
-        v, a, "rgb", method=_jax_rpn))(variables, ref_img)
+    x_ref, (cls_ref, reg_ref) = rpn_ref(jmodel, "rgb")(variables, ref_img)
     feats = port.neck_rcnn(port.extract_feat(torch.from_numpy(ref_img)))
     cls, reg = port.head_rpn(feats, "rgb")
     for g, r in zip(list(feats) + cls + reg,

@@ -19,8 +19,9 @@ sign in both).
 
 The detectors run at the fixture of ``tests/test_torch_zoo.py``
 (``atto``, 64 px, 4 classes, 4 gts an image, two images, no MoE block,
-no stochastic depth), their parameters flax inits of each module carried
-over by ``from_flax``, the layer scales drawn from U(0.3, 0.8). JAX's
+no stochastic depth), their parameters the flax inits' tree (its
+structure from ``jax.eval_shape``) holding the port's seeded inits,
+carried over by ``from_flax``, the layer scales drawn from U(0.3, 0.8). JAX's
 neck levels are computed once (with their VJP) and both detectors' heads
 and losses in one compile. Held: every loss of R3Det and S2ANet, with
 ``refine_reg_loss`` ``smooth_l1`` and ``kfiou``, within 1e-4 relative;
@@ -48,7 +49,7 @@ from sm3det_tpu.models.necks.fpn import MultitaskFPN as JaxFPN
 from sm3det_tpu.ops import box_convert as jbc
 from sm3det_tpu.ops import geometry_extras as jge
 from sm3det_tpu.ops import orientation as jor
-from sm3det_tpu_torch.convert import convert_tree, from_flax
+from sm3det_tpu_torch.convert import convert_tree, from_flax, to_flax
 from sm3det_tpu_torch.models import losses as tl
 from sm3det_tpu_torch.models.detectors import refine_detectors as prd
 from sm3det_tpu_torch.ops import box_convert as pbc
@@ -299,8 +300,23 @@ def _init_all(key):
 
 @pytest.fixture(scope="module")
 def params():
-    """The inits, the layer scales drawn from U(0.3, 0.8)."""
-    out = jax.jit(_init_all)(jax.random.PRNGKey(0))
+    """The inits' tree (``jax.eval_shape``, a trace with no compile) holding
+    the seeded inits of the port's R3Det (backbone, neck, retina stage,
+    its refine head) and S2ANet (the ODM head), the layer scales drawn
+    from U(0.3, 0.8)."""
+    template = jax.tree.map(lambda a: np.zeros(a.shape, np.float32),
+                            jax.eval_shape(_init_all, jax.random.PRNGKey(0)))
+    names = {"R3Det": {"backbone": "backbone", "neck": "neck",
+                       "bbox_head": "retina", "refine_head0": "generic"},
+             "S2ANet": {"refine_head0": "odm"}}
+    state = {}
+    for name, rename in names.items():
+        for k, v in DETECTORS[name][1](CFG, device="cpu").state_dict() \
+                .items():
+            top, rest = k.split(".", 1)
+            if top in rename:
+                state[f"{rename[top]}.{rest}"] = v
+    out = to_flax(state, template)
     rng = np.random.RandomState(1)
     return jax.tree_util.tree_map_with_path(
         lambda p, v: rng.uniform(0.3, 0.8, v.shape).astype(np.float32)

@@ -2,7 +2,8 @@
 
 The fixture is ``tests/test_torch_zoo.py``'s (``atto`` without MoE
 blocks or stochastic depth, 64 px, 4 classes, two images of 4 oriented
-gts); the parameters are flax inits of each module carried over by
+gts); the parameters are the port's seeded init laid out as the flax
+inits of each module (``jax.eval_shape``, no compile), carried over by
 ``from_flax``, the layer scales drawn from U(0.3, 0.8). The three
 samplers (the RPN's 64 anchors, stage 1's 128 horizontal RoIs among the
 gts and 256 proposals, stage 2's 128 rotated RoIs among the gts and
@@ -32,7 +33,7 @@ from sm3det_tpu.models.necks.fpn import MultitaskFPN as JaxFPN
 from sm3det_tpu.models.roi_heads import cascade_heads as jch
 from sm3det_tpu.models.roi_heads.oriented_roi_head import \
     RotatedShared2FCBBoxHead as JaxRoIHead
-from sm3det_tpu_torch.convert import convert_tree, from_flax
+from sm3det_tpu_torch.convert import convert_tree, from_flax, to_flax
 from sm3det_tpu_torch.models.detectors.redet_roitrans import (
     RoITransformer, make_stage1_coder)
 from sm3det_tpu_torch.models.roi_heads import cascade_heads as pch
@@ -113,7 +114,12 @@ def _init_all(key):
 
 @pytest.fixture(scope="module")
 def setup():
-    params = jax.jit(_init_all)(jax.random.PRNGKey(0))
+    """The flax inits' tree (``jax.eval_shape``, a trace with no compile)
+    holding the port RoI Transformer's seeded init."""
+    template = jax.tree.map(lambda a: np.zeros(a.shape, np.float32),
+                            jax.eval_shape(_init_all, jax.random.PRNGKey(0)))
+    params = to_flax(dict(RoITransformer(CFG, device="cpu").state_dict()),
+                     template)
     rng = np.random.RandomState(1)
     params = jax.tree_util.tree_map_with_path(
         lambda p, v: rng.uniform(0.3, 0.8, v.shape).astype(np.float32)

@@ -137,9 +137,10 @@ def _flat(tree, path=()):
 
 
 def _init_modules(key):
-    """Flax inits of every module of the four variants, in one compile:
-    the multi-input backbone, the neck, the 2/2 variant's horizontal and
-    oriented R-CNN heads and the GFL and rotated RetinaNet heads."""
+    """Flax inits of every module of the four variants (traced by
+    ``jax.eval_shape`` for the trees' structure): the multi-input
+    backbone, the neck, the 2/2 variant's horizontal and oriented R-CNN
+    heads and the GFL and rotated RetinaNet heads."""
     ks = jax.random.split(key, 9)
     ch = CFG["neck"]["out_channels"]
     nc = CFG["num_classes"]
@@ -174,12 +175,31 @@ def _init_modules(key):
     return full, heads
 
 
+def _port_state(stages, prefix_map):
+    """A seeded port variant's tensors, renamed by ``prefix_map``."""
+    port = TriSourceVariant(CFG, device="cpu", sar_stages=stages[0],
+                            rot_stages=stages[1])
+    out = {}
+    for k, v in port.state_dict().items():
+        top, rest = k.split(".", 1)
+        if top in prefix_map:
+            out[f"{prefix_map[top]}.{rest}"] = v
+    return out
+
+
 @pytest.fixture(scope="module")
 def setup():
-    """Every subtree the four variants need, from flax inits."""
+    """Every subtree the four variants need: the tree of the flax inits
+    (``jax.eval_shape``, a trace with no compile), its values the seeded
+    inits of the port's 2/2 and 1/1 variants (``to_flax``)."""
     batch = _batch(np.random.RandomState(0))
-    full, heads = jax.tree.map(np.asarray, jax.jit(_init_modules)(
-        jax.random.PRNGKey(0)))
+    shapes = jax.eval_shape(_init_modules, jax.random.PRNGKey(0))
+    full_t, heads_t = jax.tree.map(
+        lambda a: np.zeros(a.shape, np.float32), shapes)
+    full = to_flax(_port_state((2, 2), {k: k for k in full_t}), full_t)
+    heads = to_flax(_port_state((1, 1), {"sar_bbox_head": "gfl",
+                                         "rgb_bbox_head": "retina"}),
+                    heads_t)
     rng = np.random.RandomState(1)
     full = jax.tree_util.tree_map_with_path(
         lambda p, v: rng.uniform(0.3, 0.8, v.shape).astype(np.float32)

@@ -8,8 +8,10 @@ The detectors (``OrientedRCNN``, ``GFL``, ``RotatedRetinaNet``,
 an image, two images) with the single-stem backbone and no MoE block, as
 the zoo's ConvNeXt configs have it (JAX's zoo backbone always draws gate
 noise in training, which the port cannot share), and no stochastic
-depth. Their parameters are flax inits of the backbone, the neck and each
-head on their own, carried over by ``from_flax``; the layer scales are
+depth. Their parameters are laid out as the flax inits of the backbone,
+the neck and each head on their own (``jax.eval_shape``, no compile) and
+hold the port detectors' seeded inits, carried over by ``from_flax``; the
+layer scales are
 drawn from U(0.3, 0.8), the oriented RPN's regressor scaled by 0.2, as in
 ``tests/test_torch_variant_train.py``, and the rotated RetinaNet's class
 bias raised by 3 (scores above the 0.05 test threshold). The samplers are
@@ -52,7 +54,7 @@ from sm3det_tpu.models.roi_heads.oriented_roi_head import \
     RotatedShared2FCBBoxHead as JaxRoIHead
 from sm3det_tpu.models.roi_heads.standard_roi_head import \
     Shared2FCBBoxHead as JaxHBBRoIHead
-from sm3det_tpu_torch.convert import from_flax
+from sm3det_tpu_torch.convert import from_flax, to_flax
 from sm3det_tpu_torch.models import builder
 from sm3det_tpu_torch.models.detectors import hbb_detectors, zoo
 from sm3det_tpu_torch.tools import test as test_cli
@@ -171,11 +173,36 @@ def _init_modules(key):
     return out
 
 
+# the port detectors whose seeded inits fill the modules' tree: their
+# top-level modules by the tree's names (RetinaNet's head sits at its top)
+PORT_MODULES = (
+    ("OrientedRCNN", {"backbone": "backbone", "neck": "neck",
+                      "rpn_head": "orpn", "roi_head": "oroi"}),
+    ("FasterRCNN", {"rpn_head": "rpn", "bbox_head0": "hroi"}),
+    ("GFL", {"bbox_head": "gfl"}), ("RotatedRetinaNet",
+                                    {"bbox_head": "retina"}),
+    ("RetinaNet", {f"{k}{i}": f"hretina.{k}{i}" for k in ("cls_conv",
+                                                          "reg_conv")
+                   for i in range(4)} | {"retina_cls": "hretina.retina_cls",
+                                         "retina_reg": "hretina.retina_reg"}))
+
+
 @pytest.fixture(scope="module")
 def modules():
-    """Flax inits of every module the six detectors are made of, in one
-    compile."""
-    out = jax.jit(_init_modules)(jax.random.PRNGKey(0))
+    """Every module the six detectors are made of: the flax inits' tree
+    (``jax.eval_shape``, a trace with no compile) holding the port
+    detectors' seeded inits."""
+    template = jax.tree.map(lambda a: np.zeros(a.shape, np.float32),
+                            jax.eval_shape(_init_modules,
+                                           jax.random.PRNGKey(0)))
+    state = {}
+    for name, rename in PORT_MODULES:
+        for k, v in DETECTORS[name][1](CFG, device="cpu").state_dict() \
+                .items():
+            top, rest = k.split(".", 1)
+            if top in rename:
+                state[f"{rename[top]}.{rest}"] = v
+    out = to_flax(state, template)
     rng = np.random.RandomState(1)
     out = jax.tree_util.tree_map_with_path(
         lambda p, v: rng.uniform(0.3, 0.8, v.shape).astype(np.float32)
@@ -283,7 +310,7 @@ def test_unlocked_configs_build(monkeypatch, name):
 @pytest.mark.parametrize("path,override,name", [
     (f"{LC}dota_convnext_t_roitrans.py", {"type": "RotatedFCOS"}, "item 7"),
     (f"{LC}dronevehicle_convnext_t_s2anet.py",
-     {"backbone": {"type": "ConvNeXt_DA_MultiInput"}}, "item 5"),
+     {"backbone": {"type": "ConvNeXt_DA_MultiInput"}}, "single-stem"),
     (f"{LC}dota_van_t_orcnn.py", {}, "item 7"),
     (f"{LC}sardet50k_lsk_t_gfl.py", {}, "item 7")])
 def test_still_unported_raise(path, override, name):
