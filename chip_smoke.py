@@ -116,7 +116,25 @@ Phases (any failure exits non-zero):
    (d) ``tools.test`` rgb and sar over 16 synthetic images; (e) the
    flagship with ``gate="linear"`` (row 3 launched), ``soft_nms`` and the
    GRN block on the card against their plain versions. The phase must
-   take at most 120 s, the whole script 1200 s.
+   take at most 120 s;
+12. the BabelRS configuration (``configs/BabelRS_configs/
+   BabelRS_20kstep.py``: the InternViT-300M ViT-Adapter at full width
+   under the TriSource heads): (a) fp32, TF32 off, 2 images a modality x
+   256^2 on a model built for that grid, card against host: the
+   backbone's 4 levels, both necks, GFL / RPN outputs and R-CNN logits
+   within 1e-3 of scale, one train forward's losses within 1e-3 relative
+   and the gradient norms of the ViT, adapter, SPM, neck and heads within
+   1e-2; (b) the joint [8:4:4] x 800^2 bf16 forward: launches exactly
+   ``BABELRS_JOINT_LAUNCHES`` (rows 4 mask, 6, 7 and the keep scan; none
+   of rows 1, 2, 3, 9), 0 host syncs, images/s, device busy time, peak
+   memory, and the device time of the ViT's attention and MLPs, the
+   adapter's deformable sampling (beside its bound), the SPM and the
+   neck + heads; (d) ``tools.test`` rgb over 16 synthetic images; (c)
+   ``tools.train`` bf16 [1:1:1] x 800^2 with the config's layer decay
+   (each parameter's scale read back from the optimizer), then EMA,
+   ``accumulate=2`` and the cosine policy with a checkpoint
+   mid-accumulation and a resume equal to it bit for bit. The phase must
+   take at most 180 s, the whole script 1200 s.
 
 Phase 3 also holds the variants' new shapes: row 4's mask mode and the
 keep scan at the H2 SAR RPN's 4507 candidates an image, row 5's matrix
@@ -910,13 +928,22 @@ def syncs_by_part(torch, fn):
 def checkpoint_equal(torch, ck, s):
     """Whether the train state ``s`` a resumed run loaded equals the
     ``iter_N.pth`` file ``ck`` bit for bit: the parameters, Adam's moments,
-    the step counts, the DLA multipliers and EMA, the generator."""
+    the step counts, the DLA multipliers and EMA, the generator, and the
+    parameters' EMA and the gradient accumulators where the file has
+    them."""
     from sm3det_tpu_torch.train.checkpoint import TRAIN_FORMAT
     saved = torch.load(ck, map_location="cpu", weights_only=True)
     names = list(s.params)
     same = saved["format"] == TRAIN_FORMAT and saved["names"] == names
-    for key, ts in (("params", s.params.values()), ("mu", s.opt.mu),
-                    ("nu", s.opt.nu)):
+    pairs = [("params", s.params.values()), ("mu", s.opt.mu),
+             ("nu", s.opt.nu)]
+    for key, ts in (("ema", s.ema), ("accum", s.opt.accum)):
+        if (saved.get(key) is None) != (ts is None):
+            return False
+        if ts is not None:
+            pairs.append((key, ts))
+    same = same and saved.get("accum_count", 0) == s.opt.accum_count
+    for key, ts in pairs:
         same = same and all(torch.equal(saved[key][n], t.cpu())
                             for n, t in zip(names, ts))
     return same and (saved["count"], saved["step"], saved["mults"]) == (
@@ -2793,6 +2820,501 @@ def phase11(torch, dev, smi, build):
     return failures, rec, launches
 
 
+BABELRS_CFG = "configs/BabelRS_configs/BabelRS_20kstep.py"
+BABELRS_HOST = (2, 256)     # 12a: images a modality, size (the model's grid)
+BABELRS_WORK = "work_dirs/chip_smoke_babelrs"   # gitignored; removed
+BABELRS_TRAIN_ITERS = 6
+# the BabelRS joint forward [8:4:4] x 800^2: the ViT and its adapter run no
+# kernel of the port (SDPA, F.layer_norm, matrix products, the deformable
+# gather), the heads the flagship's
+BABELRS_JOINT_LAUNCHES = dict(DA_JOINT_LAUNCHES, fused_convnext_block=0,
+                              dwconv_ln=0, convnext_ffn=0, fused_layernorm=0)
+BABELRS_TRAIN_KERNELS = ("hbb_nms_mask", "nms_keep", "rotated_iou",
+                         "roi_align_rotated", "roi_align_rotated_bwd")
+BABELRS_PHASE_LIMIT_S = 180
+
+
+def vit_part(name):
+    """The part of the BabelRS detector a parameter belongs to: the ViT
+    (blocks, patch embed, position embedding), the adapter (the deformable
+    attention modules and the projections), the SPM, the neck, the
+    heads."""
+    top, _, rest = name.partition(".")
+    if top != "backbone":
+        return "neck" if top == "neck" else "heads"
+    mod = rest.split(".")[0]
+    if mod == "spm":
+        return "spm"
+    if mod.startswith(("block", "stem", "pos_embed")):
+        return "vit"
+    return "adapter"
+
+
+def phase12(torch, dev, smi, build):
+    """12. The BabelRS configuration (``configs/BabelRS_configs/
+    BabelRS_20kstep.py``: the InternViT-300M ViT-Adapter, embed 1024, depth
+    24, 16 heads, adapter 256, under the TriSource heads, 26 classes) on
+    the card, the deformable offsets drawn away from their zero init:
+    (a) fp32, TF32 off, 2 images a modality x 256^2 on a model built for
+    that grid, card against host: the backbone's 4 levels, both necks, the
+    GFL and RPN outputs and the R-CNN logits on the card's proposals within
+    1e-3 of scale; one train forward's losses within 1e-3 relative and the
+    gradient norms of the ViT, the adapter, the SPM, the neck and the heads
+    within 1e-2 (the host's proposals the card's); (b) the joint [8:4:4] x
+    800^2 bf16 forward: launches exactly ``BABELRS_JOINT_LAUNCHES``, 0 host
+    syncs, device busy time, images/s, peak memory, and the device time of
+    the ViT's attention (SDPA alone and the branch), its MLPs, the
+    adapter's deformable sampling (beside its bound), the SPM and the
+    neck + heads; (d) ``tools.test`` rgb over 16 synthetic images on that
+    model; (c) ``tools.train`` bf16 [1:1:1] x 800^2, ``BABELRS_TRAIN_ITERS``
+    iterations with the config's layer decay (each parameter's scale read
+    back from the optimizer: block i ``0.95^(23 - i)``, the stems
+    ``0.95^24``, the heads 1), then 3 iterations with EMA, ``accumulate=2``
+    and the cosine policy, a checkpoint mid-accumulation and a resume
+    equal to it bit for bit. Returns (failures, record, the launches of
+    (b)'s forward)."""
+    import copy
+    import math
+    import shutil
+
+    import numpy as np
+    import torch.nn.functional as F
+
+    from sm3det_tpu_torch.models.backbones.intern_vit import _grid
+    from sm3det_tpu_torch.models.builder import build_detector
+    from sm3det_tpu_torch.models.detectors import trisource as tri_mod
+    from sm3det_tpu_torch.models.detectors.trisource import composition_ids
+    from sm3det_tpu_torch.ops.ms_deform_attn import ms_deform_attn
+    from sm3det_tpu_torch.tools import test as test_cli
+    from sm3det_tpu_torch.tools import train as train_cli
+    from sm3det_tpu_torch.train.train_state import (batch_to,
+                                                    trainable_params)
+    from sm3det_tpu_torch.utils.config import Config
+
+    failures, rec = [], {"card_host": {}}
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False     # as main: fp32 is fp32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mc = Config.fromfile(BABELRS_CFG).model.to_dict()
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    cpu = torch.device("cpu")
+
+    def offsets_off_zero(model, std):
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if name.endswith("sampling_offsets.weight"):
+                    p.copy_(torch.randn(p.shape, generator=gen,
+                                        device=dev).to(p.dtype) * std)
+
+    def close(tag, a, b, tol=1e-3):
+        err, scale = max_err(a.cpu(), b)
+        ok = bool(torch.isfinite(a.float()).all()) and a.shape == b.shape \
+            and err <= tol * max(scale, 1.0)
+        rec["card_host"][tag] = dict(err=err, scale=scale)
+        if not ok:
+            failures.append(f"BabelRS card/host {tag}")
+            log(f"[babelrs fp32]   {tag} {tuple(a.shape)}: max abs err "
+                f"{err:.3e} (max |ref| {scale:.3e}) FAIL")
+        return err / max(scale, 1.0)
+
+    # (a) card against host, fp32: one trainable model serves both checks
+    t0 = time.perf_counter()
+    n_img, size = BABELRS_HOST
+    card = build_detector(mc, device=dev, compute_dtype="float32", seed=0,
+                          trainable=True, img_size=size)
+    offsets_off_zero(card, 0.02)
+    host = copy.deepcopy(card).to(cpu)
+    imgs = [torch.rand(n_img, size, size, 3, generator=gen, device=dev)
+            for _ in range(3)]
+    ids = composition_ids(n_img, n_img, n_img)
+    worst = 0.0
+    with torch.no_grad():
+        outs = []
+        sides = []
+        for m, dv in ((card, dev), (host, cpu)):
+            x = torch.cat([i.to(dv) for i in imgs])
+            feats = m.backbone(x, ids)
+            xs = m.neck_sar([f[:n_img] for f in feats])
+            gfl = m.sar_bbox_head(xs)
+            xr = m.neck_rcnn([f[n_img:] for f in feats])
+            rpn = [m.rgb_rpn_head([f[:n_img] for f in xr]),
+                   m.ifr_rpn_head([f[n_img:] for f in xr])]
+            sides.append((feats, xs, gfl, xr, rpn))
+        (fd, xsd, gd, xrd, rd), (fh, xsh, gh, xrh, rh) = sides
+        outs += [(f"backbone level {i}", a, b) for i, (a, b) in
+                 enumerate(zip(fd, fh))]
+        outs += [(f"sar neck {i}", a, b) for i, (a, b) in
+                 enumerate(zip(xsd, xsh))]
+        outs += [(f"rcnn neck {i}", a, b) for i, (a, b) in
+                 enumerate(zip(xrd, xrh))]
+        outs += [(f"gfl {j} {i}", a, b) for j in range(2)
+                 for i, (a, b) in enumerate(zip(gd[j], gh[j]))]
+        for k, name in enumerate(("rgb", "ifr")):
+            outs += [(f"{name} rpn {j} {i}", a, b) for j in range(2)
+                     for i, (a, b) in enumerate(zip(rd[k][j], rh[k][j]))]
+        rpn_cls = [torch.cat([a, b], 0) for a, b in zip(rd[0][0],
+                                                        rd[1][0])]
+        rpn_reg = [torch.cat([a, b], 0) for a, b in zip(rd[0][1],
+                                                        rd[1][1])]
+        props = card.get_proposals(rpn_cls, rpn_reg, (size, size))[0]
+        ld = card.roi_logits_joint(card.roi_feats(xrd, props), n_img, n_img)
+        lh = host.roi_logits_joint(host.roi_feats(xrh, props.cpu()), n_img,
+                                   n_img)
+        outs += [("rcnn logits", ld[0], lh[0]),
+                 ("rcnn deltas", ld[1], lh[1])]
+        for tag, a, b in outs:
+            worst = max(worst, close(tag, a, b))
+    rec["card_host_worst"] = worst
+    log(f"[babelrs fp32] {BABELRS_CFG} at full width (embed 1024, depth "
+        f"24, adapter 256), {n_img} x {size}^2 a modality, card against "
+        f"host: {len(rec['card_host'])} outputs (the backbone's 4 levels, "
+        f"both necks, GFL and RPN heads, R-CNN logits on the card's "
+        f"proposals), worst {worst:.2e} of scale (tol 1e-3); "
+        f"{time.perf_counter() - t0:.1f} s")
+    del sides, outs, fd, fh, xsd, xsh, xrd, xrh, gd, gh, rd, rh, ld, lh
+
+    t0 = time.perf_counter()
+    tbatch = make_train_batch(np.random.RandomState(12), (n_img,) * 3, size,
+                              TRAIN_GTS)
+    real = tri_mod.rpn_get_proposals
+    recorded, replayed = [], [0]
+
+    def record(*a, **kw):
+        out = real(*a, **kw)
+        recorded.append(out)
+        return out
+
+    def replay(*a, **kw):
+        replayed[0] += 1
+        return tuple(t.cpu() for t in recorded[replayed[0] - 1])
+
+    runs = {}
+    for side, m, dv, patch in (("card", card, dev, record),
+                               ("host", host, cpu, replay)):
+        tri_mod.rpn_get_proposals = patch
+        try:
+            params = trainable_params(m)
+            losses = m(batch_to(tbatch, dv),
+                       gen=torch.Generator().manual_seed(5))
+            grads = torch.autograd.grad(sum(losses.values()),
+                                        list(params.values()),
+                                        allow_unused=True)
+        finally:
+            tri_mod.rpn_get_proposals = real
+        sq = {}
+        for n, g in zip(params, grads):
+            if g is not None:
+                part = vit_part(n)
+                sq[part] = sq.get(part, 0.0) + float(g.double().pow(2).sum())
+        runs[side] = ({k: float(v.detach()) for k, v in losses.items()},
+                      {k: v ** 0.5 for k, v in sq.items()})
+        del losses, grads
+    (ld, nd), (lh, nh) = runs["card"], runs["host"]
+    bad = [k for k in lh if not (np.isfinite(ld[k]) and abs(
+        ld[k] - lh[k]) <= 1e-3 * abs(lh[k]) + 1e-7)]
+    bad += [f"|grad {k}|" for k in nh if not (np.isfinite(nd[k]) and abs(
+        nd[k] - nh[k]) <= 1e-2 * nh[k])]
+    if set(nh) != {"vit", "adapter", "spm", "neck", "heads"} or \
+            "gate_loss" in lh:
+        bad.append(f"parts {sorted(nh)}, losses {sorted(lh)}")
+    worst_l = max(abs(ld[k] - lh[k]) / max(abs(lh[k]), 1e-12) for k in lh)
+    worst_g = max(abs(nd[k] - nh[k]) / max(nh[k], 1e-12) for k in nh)
+    rec["train_card_host"] = dict(card_losses=ld, host_losses=lh,
+                                  card_norms=nd, host_norms=nh,
+                                  worst_loss_rel=worst_l,
+                                  worst_grad_norm_rel=worst_g)
+    log(f"[babelrs fp32] train forward + backward, [{n_img}:{n_img}:"
+        f"{n_img}] x {size}^2, card against host (the host's RoIs from the "
+        f"card's proposals): {len(lh)} losses, worst {worst_l:.2e} "
+        f"relative (tol 1e-3); gradient norms of {sorted(nh)}, worst "
+        f"{worst_g:.2e} (tol 1e-2); {time.perf_counter() - t0:.1f} s "
+        f"{'ok' if not bad else 'FAIL ' + str(bad)}")
+    log(f"[babelrs fp32]   gradient norms card {nd} host {nh}")
+    failures += [f"BabelRS train card/host {k}" for k in bad]
+    del card, host, recorded, imgs
+    torch.cuda.empty_cache()
+
+    # (b) the joint forward, full width, bf16
+    t0 = time.perf_counter()
+    model = build_detector(mc, device=dev, compute_dtype="bfloat16", seed=0,
+                           img_size=IMG)
+    offsets_off_zero(model, 0.02)
+    n_sar, n_rgb, n_ifr = JOINT
+    sar_i, rgb_i, ifr_i = (torch.rand(n, IMG, IMG, 3, generator=gen,
+                                      device=dev) for n in JOINT)
+    with torch.no_grad():
+        model.sar_bbox_head.gfl_cls.bias.fill_(0.0)
+        _, x, rpn = model.head_joint(sar_i, rgb_i, ifr_i)
+        props, _, _ = model.get_proposals(*rpn)
+        rf = model.roi_feats(x, props)
+        spread_class_scores(model.rgb_roi_head, rf[:n_rgb * N_PROPOSALS])
+        spread_class_scores(model.ifr_roi_head, rf[n_rgb * N_PROPOSALS:])
+    del x, rpn, props, rf
+
+    def joint():
+        return model.simple_test_joint(sar_i, rgb_i, ifr_i)
+
+    for _ in range(2):
+        joint()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    sar_o, rgb_o, ifr_o = joint()
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    off = {k: (v, BABELRS_JOINT_LAUNCHES[k]) for k, v in launches.items()
+           if v != BABELRS_JOINT_LAUNCHES[k]}
+    if off:
+        failures.append(f"BabelRS joint launches (got, expected): {off}")
+    valid = [int(o[2].sum()) for o in (sar_o, rgb_o, ifr_o)]
+    if not all(v > 0 for v in valid) or not all(
+            bool(torch.isfinite(o[0]).all()) for o in (sar_o, rgb_o, ifr_o)):
+        failures.append(f"BabelRS joint outputs: valid {valid}")
+    sites = host_syncs(torch, joint)
+    busy = device_ms(torch, joint, iters=3, warmup=0)
+    walls, q1, med, q3 = timed_forwards(torch, joint)
+    n_syncs = sum(sites.values())
+    if n_syncs:
+        failures.append(f"BabelRS joint host syncs {sites}")
+    n_joint = sum(JOINT)
+    rec["joint"] = dict(
+        images_per_s=n_joint / med,
+        images_per_s_quartiles=[n_joint / q3, n_joint / q1],
+        ms=med * 1e3, ms_quartiles=[q1 * 1e3, q3 * 1e3],
+        device_busy_ms=busy, peak_gib=peak, host_syncs=n_syncs,
+        launches={k: v for k, v in launches.items() if v}, valid=valid)
+    log(f"[babelrs joint] {BABELRS_CFG} [{n_sar}:{n_rgb}:{n_ifr}] x "
+        f"{IMG}^2 bf16: median {med * 1e3:.2f} ms (quartiles "
+        f"{q1 * 1e3:.2f} / {q3 * 1e3:.2f}), {n_joint / med:.2f} images/s "
+        f"(host clock); device busy {ms_str(busy)} a forward "
+        f"(torch.profiler); peak {peak:.2f} GiB; host syncs {n_syncs} "
+        f"{sites}; valid {valid}; card {smi}")
+    log(f"[babelrs joint]   launches in one forward: "
+        f"{rec['joint']['launches']} (expected "
+        f"{ {k: v for k, v in BABELRS_JOINT_LAUNCHES.items() if v} }) "
+        f"{'ok' if not off else 'FAIL'}")
+    log(f"[babelrs joint]   forward wall times (ms): "
+        f"{' '.join(f'{w * 1e3:.2f}' for w in walls)}")
+    del sar_o, rgb_o, ifr_o
+
+    # the parts of the forward alone, at its shapes (16 images): the
+    # CUDA-event time of one call (these are device-bound calls of
+    # milliseconds), times the calls a forward; beside it the summed kernel
+    # durations under torch.profiler, which can miss events
+    bb = model.backbone
+    depth, n_inter = bb.depth, len(bb.interaction_indexes)
+    parts = {}
+
+    def timed(fn, iters=5, **extra):
+        return dict(ms_a_call=cuda_ms(torch, fn, iters=iters),
+                    device_ms_a_call=device_ms(torch, fn, iters=iters),
+                    **extra)
+    with torch.no_grad():
+        xi = torch.cat([sar_i, rgb_i, ifr_i]).to(torch.bfloat16)
+        tokens, h, w = bb.stem_tokens(xi)
+        blk = bb.block0
+        nh, hd = blk.num_heads, blk.dim // blk.num_heads
+        qkv = blk.qkv(blk.norm1(tokens)).reshape(n_joint, h * w, 3, nh, hd)
+        q, k, v = (qkv[:, :, j].transpose(1, 2) for j in range(3))
+        n_tok = h * w
+        flops = 4.0 * n_joint * nh * n_tok * n_tok * hd
+        b_ms, kind = bound_ms(4 * q.numel() * q.element_size(),
+                              [(flops, "bfloat16")])
+        parts["vit_sdpa"] = timed(
+            lambda: F.scaled_dot_product_attention(q, k, v), calls=depth,
+            bound_ms_a_call=b_ms, bound_by=kind)
+        parts["vit_attention_branch"] = timed(
+            lambda: blk.attention(tokens, (h, w)), calls=depth)
+        mlp_flops = 2.0 * n_joint * n_tok * 8 * blk.dim * blk.dim
+        b_ms, kind = bound_ms(0, [(mlp_flops, "bfloat16")])
+        parts["vit_mlp"] = timed(lambda: blk.mlp(tokens), calls=depth,
+                                 bound_ms_a_call=b_ms, bound_by=kind)
+        parts["spm"] = timed(lambda: bb.spm(xi), calls=1)
+        c1, c2, c3, c4 = bb.spm(xi)
+        shapes = [tuple(c.shape[1:3]) for c in (c2, c3, c4)]
+        spatial = torch.cat([c.reshape(n_joint, -1, bb.adapter_dim)
+                             for c in (c2, c3, c4)], dim=1)
+        vit_ref = _grid(h, w, dev)[None].expand(n_joint, -1, -1)
+        spa_ref = torch.cat([_grid(hh, ww, dev) for hh, ww in shapes],
+                            0)[None].expand(n_joint, -1, -1)
+        q_tok = bb.vit_proj(tokens)
+        for name, mod, args in (
+                ("extract", bb.extract0, (spatial, spa_ref, q_tok,
+                                          [(h, w)])),
+                ("inject", bb.inject0, (q_tok, vit_ref, spatial, shapes))):
+            vs, loc, att = mod.sampling(*args)
+            lv = args[3]
+            n_out = loc.shape[0] * loc.shape[1] * mod.dim
+            nbytes = (vs.numel() * vs.element_size()
+                      + loc.numel() * loc.element_size()
+                      + att.numel() * att.element_size()
+                      + n_out * vs.element_size())
+            # a point: 4 taps of hd multiply-adds, the weight's
+            # multiply-add, ~30 operations of coordinates
+            n_pts = att.numel()
+            b_ms, kind = bound_ms(nbytes, [(n_pts * (10 * (mod.dim //
+                                                           mod.num_heads)
+                                                     + 30), "float32")])
+            parts[f"deform_{name}"] = timed(
+                lambda: ms_deform_attn(vs, lv, loc, att), calls=n_inter,
+                bound_ms_a_call=b_ms, bound_by=kind, queries=loc.shape[1],
+                levels=lv, value_tokens=vs.shape[1])
+        parts["backbone"] = timed(lambda: bb(xi), iters=3, calls=1)
+        feats = bb(xi)
+
+        def neck_heads():
+            model.head_sar_from_feats([f[:n_sar] for f in feats])
+            xr = model.neck_rcnn([f[n_sar:] for f in feats])
+            model.rgb_rpn_head([f[:n_rgb] for f in xr])
+            model.ifr_rpn_head([f[n_rgb:] for f in xr])
+        parts["neck_heads"] = timed(neck_heads, calls=1)
+    for name, p in parts.items():
+        t = p["ms_a_call"]
+        p["ms_a_forward"] = t * p["calls"]
+        extra = "" if "bound_ms_a_call" not in p else (
+            f", bound {p['bound_ms_a_call']:.4f} ms a call "
+            f"({p['bound_by']})")
+        log(f"[babelrs parts] {name}: {t:.4f} ms a call (CUDA events; "
+            f"kernel durations under torch.profiler "
+            f"{ms_str(p['device_ms_a_call'])}) x {p['calls']} = "
+            f"{p['ms_a_forward']:.4f} ms a joint forward{extra}")
+    rec["parts"] = parts
+    del tokens, qkv, q, k, v, c1, c2, c3, c4, spatial, q_tok, feats, xi
+    torch.cuda.empty_cache()
+    log(f"[babelrs] (b) {time.perf_counter() - t0:.1f} s")
+
+    # (d) the eval entry point on the model of (b)
+    t0 = time.perf_counter()
+    build.reset_launches()
+    out = test_cli.main([BABELRS_CFG, "--subdataset", "rgb",
+                         "--synthetic-data", "--num-images", "16",
+                         "--batch-size", "8"], model=model)
+    n_det = sum(len(d) for img in out["det_results"] for d in img)
+    m_ap = out["metrics"]["mAP"]
+    launched = {k: v for k, v in build.LAUNCHES.items() if v}
+    rec["eval"] = dict(mAP=m_ap, detections=n_det,
+                       images_per_s=out["img_per_s"], launches=launched)
+    log(f"[babelrs eval] tools.test {BABELRS_CFG} --subdataset rgb "
+        f"--synthetic-data, 16 images: mAP {m_ap:.4f}, {n_det} detections, "
+        f"{out['img_per_s']:.2f} images/s; launches {launched}; card {smi}")
+    if not (0.0 <= m_ap <= 1.0) or n_det == 0 or \
+            launched.get("roi_align_rotated", 0) == 0 or any(
+                launched.get(k, 0) for k in ("fused_convnext_block",
+                                             "dwconv_ln", "convnext_ffn",
+                                             "fused_layernorm")):
+        failures.append(f"BabelRS eval: mAP {m_ap}, {n_det} dets, "
+                        f"launches {launched}")
+    del model, out, sar_i, rgb_i, ifr_i
+    torch.cuda.empty_cache()
+    log(f"[babelrs eval] (d) {time.perf_counter() - t0:.1f} s")
+
+    # (c) the train entry point: layer decay, then EMA + accumulation
+    t0 = time.perf_counter()
+    shutil.rmtree(BABELRS_WORK, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    common = ["evaluation=None", "model.compute_dtype=bfloat16"]
+    out, sync_parts, sites = syncs_by_part(torch, lambda: train_cli.main(
+        [BABELRS_CFG, "--synthetic-data", "--work-dir",
+         f"{BABELRS_WORK}/ld", "--max-iters", str(BABELRS_TRAIN_ITERS),
+         "--cfg-options", *common, "lr_config.warmup_iters=2",
+         "log_interval=2"]))
+    st = out["stats"]
+    done = st["iters"]
+    steps = np.diff(st["iter_end_s"][2:]) * 1e3
+    n_img = sum(Config.fromfile(BABELRS_CFG).source_ratio)
+    q = statistics.quantiles(steps, n=4)
+    launched = {k: v / max(done, 1) for k, v in build.LAUNCHES.items() if v}
+    sc = out["lr_scales"]
+    want = {f"backbone.block{i}.qkv.weight": 0.95 ** (23 - i)
+            for i in range(24)}
+    want.update({"backbone.spm.stem1.weight": 0.95 ** 24,
+                 "backbone.spm.stem2.weight": 0.95 ** 24,
+                 "backbone.stem_single.weight": 0.95 ** 24,
+                 "backbone.pos_embed": 0.95 ** 24,
+                 "backbone.spm.gn1.weight": 1.0,
+                 "backbone.inject3.value_proj.weight": 1.0,
+                 "sar_bbox_head.gfl_cls.weight": 1.0,
+                 "rgb_roi_head.fc_cls.weight": 1.0})
+    off_sc = {k: (sc.get(k), v) for k, v in want.items()
+              if sc.get(k) is None or not math.isclose(sc[k], v,
+                                                       rel_tol=1e-12)}
+    rec["train"] = dict(
+        iterations=done, median_iteration_ms=q[1],
+        iteration_ms_quartiles=[q[0], q[2]], images_per_s=n_img / q[1] * 1e3,
+        images_per_s_quartiles=[n_img / q[2] * 1e3, n_img / q[0] * 1e3],
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        syncs=sync_parts, syncs_per_step=sync_parts["step"] / max(done, 1),
+        step_sync_sites=sites, launches_per_step=launched,
+        lr_scales_checked=len(want), lr_scales_off=off_sc,
+        last_log=st["log_lines"][-1] if st["log_lines"] else None)
+    log(f"[babelrs train] tools.train {BABELRS_CFG} --synthetic-data, bf16 "
+        f"[1:1:1] x {IMG}^2, layer decay 0.95 over 24: {done} iterations; "
+        f"median iteration {q[1]:.1f} ms (quartiles {q[0]:.1f} / "
+        f"{q[2]:.1f}), {rec['train']['images_per_s']:.2f} images/s (host "
+        f"clock); peak {rec['train']['peak_gib']:.2f} GiB; syncs by part "
+        f"{sync_parts} ({rec['train']['syncs_per_step']:.1f} a step) "
+        f"{sites}; card {smi}")
+    log(f"[babelrs train]   launches a step: {launched}")
+    log(f"[babelrs train]   layer-decay scales read back from the "
+        f"optimizer: block i 0.95^(23-i) for i < 24, the stems 0.95^24, "
+        f"the SPM's norms, the adapter and the heads 1: "
+        f"{'ok' if not off_sc else 'FAIL ' + str(off_sc)}")
+    log(f"[babelrs train]   last log line: {rec['train']['last_log']}")
+    if done != BABELRS_TRAIN_ITERS or not st["log_lines"] or not all(
+            np.isfinite(v) for x in st["log_lines"] for v in x.values()):
+        failures.append("BabelRS train: iterations or a logged value")
+    if off_sc:
+        failures.append(f"BabelRS layer-decay scales {off_sc}")
+    for k in BABELRS_TRAIN_KERNELS:
+        if launched.get(k, 0) <= 0:
+            failures.append(f"BabelRS train launches {k}=0")
+    del out
+
+    wd = f"{BABELRS_WORK}/ema"
+    extra = ["ema_decay=0.9998", "optimizer.accumulate=2",
+             "lr_config.policy=cosine", "checkpoint_interval=3",
+             "log_interval=1"]
+    out = train_cli.main([BABELRS_CFG, "--synthetic-data", "--work-dir", wd,
+                          "--max-iters", "3", "--cfg-options", *common,
+                          *extra])
+    s1 = out["state"]
+    ema_moved = any(bool((e - p).abs().max() > 0)
+                    for e, p in zip(s1.ema, s1.params.values()))
+    counts = (s1.opt.step, s1.opt.count, s1.opt.accum_count)
+    del out, s1
+    torch.cuda.empty_cache()
+    ck = f"{wd}/iter_3.pth"
+    again = train_cli.main([BABELRS_CFG, "--synthetic-data", "--work-dir",
+                            wd, "--resume-from", ck, "--max-iters", "3",
+                            "--cfg-options", *common, *extra])
+    same = checkpoint_equal(torch, ck, again["state"])
+    ok = same and ema_moved and counts == (3, 1, 1) and \
+        again["start_iter"] == 3 and again["stats"]["iters"] == 0
+    rec["ema_accumulate_resume"] = dict(
+        step_count_accum=counts, ema_moved=ema_moved, resume_equal=same)
+    log(f"[babelrs train] ema_decay=0.9998 optimizer.accumulate=2 "
+        f"lr_config.policy=cosine: 3 iterations (step, Adam count, "
+        f"accumulated {counts}), EMA moved {ema_moved}; resumed from "
+        f"iter_3 (mid-accumulation): the loaded state, EMA and "
+        f"accumulators included, equal to the file bit for bit {same} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"BabelRS EMA / accumulation resume: {counts}, "
+                        f"moved {ema_moved}, equal {same}")
+    shutil.rmtree(BABELRS_WORK, ignore_errors=True)
+    del again
+    torch.cuda.empty_cache()
+    log(f"[babelrs train] (c) {time.perf_counter() - t0:.1f} s")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[babelrs] phase 12 wall time {rec['phase_s']:.1f} s (limit "
+        f"{BABELRS_PHASE_LIMIT_S} s)")
+    if rec["phase_s"] > BABELRS_PHASE_LIMIT_S:
+        failures.append(f"phase 12 took {rec['phase_s']:.1f} s")
+    return failures, rec, launches
+
+
 def main():
     t_main = time.perf_counter()
     try:
@@ -4491,6 +5013,15 @@ def main():
         if k in recs:
             recs[k].extra["da_joint_launches"] = n
 
+    # ---- 12. the BabelRS ViT-Adapter configuration -------------------------
+    torch.cuda.empty_cache()
+    vit_failures, vit_rec, vit_launches = phase12(torch, dev, smi, build)
+    if vit_failures:
+        fail(f"BabelRS phase failed: {vit_failures}")
+    for k, n in vit_launches.items():
+        if k in recs:
+            recs[k].extra["babelrs_joint_launches"] = n
+
     script_s = time.perf_counter() - t_main
     log(f"[smoke] whole script wall time {script_s:.1f} s (limit "
         f"{SCRIPT_LIMIT_S} s)")
@@ -4521,6 +5052,7 @@ def main():
         "lsk_van_reweight": lsk_rec,
         "variants_zoo": var_rec, "h2r2_train_step_launches": var_launches,
         "refine_cascade": ref_rec, "da_baseline": da_rec,
+        "babelrs": vit_rec,
         "script_s": script_s, "card": smi}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -16,7 +16,9 @@ does not know.
 Module names follow the flax keys (``backbone.stage2_block0.ffn.experts.w1``,
 ``backbone.stage2_block0.mlp.fc1.experts.w``, ``neck.lateral1.weight``,
 ``sar_bbox_head.cls_gn0.weight``, ``rgb_roi_head.shared_fc0.weight``, ...),
-for a ConvNeXt, LSKNet or VAN backbone:
+for a ConvNeXt, LSKNet, VAN or InternViT-adapter backbone
+(``backbone.block3.qkv.weight``, ``backbone.spm.gn1.weight``,
+``backbone.extract0.sampling_offsets.weight``, ``backbone.pos_embed``):
 
 - conv kernels HWIO -> OIHW (the stems, patch embeds, 1x1 convs, the
   squeeze conv, the heads' convs), the depthwise (k, k, 1, C) ->
@@ -27,15 +29,25 @@ for a ConvNeXt, LSKNet or VAN backbone:
   (``fpn1_up1``, ``fpn1_up2``, ``fpn2_up``) their flax (2, 2, in, out)
   layout, which ``UpConv2x2`` reads; the gate's ``cosine_projector``, the
   RoI heads' Dense layers and the Domain-Attention layers' bias-free
-  ``fc{d}_{0,1}`` become Linear weights (out, in);
+  ``fc{d}_{0,1}`` become Linear weights (out, in), and so do the ViT's
+  and the adapter's Dense layers (``qkv``, ``proj``, ``fc1``, ``fc2``,
+  ``vit_proj``, ``vit_unproj``, the deformable attention's
+  ``value_proj``, ``sampling_offsets``, ``attention_weights`` and
+  ``output_proj``);
 - MoE stacks ``w1 (E, d, h)``, ``b1``, ``w2 (E, h, d)``, ``b2`` and the
   linear experts' ``w (E, d, o)``, ``b (E, o)`` stay stacked, as do
   ``w_gate/{temperature, sim_matrix}``, the linear gate's ``w_gate (d,
   E)`` and ``w_noise``;
-- LayerNorm/GroupNorm ``scale``/``bias`` -> ``weight``/``bias``; the
-  ``gamma`` and ``layer_scale_{1,2}`` vectors, GRN's ``gamma`` / ``beta``,
-  ``mtl_sigma`` and the scalar ``Scale``s keep their names (a block
-  without layer scale has no ``gamma``, in either tree).
+- LayerNorm/GroupNorm ``scale``/``bias`` -> ``weight``/``bias`` (the
+  SPM's ``gn{i}`` among them); an RMSNorm's ``weight`` (the ViT's
+  ``q_norm`` / ``k_norm``) keeps its name; the ``gamma``,
+  ``layer_scale_{1,2}`` and ``ls{1,2}`` vectors, ``pos_embed``, GRN's
+  ``gamma`` / ``beta``, ``mtl_sigma`` and the scalar ``Scale``s keep their
+  names (a block without layer scale has no ``gamma``, in either tree).
+
+A port name is the flax module path joined by dots, then the leaf's name:
+``flax_modules`` gives that path back (``train/extras.py`` picks each
+parameter's layer-decay depth from it).
 
 ``to_flax(tensors, template)`` is the reverse map, for the port's
 gradients or parameters: it lays them out as the flax tree ``template``
@@ -60,13 +72,14 @@ _TOP = re.compile(r"backbone|neck|((sar|rgb|ifr)_)?(bbox|rpn|roi)_head"
 # top-level leaves a tree may hold: the uncertainty reweighting's sigmas
 OPTIONAL_LEAVES = ("mtl_sigma",)
 _LINEAR = re.compile(r"cosine_projector|shared_fc[01]|fc_cls|fc_reg"
-                     r"|fc\d+_[01]")
+                     r"|fc\d+_[01]|qkv|proj|fc[12]|vit_(un)?proj|value_proj"
+                     r"|sampling_offsets|attention_weights|output_proj")
 _KEPT = {"gamma", "beta", "temperature", "sim_matrix", "w_gate", "w_noise",
          "w1", "b1", "w2", "b2", "w", "b", "layer_scale_1", "layer_scale_2",
-         "mtl_sigma"}
+         "mtl_sigma", "pos_embed", "ls1", "ls2"}
 # SimpleFPN's transposed convs: the kernel stays in the flax layout
 _UPCONV = {"fpn1_up1", "fpn1_up2", "fpn2_up"}
-_NORM = re.compile(r".*norm\d*|(cls|reg)_gn\d+")
+_NORM = re.compile(r".*norm\d*|(cls|reg)_gn\d+|gn\d+")
 
 
 def _leaves(tree, path=()) -> Iterator[Tuple[tuple, np.ndarray]]:
@@ -105,12 +118,24 @@ def _rule(path: tuple, v: np.ndarray):
         name = "scale"
     elif leaf == "scale" and _NORM.fullmatch(parent):
         name = "weight"
+    elif leaf == "weight" and v.ndim == 1 and _NORM.fullmatch(parent):
+        name = "weight"                # an RMSNorm's (the ViT's)
     elif leaf in _KEPT:
         name = leaf
     if name is None:
         raise KeyError(f"from_flax: no rule for {'/'.join(path)} "
                        f"{tuple(v.shape)}")
     return ".".join([*mods, name]), perm
+
+
+def flax_modules(port_name: str) -> Tuple[str, ...]:
+    """The flax path a port parameter is converted from: the module path,
+    and the leaf where it is one of the named vectors ``from_flax`` keeps
+    (``pos_embed``, ``ls1``, ``gamma``, ...). A layer's own leaf
+    (``kernel`` / ``scale`` / ``weight`` / ``bias``) is left out: its flax
+    name depends on the layer, and no path rule reads it."""
+    *mods, leaf = port_name.split(".")
+    return tuple(mods) + ((leaf,) if leaf in _KEPT else ())
 
 
 def _convert(path: tuple, v: np.ndarray) -> Tuple[str, np.ndarray]:

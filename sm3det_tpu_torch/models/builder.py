@@ -7,7 +7,9 @@ what it has:
 - detectors: ``TriSourceDetector`` with a ConvNeXt-MoE (Domain Attention
   included), LSKNet-MoE or VAN-MoE backbone (``ConvNeXt_moe``,
   ``ConvNeXt_moe_MultiInput``, ``ConvNeXt_DA_MultiInput``, ``LSKNet``,
-  ``LSKNet_moe_MultiInput``, ``VAN``, ``VAN_moe_MultiInput``),
+  ``LSKNet_moe_MultiInput``, ``VAN``, ``VAN_moe_MultiInput``) or the
+  BabelRS ViT-Adapter (``InternViTAdapter``; ``InternViT`` names the same
+  class, as in JAX, and the TriSource factory refuses it, as JAX's does),
   ``TriSourceVariant`` (its ``sar_stages`` / ``rot_stages`` from the
   config), and the single-dataset ``OrientedRCNN``, ``GFL``,
   ``RotatedRetinaNet``, ``FasterRCNN``, ``CascadeRCNN``, ``RetinaNet``,
@@ -38,6 +40,7 @@ from typing import Any, Dict, Optional
 
 from ..utils.registry import BACKBONES, DETECTORS, HEADS, NECKS
 from .backbones.convnext import ConvNeXtMoE
+from .backbones.intern_vit import InternViTAdapter
 from .backbones.lsknet import LSKNetMoE
 from .backbones.van import VANMoE
 from .dense_heads.gfl_head import GFLHead
@@ -72,7 +75,9 @@ for _name in ("ConvNeXt_moe", "ConvNeXt_moe_MultiInput",
     BACKBONES.register_module(_name, module=ConvNeXtMoE)
 for _name, _cls in (("LSKNet", LSKNetMoE), ("LSKNet_moe_MultiInput",
                                             LSKNetMoE),
-                    ("VAN", VANMoE), ("VAN_moe_MultiInput", VANMoE)):
+                    ("VAN", VANMoE), ("VAN_moe_MultiInput", VANMoE),
+                    ("InternViT", InternViTAdapter),
+                    ("InternViTAdapter", InternViTAdapter)):
     BACKBONES.register_module(_name, module=_cls)
 for _name, _cls in (("MultitaskFPN", MultitaskFPN), ("FPN", FPN),
                     ("SimpleFPN", SimpleFPN)):
@@ -107,8 +112,7 @@ for _name in ("RotatedFCOSHead", "OrientedRepPointsHead", "GVBBoxHead",
     HEADS.register_module(_name, module=_unported("head", _name, ZOO))
 
 for _name in ("LSKNet_moe", "VAN_moe", "SwinTransformer_moe",
-              "SwinTransformer_MoE", "SwinTransformer", "InternViT",
-              "InternViTAdapter", "ReResNet"):
+              "SwinTransformer_MoE", "SwinTransformer", "ReResNet"):
     BACKBONES.register_module(_name, module=_unported("backbone", _name,
                                                       ZOO))
 NECKS.register_module("ReFPN", module=_unported("neck", "ReFPN", ZOO))
@@ -123,6 +127,11 @@ _BACKBONE_KEYS = {"type", "arch", "drop_path_rate", "moe_block_inds",
                   "num_experts", "top_k", "gate", "noisy_gating",
                   "capacity_factor", "use_da", "da_block_inds", "embed_dims",
                   "depths", "moe_block_inds_fc1", "moe_block_inds_fc2"}
+# the keys the InternViT adapter reads; of the two more its configs hold,
+# which JAX ignores, only the forms that change nothing are taken
+_VIT_KEYS = {"type", "embed_dim", "depth", "num_heads", "patch_size",
+             "interaction_indexes", "adapter_dim", "multi_input",
+             "moe_block_inds"}
 _INDEX_KEYS = ("moe_block_inds", "da_block_inds", "moe_block_inds_fc1",
                "moe_block_inds_fc2")
 _NECK_KEYS = {"in_channels", "out_channels", "num_outs", "extra_level",
@@ -145,12 +154,34 @@ def normalize_model_cfg(mc):
     return mc
 
 
+def _check_vit_keys(b: Dict[str, Any]):
+    """Raise, naming the key, for what the InternViT adapter's factory
+    would ignore: a key it does not read, ``multi_input`` other than True
+    (JAX builds the MultiInput stem whatever it says) or a MoE block."""
+    extra = sorted(set(b) - _VIT_KEYS)
+    if extra:
+        raise NotImplementedError(
+            f"backbone keys {extra} are not taken for InternViTAdapter: its "
+            f"factory reads none of them (the JAX package's ignores them)")
+    if b.get("multi_input", True) is not True:
+        raise NotImplementedError(
+            f"backbone key multi_input={b['multi_input']!r}: the "
+            f"InternViTAdapter of a TriSource detector has the MultiInput "
+            f"stem (JAX's factory ignores the key)")
+    if any(tuple(x) for x in b.get("moe_block_inds", ())):
+        raise NotImplementedError(
+            f"backbone key moe_block_inds={b['moe_block_inds']!r}: the "
+            f"InternViTAdapter has no MoE block (JAX's factory ignores the "
+            f"key)")
+
+
 def resolve_model_cfg(cfg_model: Dict[str, Any],
-                      compute_dtype: Optional[str] = None):
+                      compute_dtype: Optional[str] = None, img_size=None):
     """What ``build_detector`` builds from a config's ``model`` dict, without
     building it: ``(detector class, its cfg, constructor keywords)``.
     Raises as ``build_detector`` does for a type, key or mode the port does
-    not take."""
+    not take. ``img_size`` (the config's) goes into the cfg of a detector
+    whose backbone fixes its grid at build (the InternViT adapter)."""
     if hasattr(cfg_model, "to_dict"):
         cfg_model = cfg_model.to_dict()
     mc = normalize_model_cfg(copy.deepcopy(dict(cfg_model)))
@@ -163,7 +194,12 @@ def resolve_model_cfg(cfg_model: Dict[str, Any],
     b = mc["backbone"]
     b.pop("pretrained", None)
     _check_built(BACKBONES, b.get("type", "ConvNeXt_moe"))
-    extra = sorted(set(b) - _BACKBONE_KEYS)
+    vit = b.get("type") in ("InternViT", "InternViTAdapter")
+    if vit:
+        _check_vit_keys(b)
+        if img_size is not None:
+            mc["img_size"] = img_size
+    extra = [] if vit else sorted(set(b) - _BACKBONE_KEYS)
     if extra:
         raise NotImplementedError(
             f"backbone keys {extra} are not taken: the detectors' backbone "
@@ -176,8 +212,8 @@ def resolve_model_cfg(cfg_model: Dict[str, Any],
     _check_built(NECKS, neck_type)
     if neck_type == "SimpleFPN":
         raise NotImplementedError(
-            f"neck 'SimpleFPN' takes one stride-16 map, from the ViT "
-            f"backbones, which are not ported: {ZOO}")
+            f"neck 'SimpleFPN' takes one stride-16 map, from a plain ViT "
+            f"backbone, which no ported detector has: {ZOO}")
     extra = sorted(set(n) - _NECK_KEYS)
     if extra:
         raise NotImplementedError(
@@ -193,15 +229,18 @@ def resolve_model_cfg(cfg_model: Dict[str, Any],
 
 def build_detector(cfg_model: Dict[str, Any], device=None,
                    compute_dtype: Optional[str] = None, seed: int = 0,
-                   trainable: bool = False):
+                   trainable: bool = False, img_size=None):
     """A detector from a config's ``model`` dict, parameters from ``seed``,
     on ``device`` (the card unless ``"cpu"``). ``compute_dtype``
     ``"bfloat16"`` runs the forward in bf16: an inference model holds its
     parameters in it; a ``trainable`` one holds fp32 masters that require
     grad, in train mode (the train step hands the forward a copy in the
     compute dtype). A config's ``model.compute_dtype`` is used when
-    ``compute_dtype`` is None."""
-    det_cls, mc, kwargs = resolve_model_cfg(cfg_model, compute_dtype)
+    ``compute_dtype`` is None. ``img_size`` is the config's: the InternViT
+    adapter's position embedding is built for its token grid (JAX's tools
+    initialise at it), and that backbone raises without it."""
+    det_cls, mc, kwargs = resolve_model_cfg(cfg_model, compute_dtype,
+                                            img_size)
     return det_cls(cfg=mc, device=device, seed=seed, trainable=trainable,
                    **kwargs)
 

@@ -3,7 +3,8 @@
 Port of ``sm3det_tpu/models/detectors/trisource.py::TriSourceDetector``:
 the shared backbone (ConvNeXt-MoE, with Domain Attention for
 ``ConvNeXt_DA_MultiInput`` / ``use_da``, LSKNet-MoE or VAN-MoE in
-MultiInput mode, ``build_multi_input_backbone``), the MultitaskFPN, the
+MultiInput mode, or the BabelRS ``InternViTAdapter`` built for
+``cfg["img_size"]``, ``build_multi_input_backbone``), the MultitaskFPN, the
 SAR GFL head and the RGB and infrared Oriented R-CNN branches (oriented
 RPN, pyramid rotated RoI align, shared-2fc head).
 
@@ -52,6 +53,7 @@ from ...core.bbox.samplers import SampleKeys
 from ...ops.box_convert import norm_angle
 from ...ops.nms import aug_multiclass_nms_rotated
 from ..backbones.convnext import ConvNeXtMoE
+from ..backbones.intern_vit import InternViTAdapter
 from ..backbones.lsknet import LSKNetMoE
 from ..backbones.van import VANMoE
 from ..dense_heads.gfl_head import GFLHead, gfl_get_bboxes, gfl_loss
@@ -139,10 +141,29 @@ def composition_ids(n_sar: int, n_rgb: int, n_ifr: int):
 
 
 def build_multi_input_backbone(b: Dict[str, Any],
-                               gen: torch.Generator | None = None):
+                               gen: torch.Generator | None = None,
+                               img_size=None):
     """The backbone of a TriSource config's ``backbone`` dict, in
-    MultiInput mode, with the JAX factory's type names and defaults."""
+    MultiInput mode, with the JAX factory's type names and defaults.
+    ``img_size`` (the config's, an int or (H, W)) fixes the InternViT
+    adapter's position-embedding grid; the other backbones take any
+    size."""
     btype = b.get("type", "ConvNeXt")
+    if btype == "InternViTAdapter":
+        # BabelRS (configs/BabelRS_configs/BabelRS_20kstep.py)
+        if img_size is None:
+            raise ValueError(
+                "an InternViTAdapter backbone needs the image size its "
+                "position embedding is built for: pass img_size (the "
+                "config's) to build_detector")
+        return InternViTAdapter(
+            img_size, embed_dim=b.get("embed_dim", 1024),
+            depth=b.get("depth", 24), num_heads=b.get("num_heads", 16),
+            patch_size=b.get("patch_size", 16),
+            interaction_indexes=tuple(b.get("interaction_indexes",
+                                            (5, 11, 17, 23))),
+            adapter_dim=b.get("adapter_dim", 256), multi_input=True,
+            gen=gen)
     common = dict(
         drop_path_rate=b.get("drop_path_rate", 0.0),
         num_experts=b.get("num_experts", 2), top_k=b.get("top_k", 2),
@@ -169,7 +190,7 @@ def build_multi_input_backbone(b: Dict[str, Any],
             moe_block_inds_fc2=tuple(tuple(i) for i in b.get(
                 "moe_block_inds_fc2", ((), (), (), ()))),
             **common)
-    if btype in ("SwinTransformer_moe", "Swin", "InternViTAdapter"):
+    if btype in ("SwinTransformer_moe", "Swin"):
         raise NotImplementedError(f"backbone {btype!r} is not ported: {ZOO}")
     raise ValueError(f"unknown backbone type {btype!r}")
 
@@ -258,7 +279,8 @@ class TriSourceDetector(DetectorBase):
             raise ValueError(f"multi_tasks_reweight "
                              f"{c['multi_tasks_reweight']!r}: one of "
                              f"{REWEIGHT_MODES}")
-        self.backbone = build_multi_input_backbone(c["backbone"], gen)
+        self.backbone = build_multi_input_backbone(c["backbone"], gen,
+                                                   c.get("img_size"))
         n = c["neck"]
         self.neck = MultitaskFPN(
             in_channels=tuple(n["in_channels"]),

@@ -71,7 +71,8 @@ class TriSourceVariant(DetectorBase):
         self.cfg = c = copy.deepcopy(cfg)
         self.sar_stages, self.rot_stages = sar_stages, rot_stages
         gen = torch.Generator().manual_seed(seed)
-        self.backbone = build_multi_input_backbone(c["backbone"], gen)
+        self.backbone = build_multi_input_backbone(c["backbone"], gen,
+                                                   c.get("img_size"))
         n = c["neck"]
         ch = n["out_channels"]
         self.neck = MultitaskFPN(

@@ -6,8 +6,9 @@
         [--format-only --submission-dir D] [--out J] \\
         [--cfg-options k=v ...] [--device cpu]
 
-The config's ``model`` builds the detector (``models/builder.py``), on the
-CUDA card unless ``--device cpu``; any ``model.type`` but
+The config's ``model`` builds the detector (``models/builder.py``, at the
+config's ``img_size``, the backbone's ``pretrained`` dropped as JAX's tool
+drops it), on the CUDA card unless ``--device cpu``; any ``model.type`` but
 ``TriSourceDetector`` stops the tool (``check_model_type``); ``CKPT`` is a file of
 ``train/checkpoint.py::save_params``. The test (else val, else train)
 split of the subdataset is built from the config, or synthetic images
@@ -122,7 +123,8 @@ def main(argv=None, dataset=None, model=None):
         torch.backends.cuda.matmul.allow_tf32 = False
     if model is None:
         model = build_detector(cfg.model, device=device,
-                               compute_dtype=args.compute_dtype, seed=0)
+                               compute_dtype=args.compute_dtype, seed=0,
+                               img_size=cfg.img_size)
         if args.checkpoint:
             from ..train.checkpoint import load_params
             load_params(args.checkpoint, model)

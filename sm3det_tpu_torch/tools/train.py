@@ -6,17 +6,23 @@
         [--cfg-options k=v ...] [--device cpu]
 
 The config's ``model`` builds a trainable detector (``models/builder.py``,
-fp32 masters; ``model.compute_dtype=bfloat16`` runs the forward in bf16),
-on the CUDA card unless ``--device cpu``; the backbone's ``pretrained``
-ConvNeXt is loaded when its file exists. The datasets of ``data.sar``,
-``data.rgb`` and ``data.ifr`` feed ``TriSourceLoader`` in the config's
-``source_ratio``; AdamW with the step schedule, ``grad_clip`` and, for
-``lr_config.policy="dynamic"``, DLA; ``model.multi_tasks_reweight``
-``"uncertainty"`` or ``"dwa"`` reweights the task losses
-(``train/train_state.py``); then ``run_training``. The work dir
-gets ``config.py``, ``train_log.jsonl`` and ``iter_N.pth`` checkpoints of
-the whole train state, from which ``--resume-from`` / ``--auto-resume``
-continue. With ``evaluation`` in the config, the val split of each
+fp32 masters, at the config's ``img_size``; ``model.compute_dtype=bfloat16``
+runs the forward in bf16), on the CUDA card unless ``--device cpu``; the
+backbone's ``pretrained`` file is loaded when it exists (an mm-style
+ConvNeXt checkpoint, or a HF-format InternViT one for the BabelRS
+adapter). The datasets of ``data.sar``, ``data.rgb`` and ``data.ifr`` feed
+``TriSourceLoader`` in the config's ``source_ratio``; AdamW with the keys
+of ``lr_config`` and ``optimizer`` that JAX's tool passes (``policy``
+among the 11 LR policies, ``warmup``, ``warmup_iters``, ``warmup_ratio``,
+``step``, ``gamma``, ``min_lr``, ``min_lr_ratio``, ``power``; ``lr``,
+``betas``, ``weight_decay``, ``grad_clip``, ``accumulate``,
+``layer_decay``) and, for ``lr_config.policy="dynamic"``, DLA; the
+config's ``ema_decay`` keeps an EMA of the parameters in the train state;
+``model.multi_tasks_reweight`` ``"uncertainty"`` or ``"dwa"`` reweights
+the task losses (``train/train_state.py``); then ``run_training``. The
+work dir gets ``config.py``, ``train_log.jsonl`` and ``iter_N.pth``
+checkpoints of the whole train state, from which ``--resume-from`` /
+``--auto-resume`` continue. With ``evaluation`` in the config, the val split of each
 modality is evaluated every ``evaluation.interval`` iterations through
 ``apis/eval_loop.py::stream_eval``: COCO ``bbox`` for SAR, VOC ``mAP``
 otherwise, or ``evaluation.metric``.
@@ -31,10 +37,10 @@ single-dataset detector stops the tool: it trains through the library API
 (``build_detector(..., trainable=True)`` and ``build_train_step``).
 
 Not ported, and raising ``NotImplementedError``: several devices
-(``--num-devices`` > 1, ``expert_parallel`` > 1, a distributed launch),
-``ema_decay``, ``optimizer.accumulate`` > 1, ``optimizer.layer_decay``, LR
-policies other than step and dynamic, and a ``pretrained`` file for a
-backbone other than ConvNeXt.
+(``--num-devices`` > 1, ``expert_parallel`` > 1, a distributed launch)
+and a ``pretrained`` file for an LSKNet or VAN backbone. Raising too, by
+name: the ``lr_config`` keys JAX's tool drops without a word
+(``DROPPED_LR_KEYS``) and a ``momentum_config``, which it never reads.
 """
 
 from __future__ import annotations
@@ -45,8 +51,12 @@ import os
 import torch
 
 PARALLEL = "ROADMAP queue 1 item 6 (parallel)"
-RUNTIME = "ROADMAP queue 1 item 3 (the rest of the train runtime)"
 ZOO = "ROADMAP queue 1 item 7 (the zoo)"
+# lr_config keys the JAX tool does not pass to make_optimizer: a config
+# holding one would train on the schedule's defaults
+DROPPED_LR_KEYS = ("periods", "restart_weights", "target_ratio",
+                   "cyclic_times", "step_ratio_up", "anneal_strategy",
+                   "div_factor", "final_div_factor", "start_percent")
 MODALITIES = ("sar", "rgb", "ifr")
 
 
@@ -148,12 +158,22 @@ def check_ported(args, cfg, model_cfg):
             "package's TriSourceVariant has no simple_test), so the eval "
             "hooks of this config's evaluation cannot run: pass "
             "--cfg-options evaluation=None to train without them")
-    if float(cfg.get("ema_decay", 0.0)):
-        no("ema_decay", RUNTIME)
-    if int(cfg.optimizer.get("accumulate", 1)) > 1:
-        no("optimizer.accumulate > 1", RUNTIME)
-    if cfg.optimizer.get("layer_decay") is not None:
-        no("optimizer.layer_decay", RUNTIME)
+    dropped = [k for k in DROPPED_LR_KEYS if k in cfg.lr_config]
+    if dropped:
+        raise NotImplementedError(
+            f"lr_config keys {dropped} are not taken: the JAX package's "
+            f"tools/train.py does not pass them on, so its schedule runs on "
+            f"their defaults")
+    if cfg.get("momentum_config") is not None:
+        raise NotImplementedError(
+            "momentum_config is not taken: the JAX package's tools/train.py "
+            "never reads it (make_optimizer's momentum_policy is library "
+            "API)")
+    ld = cfg.optimizer.get("layer_decay")
+    if ld is not None and not (hasattr(ld, "to_dict") and {
+            "rate", "num_layers"} <= set(ld.to_dict())):
+        raise ValueError(f"optimizer.layer_decay={ld!r}: a dict(rate, "
+                         f"num_layers)")
 
 
 def make_eval_fns(cfg, args, pipes, device):
@@ -174,7 +194,8 @@ def make_eval_fns(cfg, args, pipes, device):
     scale_ranges = ev.get("scale_ranges")
     eval_bs = int(ev.get("batch_size", 8))
     eval_workers = int(ev.get("num_workers", 4))
-    eval_model = build_detector(cfg.model, device=device)
+    eval_model = build_detector(cfg.model, device=device,
+                                img_size=cfg.img_size)
     synced = {"step": None}
 
     def sync(state):
@@ -222,7 +243,8 @@ def main(argv=None):
     """Run the tool. Returns a dict: the final ``state``, ``start_iter``,
     ``max_iters``, ``work_dir``, the loop's ``stats``
     (``train/loop.py::run_training``), the loader's ``loader_stats``
-    (``batches``, ``host_busy_s``) and the ``model``."""
+    (``batches``, ``host_busy_s``), the ``model`` and ``lr_scales`` (each
+    parameter's layer-decay scale, as the optimizer applies it)."""
     args = parse_args(argv)
     from ..data.loader import PipelineCfg, TriSourceLoader
     from ..device import resolve_device
@@ -230,6 +252,7 @@ def main(argv=None):
     from ..models.detectors.trisource_variants import TriSourceVariant
     from ..train.checkpoint import (convnext_torch_to_port,
                                     find_latest_checkpoint,
+                                    internvit_hf_to_port,
                                     load_torch_state_dict, load_train_state)
     from ..train.dla import (DEFAULT_REWEIGHT_LOSSES, make_dla_config,
                              reweight_for_variant)
@@ -279,18 +302,23 @@ def main(argv=None):
         next(data_iter)
 
         model = build_detector(cfg.model, device=device, seed=seed,
-                               trainable=True)
+                               trainable=True, img_size=cfg.img_size)
         pretrained = model_cfg["backbone"].get("pretrained")
-        if pretrained and os.path.exists(pretrained) and not \
-                model_cfg["backbone"].get("type", "ConvNeXt").startswith(
-                    "ConvNeXt"):
-            raise NotImplementedError(
-                f"a pretrained {model_cfg['backbone']['type']} backbone is "
-                f"not read by sm3det_tpu_torch: its loader waits for the "
-                f"file ({ZOO})")
+        btype = model_cfg["backbone"].get("type", "ConvNeXt")
         if pretrained and os.path.exists(pretrained):
-            model.load_state_dict(convnext_torch_to_port(
-                load_torch_state_dict(pretrained), model.state_dict()))
+            # the loader by backbone type (JAX's tool hands every file to
+            # its ConvNeXt mapping)
+            if btype.startswith("ConvNeXt"):
+                to_port = convnext_torch_to_port
+            elif btype == "InternViTAdapter":
+                to_port = internvit_hf_to_port
+            else:
+                raise NotImplementedError(
+                    f"a pretrained {btype} backbone is not read by "
+                    f"sm3det_tpu_torch: its loader waits for the file "
+                    f"({ZOO})")
+            model.load_state_dict(to_port(load_torch_state_dict(pretrained),
+                                          model.state_dict()))
             print(f"loaded pretrained backbone from {pretrained}")
 
         dla_cfg = None
@@ -311,6 +339,9 @@ def main(argv=None):
         gc = cfg.optimizer.get("grad_clip")
         max_iters = args.max_iters or cfg.get("max_iters", 1000)
         names = [n for n, p in model.named_parameters() if p.requires_grad]
+        layer_decay = cfg.optimizer.get("layer_decay")
+        if layer_decay is not None and hasattr(layer_decay, "to_dict"):
+            layer_decay = layer_decay.to_dict()
         init_fn, update_fn, _ = make_optimizer(
             names, base_lr=cfg.optimizer.lr,
             weight_decay=cfg.optimizer.get("weight_decay", 0.0),
@@ -321,10 +352,15 @@ def main(argv=None):
             warmup_iters=lr_cfg.get("warmup_iters", 500),
             warmup_ratio=lr_cfg.get("warmup_ratio", 1.0 / 3),
             dla_cfg=dla_cfg, lr_policy=lr_cfg.get("policy", "step"),
-            warmup=lr_cfg.get("warmup", "linear"))
+            warmup=lr_cfg.get("warmup", "linear"),
+            accumulate=int(cfg.optimizer.get("accumulate", 1)),
+            layer_decay=layer_decay, min_lr=lr_cfg.get("min_lr"),
+            min_lr_ratio=lr_cfg.get("min_lr_ratio"),
+            power=lr_cfg.get("power", 1.0), max_iters=max_iters)
         reweight = model_cfg.get("multi_tasks_reweight")
+        ema_decay = float(cfg.get("ema_decay", 0.0))
         state = init_train_state(model, init_fn, seed=seed + 1,
-                                 dwa=reweight == "dwa")
+                                 dwa=reweight == "dwa", ema=bool(ema_decay))
         start_iter = 0
         resume = args.resume_from or (
             find_latest_checkpoint(work_dir) if args.auto_resume else None)
@@ -333,7 +369,8 @@ def main(argv=None):
             start_iter = int(state.opt.step)
             print(f"resumed from {resume} at iter {start_iter}")
         step = build_train_step(model, update_fn,
-                                multi_tasks_reweight=reweight)
+                                multi_tasks_reweight=reweight,
+                                ema_decay=ema_decay)
 
         eval_fns = eval_interval = None
         if cfg.get("evaluation") is not None:
@@ -352,7 +389,7 @@ def main(argv=None):
         data_iter.close()
     return dict(state=state, start_iter=start_iter, max_iters=max_iters,
                 work_dir=work_dir, stats=stats, loader_stats=loader_stats,
-                model=model)
+                model=model, lr_scales=update_fn.lr_scales)
 
 
 if __name__ == "__main__":

@@ -11,13 +11,17 @@ Port of ``sm3det_tpu/train/checkpoint.py``:
   for resume (the JAX package's orbax ``save_checkpoint``): the fp32
   masters (``mtl_sigma`` among them under the uncertainty reweighting),
   AdamW's ``mu``, ``nu`` and ``count``, ``step``, the DLA state and the
-  multipliers last applied, DWA's carried losses, and the state of the
-  step's ``torch.Generator``, as ``<work_dir>/iter_N.pth``.
+  multipliers last applied, DWA's carried losses, the parameters' EMA and
+  the gradient accumulators with their count where the state has them,
+  and the state of the step's ``torch.Generator``, as
+  ``<work_dir>/iter_N.pth``.
 - ``find_latest_checkpoint``: the ``iter_N`` entry with the largest N.
-- ``load_torch_state_dict`` and ``convnext_torch_to_port``: an mm-style
+- ``load_torch_state_dict`` (``.safetensors`` through the port's own
+  reader, ``read_safetensors``), ``convnext_torch_to_port`` (an mm-style
   ConvNeXt checkpoint mapped onto the port's backbone, a dense FFN fanned
   out into every expert of an MoE block and the stem into the
-  ``stem_single`` slot.
+  ``stem_single`` slot) and ``internvit_hf_to_port`` (a HF-format
+  InternViT checkpoint, BabelRS's, onto the ViT of the adapter backbone).
 
 The JAX package's orbax checkpoints are not read here: orbax is a JAX
 library, and JAX params reach the port through ``convert.from_flax``.
@@ -25,6 +29,7 @@ library, and JAX params reach the port through ``convert.from_flax``.
 
 from __future__ import annotations
 
+import json
 import os
 import re
 from typing import Dict, Optional
@@ -105,6 +110,9 @@ def save_train_state(work_dir: str, step: int, state) -> str:
            "mults": {k: float(v) for k, v in opt.mults.items()},
            "prev_losses": None if state.prev_losses is None
            else state.prev_losses.detach().cpu(),
+           "ema": None if state.ema is None else host(state.ema),
+           "accum": None if opt.accum is None else host(opt.accum),
+           "accum_count": int(opt.accum_count),
            "gen_state": state.gen.get_state()}
     os.makedirs(work_dir, exist_ok=True)
     path = os.path.join(os.path.abspath(work_dir), f"iter_{step}.pth")
@@ -143,8 +151,17 @@ def load_train_state(path: str, state):
         raise ValueError(f"checkpoint {path}: DLA state of shape "
                          f"{tuple(obj['dla']['ema'].shape)}, the train "
                          f"state {tuple(opt.dla.ema.shape)}")
+    for key, have in (("ema", state.ema), ("accum", opt.accum)):
+        saved = obj.get(key) is not None
+        if saved != (have is not None):
+            raise ValueError(
+                f"checkpoint {path}: {key} {'present' if saved else 'absent'}"
+                f", the train state {'without' if saved else 'with'} it")
     targets = (("params", list(state.params.values())), ("mu", opt.mu),
                ("nu", opt.nu))
+    targets += tuple((key, ts) for key, ts in (("ema", state.ema),
+                                               ("accum", opt.accum))
+                     if ts is not None)
     for key, ts in targets:
         for n, t in zip(names, ts):
             if tuple(obj[key][n].shape) != tuple(t.shape):
@@ -164,7 +181,8 @@ def load_train_state(path: str, state):
         initialized=obj["dla"]["initialized"].to(torch.bool),
         steps=int(obj["dla"]["steps"]))
     new_opt = opt._replace(count=int(obj["count"]), step=int(obj["step"]),
-                           dla=dla, mults=dict(obj["mults"]))
+                           dla=dla, mults=dict(obj["mults"]),
+                           accum_count=int(obj.get("accum_count", 0)))
     return state._replace(opt=new_opt)
 
 
@@ -174,12 +192,63 @@ def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
     unpickled in full (an mm checkpoint's ``meta`` holds arbitrary
     objects): load only files you trust."""
     if path.endswith(".safetensors"):
-        from safetensors.torch import load_file
-        return load_file(path)
+        return read_safetensors(path)
     obj = torch.load(path, map_location="cpu", weights_only=False)
     sd = obj.get("state_dict", obj) if isinstance(obj, dict) else obj
     return {k: v.detach().cpu() for k, v in sd.items()
             if isinstance(v, torch.Tensor)}
+
+
+# the safetensors dtypes the reader takes
+_SAFETENSORS_DTYPES = {"F32": torch.float32, "F16": torch.float16,
+                       "BF16": torch.bfloat16, "I64": torch.int64,
+                       "I32": torch.int32}
+
+
+def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """A ``.safetensors`` file as a dict of CPU tensors, without the
+    ``safetensors`` package: an 8-byte little-endian header length, the
+    JSON header (``{name: {dtype, shape, data_offsets}}``, an optional
+    ``__metadata__``), then the raw little-endian buffer the offsets index.
+    Raises ``ValueError`` on a dtype outside F32 / F16 / BF16 / I64 / I32
+    and on a file shorter than its header says."""
+    with open(path, "rb") as f:
+        raw = f.read()
+    if len(raw) < 8:
+        raise ValueError(f"{path}: truncated safetensors file "
+                         f"({len(raw)} bytes)")
+    n = int.from_bytes(raw[:8], "little")
+    if 8 + n > len(raw):
+        raise ValueError(f"{path}: truncated safetensors header ({n} bytes "
+                         f"announced, {len(raw) - 8} present)")
+    try:
+        header = json.loads(raw[8:8 + n].decode("utf-8"))
+    except (UnicodeDecodeError, json.JSONDecodeError) as e:
+        raise ValueError(f"{path}: unreadable safetensors header: {e}")
+    buf = memoryview(raw)[8 + n:]
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        dt = _SAFETENSORS_DTYPES.get(info.get("dtype"))
+        if dt is None:
+            raise ValueError(f"{path}: {name} has dtype {info.get('dtype')!r};"
+                             f" the reader takes {sorted(_SAFETENSORS_DTYPES)}")
+        shape = [int(d) for d in info["shape"]]
+        start, end = (int(o) for o in info["data_offsets"])
+        numel = int(np.prod(shape, dtype=np.int64))
+        itemsize = torch.empty((), dtype=dt).element_size()
+        if end > len(buf) or start > end or end - start != numel * itemsize:
+            raise ValueError(
+                f"{path}: {name} spans bytes [{start}, {end}) of a "
+                f"{len(buf)}-byte buffer, {numel} x {itemsize} bytes wanted")
+        if numel == 0:
+            out[name] = torch.empty(shape, dtype=dt)
+            continue
+        # a copy, so the tensor owns its bytes (frombuffer shares them)
+        out[name] = torch.frombuffer(bytearray(buf[start:end]), dtype=dt) \
+            .reshape(shape)
+    return out
 
 
 def convnext_torch_to_port(sd, state_dict: Dict[str, torch.Tensor],
@@ -302,4 +371,94 @@ def convnext_torch_to_port(sd, state_dict: Dict[str, torch.Tensor],
                 bb + f"out_norm{i}.weight" in out:
             put(f"out_norm{i}.weight", get(f"norm{i}.weight"))
             put(f"out_norm{i}.bias", get(f"norm{i}.bias"))
+    return out
+
+
+def internvit_hf_to_port(sd, state_dict: Dict[str, torch.Tensor],
+                         prefix: str = "vision_model.",
+                         ) -> Dict[str, torch.Tensor]:
+    """Map a HF-format InternViT checkpoint ``sd`` (``modeling_intern_vit``:
+    ``embeddings.patch_embedding``, ``embeddings.position_embedding``,
+    ``encoder.layers.i.{attn.qkv, attn.proj, attn.{q,k}_norm, mlp.fc1,
+    mlp.fc2, norm1, norm2, ls1, ls2}``; keys with or without ``prefix``)
+    onto the ViT of the port's InternViT adapter in ``state_dict``, and
+    return the new state dict. The torch layouts are the port's; the
+    position embedding drops its cls row and is resized bicubic
+    (``align_corners=False``, in fp32) to the model's grid when the grids
+    differ. The adapter's parameters, and anything the checkpoint lacks,
+    keep their value. Port of ``internvit_torch_to_jax``."""
+    out = dict(state_dict)
+    bb = "backbone."
+
+    def get(key):
+        v = sd.get(prefix + key, sd.get(key))
+        return None if v is None else torch.as_tensor(np.asarray(v))
+
+    def put(name, v):
+        name = bb + name
+        if tuple(v.shape) != tuple(out[name].shape):
+            raise ValueError(
+                f"internvit_hf_to_port: {name} has shape "
+                f"{tuple(out[name].shape)}, the checkpoint "
+                f"{tuple(v.shape)}")
+        out[name] = v.to(out[name].dtype).contiguous()
+
+    w = get("embeddings.patch_embedding.weight")
+    if w is not None:
+        stem = "stem_single" if bb + "stem_single.weight" in out \
+            else "patch_embed"
+        put(f"{stem}.weight", w)
+        put(f"{stem}.bias", get("embeddings.patch_embedding.bias"))
+
+    pe = get("embeddings.position_embedding")
+    if pe is not None and bb + "pos_embed" in out:
+        tgt = out[bb + "pos_embed"].shape[1]
+        src = pe[0]
+        if src.shape[0] == tgt + 1:
+            src = src[1:]
+        elif src.shape[0] != tgt:
+            # the HF format keeps the cls token in row 0
+            side = int(np.sqrt(src.shape[0] - 1))
+            if side * side == src.shape[0] - 1:
+                src = src[1:]
+        if src.shape[0] != tgt:
+            side_s, side_t = int(np.sqrt(src.shape[0])), int(np.sqrt(tgt))
+            grid = src.reshape(side_s, side_s, -1).permute(2, 0, 1)[None]
+            grid = torch.nn.functional.interpolate(
+                grid.float(), size=(side_t, side_t), mode="bicubic",
+                align_corners=False)
+            src = grid[0].permute(1, 2, 0).to(src.dtype).reshape(
+                side_t * side_t, -1)
+        put("pos_embed", src[None])
+
+    i = 0
+    while bb + f"block{i}.qkv.weight" in out:
+        tp, blk = f"encoder.layers.{i}.", f"block{i}."
+        if get(tp + "attn.qkv.weight") is None:
+            break
+        put(blk + "qkv.weight", get(tp + "attn.qkv.weight"))
+        if get(tp + "attn.qkv.bias") is not None:
+            put(blk + "qkv.bias", get(tp + "attn.qkv.bias"))
+        put(blk + "proj.weight", get(tp + "attn.proj.weight"))
+        put(blk + "proj.bias", get(tp + "attn.proj.bias"))
+        for qk in ("q_norm", "k_norm"):
+            wq = get(tp + f"attn.{qk}.weight")
+            if wq is not None and bb + blk + f"{qk}.weight" in out:
+                put(blk + f"{qk}.weight", wq)
+        for fc in ("fc1", "fc2"):
+            put(blk + f"{fc}.weight", get(tp + f"mlp.{fc}.weight"))
+            put(blk + f"{fc}.bias", get(tp + f"mlp.{fc}.bias"))
+        for norm in ("norm1", "norm2"):
+            wn = get(tp + f"{norm}.weight")
+            if wn is None:
+                continue
+            put(blk + f"{norm}.weight", wn)
+            bn = get(tp + f"{norm}.bias")
+            if bn is not None and bb + blk + f"{norm}.bias" in out:
+                put(blk + f"{norm}.bias", bn)
+        for ls in ("ls1", "ls2"):
+            v = get(tp + ls)
+            if v is not None:
+                put(blk + ls, v)
+        i += 1
     return out

@@ -19,18 +19,23 @@ The loss is the plain sum of the loss dict, except under the two
   holds the detached losses of the step, 0 for an absent key, on the
   model's device: the step makes no host synchronisation for it.
 
-EMA and accumulation are not ported.
+With ``ema_decay`` the state carries an EMA of the parameters (mmcv's
+``EMAHook``), updated after every step from the new parameters, as JAX's
+``build_train_step(ema_decay=...)`` does (accumulation's skip steps
+included); gradient accumulation lives in the optimizer
+(``train/optim.py``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 from torch.func import functional_call
 
 from ..models.detectors.trisource import REWEIGHT_LOSS_KEYS
+from .extras import ema_update
 from .optim import TrainOptState
 
 DWA_T = 2.0
@@ -42,6 +47,8 @@ class TrainState(NamedTuple):
     gen: torch.Generator
     # DWA: the last step's REWEIGHT_LOSS_KEYS losses (zeros: none yet)
     prev_losses: Optional[torch.Tensor] = None
+    # the parameters' EMA, one fp32 tensor a parameter (None: no EMA)
+    ema: Optional[List[torch.Tensor]] = None
 
 
 def batch_to(batch, device) -> Dict[str, Dict[str, torch.Tensor]]:
@@ -67,12 +74,14 @@ def dwa_weights(cur: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
     return torch.where((prev > 0).any(), w, torch.ones_like(w))
 
 
-def build_train_step(model, update_fn, multi_tasks_reweight=None):
+def build_train_step(model, update_fn, multi_tasks_reweight=None,
+                     ema_decay: float = 0.0):
     """Returns ``train_step(state, batch) -> (state, metrics)``: metrics
     hold every loss of the dict (detached) and the total ``loss``.
     ``multi_tasks_reweight``: None, ``"uncertainty"`` (in the model) or
     ``"dwa"`` (the state needs ``prev_losses``: ``init_train_state(...,
-    dwa=True)``)."""
+    dwa=True)``). ``ema_decay`` > 0 updates the state's ``ema``
+    (``init_train_state(..., ema=True)``) after each step."""
     compute_dtype = model.compute_dtype
     dwa = multi_tasks_reweight == "dwa"
 
@@ -111,23 +120,27 @@ def build_train_step(model, update_fn, multi_tasks_reweight=None):
             zero = total.new_zeros(())
             prev = torch.stack([metrics[k].float() if k in metrics else zero
                                 for k in REWEIGHT_LOSS_KEYS])
-        return TrainState(params=state.params, opt=opt, gen=state.gen,
-                          prev_losses=prev), metrics
+        if ema_decay and state.ema is not None:
+            ema_update(state.ema, masters, ema_decay)
+        return state._replace(opt=opt, prev_losses=prev), metrics
 
     train_step.loss_fn = loss_fn      # for tools that time the parts
     return train_step
 
 
-def init_train_state(model, init_fn, seed: int = 1,
-                     dwa: bool = False) -> TrainState:
+def init_train_state(model, init_fn, seed: int = 1, dwa: bool = False,
+                     ema: bool = False) -> TrainState:
     """The model's trainable parameters as the masters, the optimizer
     state, and a host ``torch.Generator`` seeded with ``seed`` for the
     draws (host draws are the same whatever the model's device); with
-    ``dwa`` the zero carry of DWA on the model's device."""
+    ``dwa`` the zero carry of DWA on the model's device; with ``ema`` the
+    EMA, a copy of the parameters as they are now."""
     params = trainable_params(model)
     prev = torch.zeros(len(REWEIGHT_LOSS_KEYS), device=model.device) \
         if dwa else None
     return TrainState(params=params, opt=init_fn(list(params.values())),
                       gen=torch.Generator().manual_seed(seed),
-                      prev_losses=prev)
+                      prev_losses=prev,
+                      ema=[p.detach().float().clone()
+                           for p in params.values()] if ema else None)
 

@@ -218,11 +218,13 @@ def test_unported_types_raise_by_name(path, mtype, name):
 
 
 def test_configs_the_port_builds():
-    """60 of the 78 configs resolve to a detector the port builds (the DA
-    baseline among them); the 18 others are the single-dataset LSKNet-MoE
-    / VAN-MoE detectors, whose single-stem backbone is not ported."""
+    """61 of the 79 configs resolve to a detector the port builds (the DA
+    baseline and the BabelRS fine-tune among them); the 18 others are the
+    single-dataset LSKNet-MoE / VAN-MoE detectors, whose single-stem
+    backbone is not ported."""
     paths = sorted(glob.glob(_cfg("configs/*.py"))
-                   + glob.glob(_cfg("configs/local_configs/*.py")))
+                   + glob.glob(_cfg("configs/local_configs/*.py"))
+                   + glob.glob(_cfg("configs/BabelRS_configs/*.py")))
     built, refused = [], []
     for path in paths:
         try:
@@ -231,8 +233,9 @@ def test_configs_the_port_builds():
         except NotImplementedError as e:
             assert re.search(r"'(LSKNet|VAN)_moe'", str(e)), (path, e)
             refused.append(os.path.basename(path))
-    assert (len(paths), len(built), len(refused)) == (78, 60, 18)
+    assert (len(paths), len(built), len(refused)) == (79, 61, 18)
     assert "main_DA_convnext_t_orcnn_gfl.py" in built
+    assert "BabelRS_20kstep.py" in built
 
 
 def test_unported_keys_raise():
