@@ -133,8 +133,23 @@ Phases (any failure exits non-zero):
    ``tools.train`` bf16 [1:1:1] x 800^2 with the config's layer decay
    (each parameter's scale read back from the optimizer), then EMA,
    ``accumulate=2`` and the cosine policy with a checkpoint
-   mid-accumulation and a resume equal to it bit for bit. The phase must
-   take at most 180 s, the whole script 1200 s.
+   mid-accumulation and a resume equal to it bit for bit; 12a also prints
+   each loss card and host, the ViT blocks' error by depth, the RPN
+   assigner's labels on both sides and the train images module by module.
+   The phase must take at most 180 s;
+13. the single-stem LSKNet-MoE / VAN-MoE zoo detectors, the rest of the
+   zoo and image files: (a) fp32 2 x 256^2 card against host for
+   ``dota_lsk_t_orcnn.py``, ``dronevehicle_van_t_orcnn.py``,
+   ``sardet50k_van_t_gfl.py`` (every level, neck, head output and R-CNN
+   logit within 1e-3 of scale) and, with those, ``GlidingVertex``,
+   ``RotatedFCOS``, ``RotatedATSS`` and ``RotatedFasterRCNN`` on the
+   ConvNeXt-T zoo config (losses 1e-3, subtree gradient norms 1e-2); (b)
+   LSK-T OrientedRCNN and VAN-T GFL ``simple_test`` 8 x 800^2 bf16: 0 host
+   syncs and the launches worked out from the configs; (c) a bf16 AdamW
+   step of each: finite losses, syncs, launches; (d) the compiled PNG
+   unfilter bit for bit, nvJPEG within 2 levels mean and 8 max of PIL's
+   stored decodes, ``tools.test`` over 16 PNGs the port wrote. The phase
+   must take at most 120 s, the whole script 1200 s.
 
 Phase 3 also holds the variants' new shapes: row 4's mask mode and the
 keep scan at the H2 SAR RPN's 4507 candidates an image, row 5's matrix
@@ -2913,9 +2928,18 @@ def phase12(torch, dev, smi, build):
         rec["card_host"][tag] = dict(err=err, scale=scale)
         if not ok:
             failures.append(f"BabelRS card/host {tag}")
-            log(f"[babelrs fp32]   {tag} {tuple(a.shape)}: max abs err "
-                f"{err:.3e} (max |ref| {scale:.3e}) FAIL")
+        log(f"[babelrs fp32]   {tag} {tuple(a.shape)}: max abs err "
+            f"{err:.3e} (max |ref| {scale:.3e}), {err / max(scale, 1e-30):.2e}"
+            f" of its own scale {'ok' if ok else 'FAIL'}")
         return err / max(scale, 1.0)
+
+    def block_outputs(m):
+        """Hooks that keep each ViT block's output tokens, in order."""
+        kept = []
+        hooks = [getattr(m.backbone, f"block{i}").register_forward_hook(
+            lambda mod, args, out: kept.append(out.detach()))
+            for i in range(mc["backbone"].get("depth", 24))]
+        return kept, hooks
 
     # (a) card against host, fp32: one trainable model serves both checks
     t0 = time.perf_counter()
@@ -2931,9 +2955,16 @@ def phase12(torch, dev, smi, build):
     with torch.no_grad():
         outs = []
         sides = []
+        kept = []
         for m, dv in ((card, dev), (host, cpu)):
             x = torch.cat([i.to(dv) for i in imgs])
-            feats = m.backbone(x, ids)
+            blocks, hooks = block_outputs(m)
+            try:
+                feats = m.backbone(x, ids)
+            finally:
+                for h in hooks:
+                    h.remove()
+            kept.append(blocks)
             xs = m.neck_sar([f[:n_img] for f in feats])
             gfl = m.sar_bbox_head(xs)
             xr = m.neck_rcnn([f[n_img:] for f in feats])
@@ -2964,6 +2995,16 @@ def phase12(torch, dev, smi, build):
                  ("rcnn deltas", ld[1], lh[1])]
         for tag, a, b in outs:
             worst = max(worst, close(tag, a, b))
+        # the error against depth: each ViT block's output tokens, card
+        # against host, relative to their own scale
+        rec["vit_block_rel_err"] = []
+        for i, (a, b) in enumerate(zip(*kept)):
+            err, scale = max_err(a.cpu(), b)
+            rec["vit_block_rel_err"].append(err / max(scale, 1e-30))
+        log("[babelrs fp32]   ViT block outputs, max abs err / max |ref| by "
+            "depth: " + ", ".join(f"{i}: {v:.2e}" for i, v in
+                                  enumerate(rec["vit_block_rel_err"])))
+        del kept
     rec["card_host_worst"] = worst
     log(f"[babelrs fp32] {BABELRS_CFG} at full width (embed 1024, depth "
         f"24, adapter 256), {n_img} x {size}^2 a modality, card against "
@@ -2988,10 +3029,38 @@ def phase12(torch, dev, smi, build):
         replayed[0] += 1
         return tuple(t.cpu() for t in recorded[replayed[0] - 1])
 
+    # the RPN assigner's labels on each side, to tell a label flipped at
+    # an IoU threshold from float error in the outputs
+    from sm3det_tpu_torch.models.dense_heads import oriented_rpn_head as orpn
+    real_assign = orpn.max_iou_assign
+    assigned = {"card": [], "host": []}
+
+    def recording_assign(side):
+        def fn(ious, *a, **kw):
+            out = real_assign(ious, *a, **kw)
+            assigned[side].append((ious.detach().cpu(), out.cpu()))
+            return out
+        return fn
+
+    # the heads' and necks' outputs in the train forward, card and host
+    seen = {"card": {}, "host": {}}
+
+    def flat(x):
+        if torch.is_tensor(x):
+            return [x.detach().float().cpu()]
+        return [t for item in x for t in flat(item)]
+
     runs = {}
     for side, m, dv, patch in (("card", card, dev, record),
                                ("host", host, cpu, replay)):
         tri_mod.rpn_get_proposals = patch
+        orpn.max_iou_assign = recording_assign(side)
+        def keep(name, side):
+            def hook(mod_, args, out):
+                seen[side].setdefault(name, flat(out))   # returns None
+            return hook
+        hooks = [mod.register_forward_hook(keep(name, side))
+                 for name, mod in m.named_children() if name != "backbone"]
         try:
             params = trainable_params(m)
             losses = m(batch_to(tbatch, dv),
@@ -3001,6 +3070,9 @@ def phase12(torch, dev, smi, build):
                                         allow_unused=True)
         finally:
             tri_mod.rpn_get_proposals = real
+            orpn.max_iou_assign = real_assign
+            for h in hooks:
+                h.remove()
         sq = {}
         for n, g in zip(params, grads):
             if g is not None:
@@ -3030,6 +3102,83 @@ def phase12(torch, dev, smi, build):
         f"{worst_g:.2e} (tol 1e-2); {time.perf_counter() - t0:.1f} s "
         f"{'ok' if not bad else 'FAIL ' + str(bad)}")
     log(f"[babelrs fp32]   gradient norms card {nd} host {nh}")
+    for k in sorted(lh):
+        log(f"[babelrs fp32]   {k}: card {ld[k]:.9e} host {lh[k]:.9e} "
+            f"relative {abs(ld[k] - lh[k]) / max(abs(lh[k]), 1e-12):.2e}")
+    flips = []
+    for call, ((iou_d, a_d), (iou_h, a_h)) in enumerate(zip(
+            assigned["card"], assigned["host"])):
+        diff = (a_d != a_h).nonzero().flatten().tolist()
+        iou_err = (iou_d - iou_h).abs().max().item()
+        flips.append(dict(call=call, labels_differ=len(diff),
+                          iou_max_abs_err=iou_err, anchors=[
+                              dict(anchor=j, card=int(a_d[j]),
+                                   host=int(a_h[j]),
+                                   card_iou=iou_d[j].max().item(),
+                                   host_iou=iou_h[j].max().item())
+                              for j in diff[:8]]))
+        log(f"[babelrs fp32]   RPN assigner call {call} (an image of a "
+            f"branch): {len(diff)} anchor labels differ card / host, max "
+            f"|IoU card - host| {iou_err:.3e}; "
+            + "; ".join(f"anchor {d['anchor']} card {d['card']} host "
+                        f"{d['host']} IoU {d['card_iou']:.9f} / "
+                        f"{d['host_iou']:.9f}" for d in flips[-1]["anchors"]))
+    rec["rpn_assign_flips"] = flips
+    # the train batch's images through the backbone, card and host, image by
+    # image: the first module (in call order) where an image departs
+    order, outs = [], {"card": {}, "host": {}}
+
+    def keep_mod(name, side):
+        def hook(mod_, args, out):
+            if side == "card":
+                order.append(name)
+            outs[side].setdefault(name, [t.detach().float().cpu()
+                                         for t in flat(out)])
+        return hook
+
+    x_all = torch.cat([torch.from_numpy(tbatch[k]["img"])
+                       for k in ("sar", "rgb", "ifr")])
+    for side, m, dv in (("card", card, dev), ("host", host, cpu)):
+        hooks = [mod.register_forward_hook(keep_mod(name, side))
+                 for name, mod in m.backbone.named_children()
+                 if name.startswith(("block", "extract", "inject", "spm"))]
+        try:
+            with torch.no_grad():
+                feats = m.backbone(x_all.to(dv), ids)
+            outs[side]["levels"] = [f.float().cpu() for f in feats]
+        finally:
+            for h in hooks:
+                h.remove()
+    order.append("levels")
+    per_image, first = [], {}
+    for name in order:
+        for a_, b_ in zip(outs["card"][name], outs["host"][name]):
+            if a_.shape[0] != x_all.shape[0]:
+                continue
+            for i in range(a_.shape[0]):
+                err, scale = max_err(a_[i], b_[i])
+                rel = err / max(scale, 1e-30)
+                if rel > 1e-4 and i not in first:
+                    first[i] = (name, rel)
+                if name == "levels":
+                    per_image.append((i, rel))
+    rec["train_images_first_departure"] = {
+        str(i): list(v) for i, v in first.items()}
+    log(f"[babelrs fp32]   the train batch's {x_all.shape[0]} images through "
+        f"the backbone, card against host: worst level error by image "
+        + ", ".join(f"{i}: {r:.1e}" for i, r in per_image)
+        + "; the first module where an image departs beyond 1e-4 of "
+        f"scale: {first or 'none'}")
+    rec["train_outputs_rel_err"] = {}
+    for name in sorted(seen["host"]):
+        errs = []
+        for a, b in zip(seen["card"][name], seen["host"][name]):
+            err, scale = max_err(a, b)
+            errs.append(err / max(scale, 1e-30))
+        rec["train_outputs_rel_err"][name] = max(errs)
+        log(f"[babelrs fp32]   train forward {name}: {len(errs)} outputs, "
+            f"max abs err / max |ref| worst {max(errs):.2e}, by output "
+            + ", ".join(f"{e:.1e}" for e in errs))
     failures += [f"BabelRS train card/host {k}" for k in bad]
     del card, host, recorded, imgs
     torch.cuda.empty_cache()
@@ -3313,6 +3462,473 @@ def phase12(torch, dev, smi, build):
     if rec["phase_s"] > BABELRS_PHASE_LIMIT_S:
         failures.append(f"phase 12 took {rec['phase_s']:.1f} s")
     return failures, rec, launches
+
+
+# the single-stem LSKNet-MoE / VAN-MoE detectors and the rest of the zoo
+# (phase 13)
+LSK_VAN_ZOO_CFGS = (
+    ("LSK-T OrientedRCNN", "configs/local_configs/dota_lsk_t_orcnn.py"),
+    ("VAN-T OrientedRCNN", "configs/local_configs/dronevehicle_van_t_orcnn.py"),
+    ("VAN-T GFL", "configs/local_configs/sardet50k_van_t_gfl.py"))
+ZOO_REST_TYPES = ("GlidingVertex", "RotatedFCOS", "RotatedATSS",
+                  "RotatedFasterRCNN")
+ZOO13_HOST = (2, 256)       # 13a: images, size
+ZOO13_TRAIN = (2, 800)      # 13c: images, size
+ZOO13_PHASE_LIMIT_S = 120
+# 13c: the kernels each train step must launch
+ZOO13_TRAIN_KERNELS = {
+    "LSK-T OrientedRCNN": ("hbb_nms_mask", "nms_keep", "rotated_iou",
+                           "roi_align_rotated", "roi_align_rotated_bwd"),
+    "GlidingVertex": ("hbb_nms_mask", "nms_keep", "roi_align_rotated",
+                      "roi_align_rotated_bwd", "fused_dwconv_ln_train",
+                      "fused_dwconv_ln_train_bwd"),
+    "RotatedFCOS": ("fused_dwconv_ln_train", "fused_dwconv_ln_train_bwd"),
+    "RotatedATSS": ("rotated_iou", "fused_dwconv_ln_train",
+                    "fused_dwconv_ln_train_bwd"),
+    "RotatedFasterRCNN": ("hbb_nms_mask", "nms_keep", "roi_align_rotated",
+                          "roi_align_rotated_bwd", "fused_dwconv_ln_train",
+                          "fused_dwconv_ln_train_bwd")}
+IMAGES_DIR = "tests/data/images"
+IMAGES_WORK = "work_dirs/chip_smoke_images"    # gitignored; removed after
+IMAGES_N = 16
+IMAGES_SIZE = 1024
+
+
+def zoo13_launches(mc):
+    """The kernel launches of one inference forward of a single-stem LSK /
+    VAN detector, worked out from its config: row 9 once for each
+    LayerNorm (a stage's patch embed, two a block, its output), and the
+    head's NMS: the RPN's one horizontal mask launch for every image and
+    level, the R-CNN's banded rotated mask and one keep scan each; GFL's
+    one horizontal mask and its keep scan; one pyramid align of the
+    R-CNN's RoIs."""
+    depths = mc["backbone"]["depths"]
+    want = {"fused_layernorm": sum(2 + 2 * d for d in depths)}
+    if mc.get("type") == "GFL":
+        want.update(hbb_nms_mask=1, nms_keep=1)
+    else:
+        want.update(hbb_nms_mask=1, rotated_nms_mask_banded=1, nms_keep=2,
+                    roi_align_rotated=1)
+    return want
+
+
+def phase13(torch, dev, smi, build):
+    """13. The single-stem LSKNet-MoE / VAN-MoE detectors and the rest of
+    the zoo on the card, and image files read by the port's own readers:
+    (a) fp32, TF32 off, 2 x 256^2 at full width, card against host: for
+    ``dota_lsk_t_orcnn.py``, ``dronevehicle_van_t_orcnn.py`` and
+    ``sardet50k_van_t_gfl.py`` every backbone level, neck level, head
+    output and R-CNN logit (on the card's proposals) within 1e-3 of scale;
+    for those and for ``GlidingVertex``, ``RotatedFCOS``, ``RotatedATSS``
+    and ``RotatedFasterRCNN`` (``dota_convnext_t_orcnn.py`` with the type
+    overridden) one train forward's losses within 1e-3 relative and each
+    top-level subtree's gradient norm within 1e-2 (the host's proposals
+    replayed from the card's); (b) ``simple_test`` of
+    ``dota_lsk_t_orcnn.py`` and ``sardet50k_van_t_gfl.py`` at 8 x 800^2
+    bf16, 10 warm forwards: the median and quartiles (host clock), device
+    busy time, peak memory, 0 host syncs, and launches equal to
+    ``zoo13_launches`` of the config; (c) one bf16 AdamW step each of the
+    LSK-T OrientedRCNN and the four detectors at 2 x 800^2: finite losses,
+    syncs a step, launches; (d) the compiled PNG unfilter against numpy
+    bit for bit (the PNGs of ``tests/data/images`` and a 1024^2 RGB image
+    whose rows cycle through the five filters), nvJPEG against the PIL
+    decodes stored beside the JPEGs, ms per image, and ``tools.test`` of
+    the flagship config over 16 DOTA-layout 1024^2 PNGs written by the
+    port's ``imwrite``. Returns (failures, record, launches of (b)'s LSK-T
+    forward)."""
+    import copy
+    import glob
+    import os
+    import shutil
+    import zlib
+
+    import numpy as np
+
+    from sm3det_tpu_torch.models.builder import build_detector
+    from sm3det_tpu_torch.models.detectors import redet_roitrans as rt_mod
+    from sm3det_tpu_torch.models.detectors import trisource as tri_mod
+    from sm3det_tpu_torch.models.detectors.trisource import roi_feats
+    from sm3det_tpu_torch.ops.cuda import nvjpeg
+    from sm3det_tpu_torch.tools import test as test_cli
+    from sm3det_tpu_torch.train.optim import make_optimizer
+    from sm3det_tpu_torch.train.train_state import (
+        batch_to, build_train_step, init_train_state, trainable_params)
+    from sm3det_tpu_torch.utils import image as image_mod
+    from sm3det_tpu_torch.utils.config import Config
+
+    failures, rec = [], {"card_host": {}, "train_card_host": {}}
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False     # as main: fp32 is fp32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu = torch.device("cpu")
+    tol = 1e-3
+
+    def model_cfg(path, mtype=None):
+        mc = Config.fromfile(path).model.to_dict()
+        if mtype:
+            mc["type"] = mtype
+        return mc
+
+    def close(tag, a, b):
+        err, scale = max_err(a.cpu(), b.cpu())
+        ok = bool(torch.isfinite(a.float()).all()) and a.shape == b.shape \
+            and err <= tol * max(scale, 1.0)
+        if not ok:
+            failures.append(f"zoo13 card/host {tag}")
+            log(f"[zoo13 fp32]   {tag} {tuple(a.shape)}: max abs err "
+                f"{err:.3e} (max |ref| {scale:.3e}) FAIL")
+        return err / max(scale, 1.0)
+
+    # (a) card against host, fp32
+    n_img, size = ZOO13_HOST
+    rng = np.random.RandomState(13)
+    obb_batch = make_train_batch(rng, (0, n_img, 0), size, REFINE_GTS)["rgb"]
+    hbb_batch = make_train_batch(rng, (n_img, 0, 0), size, REFINE_GTS)["sar"]
+    imgs = torch.from_numpy(obb_batch["img"]).to(dev)
+    shape = (size, size)
+    real = {"tri": tri_mod.rpn_get_proposals,
+            "hbb": rt_mod.hbb_rpn_get_proposals}
+    runs13 = [(tag, model_cfg(path)) for tag, path in LSK_VAN_ZOO_CFGS] + [
+        (t, model_cfg(ZOO_DOTA_CFG, t)) for t in ZOO_REST_TYPES]
+    for tag, mc in runs13:
+        t0 = time.perf_counter()
+        card = build_detector(mc, device=dev, compute_dtype="float32",
+                              seed=0, trainable=True)
+        host = copy.deepcopy(card).to(cpu)
+        worst = None
+        if tag.startswith(("LSK", "VAN")):
+            worst = 0.0
+            with torch.no_grad():
+                f_d = card.backbone(imgs)
+                f_h = host.backbone(imgs.cpu())
+                for lvl, (a, b) in enumerate(zip(f_d, f_h)):
+                    worst = max(worst, close(f"{tag} level {lvl}", a, b))
+                x_d = card._neck(f_d)
+                x_h = host._neck([t.cpu() for t in f_d])
+                for lvl, (a, b) in enumerate(zip(x_d, x_h)):
+                    worst = max(worst, close(f"{tag} neck {lvl}", a, b))
+                xc = [t.cpu() for t in x_d]
+                if mc["type"] == "GFL":
+                    heads = (("bbox_head", card.bbox_head(x_d),
+                              host.bbox_head(xc)),)
+                else:
+                    rpn_d = card.rpn_head(x_d)
+                    heads = (("rpn_head", rpn_d, host.rpn_head(xc)),)
+                for hname, od, oh in heads:
+                    for j, (ld, lh) in enumerate(zip(od, oh)):
+                        for lvl, (a, b) in enumerate(zip(ld, lh)):
+                            worst = max(worst, close(
+                                f"{tag} {hname} {j} {lvl}", a, b))
+                if mc["type"] != "GFL":
+                    props = card.get_proposals(*rpn_d, shape)[0]
+                    lg_d, dl_d = card.roi_head(roi_feats(x_d, props))
+                    lg_h, dl_h = host.roi_head(roi_feats(xc, props.cpu()))
+                    worst = max(worst, close(f"{tag} rcnn logits", lg_d,
+                                             lg_h))
+                    worst = max(worst, close(f"{tag} rcnn deltas", dl_d,
+                                             dl_h))
+            rec["card_host"][tag] = worst
+            log(f"[zoo13 fp32] {tag} ({mc['backbone']['type']}, "
+                f"{n_img} x {size}^2): backbone levels, neck, heads and "
+                f"R-CNN logits card against host, worst {worst:.2e} of "
+                f"scale (tol {tol})")
+        # one train forward + backward; the host's proposals the card's
+        batch = hbb_batch if mc["type"] == "GFL" else obb_batch
+        recorded, replayed = {"tri": [], "hbb": []}, {"tri": 0, "hbb": 0}
+
+        def record(key):
+            def fn(*a, **kw):
+                out = real[key](*a, **kw)
+                recorded[key].append(out)
+                return out
+            return fn
+
+        def replay(key):
+            def fn(*a, **kw):
+                out = recorded[key][replayed[key]]
+                replayed[key] += 1
+                return tuple(t.cpu() for t in out)
+            return fn
+
+        runs = {}
+        for side, m, dv, patch in (("card", card, dev, record),
+                                   ("host", host, cpu, replay)):
+            tri_mod.rpn_get_proposals = patch("tri")
+            rt_mod.hbb_rpn_get_proposals = patch("hbb")
+            try:
+                params = trainable_params(m)
+                losses = m(batch_to({"d": batch}, dv)["d"],
+                           gen=torch.Generator().manual_seed(5))
+                grads = torch.autograd.grad(
+                    sum(losses.values()), list(params.values()),
+                    allow_unused=True)
+                grads = [torch.zeros_like(p) if g is None else g
+                         for p, g in zip(params.values(), grads)]
+            finally:
+                tri_mod.rpn_get_proposals = real["tri"]
+                rt_mod.hbb_rpn_get_proposals = real["hbb"]
+            runs[side] = ({k: float(v.detach()) for k, v in losses.items()},
+                          subtree_norms(torch, list(params), grads))
+            del losses, grads
+        (ld, nd), (lh, nh) = runs["card"], runs["host"]
+        bad = [k for k in lh if not (np.isfinite(ld[k]) and abs(
+            ld[k] - lh[k]) <= tol * abs(lh[k]) + 1e-7)]
+        bad += [f"|grad {k}|" for k in nh if not (np.isfinite(nd[k]) and abs(
+            nd[k] - nh[k]) <= 1e-2 * nh[k])]
+        worst_l = max(abs(ld[k] - lh[k]) / max(abs(lh[k]), 1e-12)
+                      for k in lh)
+        worst_g = max(abs(nd[k] - nh[k]) / max(nh[k], 1e-12) for k in nh)
+        rec["train_card_host"][tag] = dict(
+            card_losses=ld, host_losses=lh, card_norms=nd, host_norms=nh,
+            worst_loss_rel=worst_l, worst_grad_norm_rel=worst_g)
+        log(f"[zoo13 fp32] {tag} train forward + backward, {n_img} x "
+            f"{size}^2, card against host ({len(recorded['tri'])} oriented, "
+            f"{len(recorded['hbb'])} horizontal proposal sets replayed): "
+            f"{len(lh)} losses, worst {worst_l:.2e} relative (tol {tol}); "
+            f"{len(nh)} subtree gradient norms, worst {worst_g:.2e} (tol "
+            f"1e-2); {time.perf_counter() - t0:.1f} s "
+            f"{'ok' if not bad else 'FAIL ' + str(bad)}")
+        log("[zoo13 fp32]   " + ", ".join(
+            f"{k} card {ld[k]:.6e} host {lh[k]:.6e}" for k in sorted(lh)))
+        failures += [f"zoo13 {tag} card/host {k}" for k in bad]
+        del card, host, recorded
+        torch.cuda.empty_cache()
+    del imgs
+
+    # (b) serving, 8 x 800^2 bf16
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    imgs = torch.rand(N_IMGS, IMG, IMG, 3, generator=gen, device=dev)
+    shape = (IMG, IMG)
+    rec["simple_test"] = {}
+    lsk_launches = None
+    for tag, path in (LSK_VAN_ZOO_CFGS[0], LSK_VAN_ZOO_CFGS[2]):
+        mc = model_cfg(path)
+        want = zoo13_launches(mc)
+        model = build_detector(mc, device=dev, compute_dtype="bfloat16",
+                               seed=0)
+        with torch.no_grad():       # real detections: scores off the prior
+            if mc["type"] == "GFL":
+                model.bbox_head.gfl_cls.bias.fill_(0.0)
+            else:
+                x = model.extract_feat(imgs[:1])
+                p, _, _ = model.get_proposals(*model.rpn_head(x), shape)
+                spread_class_scores(model.roi_head, roi_feats(x, p))
+                del x, p
+
+        def fwd():
+            return model.simple_test(imgs, shape)
+        for _ in range(2):
+            out = fwd()
+        torch.cuda.synchronize()
+        build.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        out = fwd()
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in build.LAUNCHES.items() if v}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        sites = host_syncs(torch, fwd)
+        busy = device_ms(torch, fwd, iters=3, warmup=0)
+        _, q1, med, q3 = timed_forwards(torch, fwd, n=10)
+        dets, labels, valid = out
+        n_valid = int(valid.sum())
+        n_syncs = sum(sites.values())
+        ok = bool(torch.isfinite(dets.float()).all()) and n_valid > 0 and \
+            n_syncs == 0 and launches == want
+        rec["simple_test"][tag] = dict(
+            images_per_s=N_IMGS / med,
+            images_per_s_quartiles=[N_IMGS / q3, N_IMGS / q1],
+            ms=med * 1e3, ms_quartiles=[q1 * 1e3, q3 * 1e3],
+            device_busy_ms=busy, peak_gib=peak, host_syncs=n_syncs,
+            sync_sites=sites, launches=launches, launches_want=want,
+            valid=n_valid)
+        log(f"[zoo13] {tag} ({os.path.basename(path)}) simple_test 8 x "
+            f"{IMG}^2 bf16: median {med * 1e3:.2f} ms (quartiles "
+            f"{q1 * 1e3:.2f} / {q3 * 1e3:.2f}), {N_IMGS / med:.2f} images/s "
+            f"(host clock); device busy {ms_str(busy)} a forward "
+            f"(torch.profiler); peak {peak:.2f} GiB; host syncs {n_syncs} "
+            f"{sites}; {n_valid} valid detections; launches {launches} "
+            f"(worked out from the config: {want}); card {smi} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"zoo13 {tag} simple_test")
+        if lsk_launches is None:
+            lsk_launches = launches
+        del model, out, dets, labels, valid
+        torch.cuda.empty_cache()
+    del imgs
+
+    # (c) one bf16 AdamW step each, 2 x 800^2
+    n_img, size = ZOO13_TRAIN
+    rec["train"] = {}
+    tb = batch_to({"d": make_train_batch(np.random.RandomState(14),
+                                         (0, n_img, 0), size,
+                                         REFINE_GTS)["rgb"]}, dev)["d"]
+    for tag, mc in ((LSK_VAN_ZOO_CFGS[0][0],
+                     model_cfg(LSK_VAN_ZOO_CFGS[0][1])),) + tuple(
+            (t, model_cfg(ZOO_DOTA_CFG, t)) for t in ZOO_REST_TYPES):
+        model = build_detector(mc, device=dev, compute_dtype="bfloat16",
+                               seed=0, trainable=True)
+        init_fn, update_fn, _ = make_optimizer(
+            list(trainable_params(model)), warmup_iters=2)
+        holder = {"state": init_train_state(model, init_fn)}
+        step = build_train_step(model, update_fn)
+
+        def one_step():
+            holder["state"], m = step(holder["state"], tb)
+            return m
+        torch.cuda.reset_peak_memory_stats()
+        one_step()
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        metrics = one_step()
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        launches = {k: v for k, v in build.LAUNCHES.items() if v}
+        sites = host_syncs(torch, one_step)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        metrics = {k: float(v) for k, v in metrics.items()}
+        n_syncs = sum(sites.values())
+        ok = all(np.isfinite(v) for v in metrics.values()) and all(
+            launches.get(k, 0) > 0 for k in ZOO13_TRAIN_KERNELS[tag])
+        rec["train"][tag] = dict(step_ms=step_ms, syncs_per_step=n_syncs,
+                                 sync_sites=sites, peak_gib=peak,
+                                 losses=metrics, launches_per_step=launches)
+        log(f"[zoo13 train] {tag}, {n_img} x {size}^2 bf16, AdamW: one step "
+            f"{step_ms:.1f} ms (host clock, after one warm step); {n_syncs} "
+            f"syncs a step {sites}; peak {peak:.2f} GiB; launches a step "
+            f"{launches}; card {smi} {'ok' if ok else 'FAIL'}")
+        log("[zoo13 train]   losses: " + ", ".join(
+            f"{k} {v:.5f}" for k, v in metrics.items()))
+        if not ok:
+            failures.append(f"zoo13 train {tag}")
+        del model, holder, step
+        torch.cuda.empty_cache()
+    del tb
+
+    # (d) image files
+    t0 = time.perf_counter()
+    rec["images"] = {}
+    pngs = sorted(glob.glob(f"{IMAGES_DIR}/*.png"))
+    arr = np.clip(np.random.RandomState(15).normal(
+        128, 40, (IMAGES_SIZE, IMAGES_SIZE, 3)), 0, 255).astype(np.uint8)
+    big = image_mod.encode_png(arr, filters=(0, 1, 2, 3, 4))
+    unf_ok = True
+    for content in [open(p, "rb").read() for p in pngs] + [big]:
+        n0 = image_mod.DECODES["png_compiled"]
+        got = image_mod.imfrombytes(content, "unchanged", device=dev)
+        ref = image_mod.imfrombytes(content, "unchanged")
+        unf_ok &= image_mod.DECODES["png_compiled"] == n0 + 1 and \
+            got.shape == ref.shape and bool((got == ref).all())
+    rows = zlib.decompress(big[41:-16])
+    h, rb = IMAGES_SIZE, IMAGES_SIZE * 3
+    t1 = time.perf_counter()
+    ref_rows = image_mod.png_unfilter_ref(rows, h, rb, 3)
+    numpy_ms = (time.perf_counter() - t1) * 1e3
+    t1 = time.perf_counter()
+    got_rows = image_mod.png_unfilter(rows, h, rb, 3, device=dev)
+    comp_ms = (time.perf_counter() - t1) * 1e3
+    unf_ok &= bool((ref_rows == got_rows).all()) and bool(
+        (got_rows.reshape(h, IMAGES_SIZE, 3) == arr).all())
+    walls = []
+    for _ in range(5):
+        t1 = time.perf_counter()
+        image_mod.imfrombytes(big, device=dev)
+        walls.append((time.perf_counter() - t1) * 1e3)
+    png_ms = statistics.median(walls)
+    rec["images"]["png"] = dict(
+        files=len(pngs) + 1, bit_equal=unf_ok, unfilter_numpy_ms=numpy_ms,
+        unfilter_compiled_ms=comp_ms, decode_1024_ms=png_ms,
+        bytes=len(big))
+    log(f"[zoo13 images] PNG: the compiled unfilter against numpy on "
+        f"{len(pngs)} committed files and a {IMAGES_SIZE}^2 RGB image whose "
+        f"rows cycle through the five filters ({len(big)} bytes): bit for "
+        f"bit {unf_ok}; unfilter alone {comp_ms:.2f} ms compiled, "
+        f"{numpy_ms:.1f} ms numpy; the card's whole decode (chunks, "
+        f"inflate, unfilter, BGR) {png_ms:.2f} ms a {IMAGES_SIZE}^2 image "
+        f"(host clock, median of 5) {'ok' if unf_ok else 'FAIL'}")
+    if not unf_ok:
+        failures.append("zoo13 PNG unfilter")
+    why = nvjpeg.missing()
+    rec["images"]["nvjpeg_missing"] = why
+    if why is None:
+        rec["images"]["jpeg"] = {}
+        for name in ("j420", "j444", "jgray"):
+            content = open(f"{IMAGES_DIR}/{name}.jpg", "rb").read()
+            ref = np.load(f"{IMAGES_DIR}/{name}.npy").astype(np.int32)
+            got = image_mod.imfrombytes(content, "unchanged", "rgb",
+                                        device=dev)
+            diff = np.abs(got.astype(np.int32) - ref)
+            walls = []
+            for _ in range(5):
+                t1 = time.perf_counter()
+                image_mod.imfrombytes(content, device=dev)
+                walls.append((time.perf_counter() - t1) * 1e3)
+            ok = got.shape == ref.shape and diff.mean() <= 2.0 and \
+                diff.max() <= 8
+            rec["images"]["jpeg"][name] = dict(
+                mean_abs=float(diff.mean()), max_abs=int(diff.max()),
+                over_8=int((diff > 8).sum()), ms=statistics.median(walls),
+                shape=list(got.shape))
+            log(f"[zoo13 images] nvJPEG {name}.jpg {tuple(got.shape)} "
+                f"against PIL's decode: mean |diff| {diff.mean():.3f}, max "
+                f"{diff.max()}, {(diff > 8).sum()} values beyond 8 (tol mean "
+                f"2, max 8); {statistics.median(walls):.3f} ms an image "
+                f"(host clock) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"zoo13 nvJPEG {name}")
+    else:
+        log(f"[zoo13 images] nvJPEG missing: {why}")
+        failures.append("zoo13 nvJPEG missing")
+    # tools.test over DOTA-layout PNGs the port wrote
+    shutil.rmtree(IMAGES_WORK, ignore_errors=True)
+    ann_dir = os.path.join(IMAGES_WORK, "annfiles")
+    img_dir = os.path.join(IMAGES_WORK, "images")
+    os.makedirs(ann_dir)
+    os.makedirs(img_dir)
+    wrng = np.random.RandomState(16)
+    yy, xx = np.mgrid[0:IMAGES_SIZE, 0:IMAGES_SIZE]
+    for i in range(IMAGES_N):
+        img = np.stack([(xx + 7 * i) % 256, (yy + 3 * i) % 256,
+                        (xx + yy) // 8 % 256], -1).astype(np.uint8)
+        pid = f"P{i // 4:04d}__1024__{(i % 4) * 824}___0"
+        image_mod.imwrite(img, os.path.join(img_dir, pid + ".png"))
+        cx, cy = wrng.uniform(200, 800, 2)
+        with open(os.path.join(ann_dir, pid + ".txt"), "w") as f:
+            f.write(f"{cx - 40:.1f} {cy - 20:.1f} {cx + 40:.1f} {cy - 20:.1f} "
+                    f"{cx + 40:.1f} {cy + 20:.1f} {cx - 40:.1f} {cy + 20:.1f} "
+                    f"plane 0\n")
+    n0 = image_mod.DECODES["png_compiled"]
+    build.reset_launches()
+    out = test_cli.main([EVAL_CFG, "--subdataset", "rgb", "--batch-size",
+                         "8", "--cfg-options",
+                         f"data.val.rgb.ann_folder={ann_dir}",
+                         f"data.val.rgb.img_folder={img_dir}"])
+    decoded = image_mod.DECODES["png_compiled"] - n0
+    n_det = sum(len(d) for img in out["det_results"] for d in img)
+    ok = out["num_images"] == IMAGES_N and decoded >= IMAGES_N and \
+        out["metrics"] is not None
+    rec["images"]["tools_test"] = dict(
+        images=out["num_images"], decoded=decoded, detections=n_det,
+        images_per_s=out["img_per_s"], metrics=out["metrics"],
+        launches={k: v for k, v in build.LAUNCHES.items() if v})
+    log(f"[zoo13 images] tools.test {EVAL_CFG} --subdataset rgb over "
+        f"{out['num_images']} DOTA-layout {IMAGES_SIZE}^2 PNGs written by "
+        f"imwrite: {decoded} decoded by the compiled unfilter, {n_det} "
+        f"detections, {out['img_per_s']:.2f} images/s, metrics "
+        f"{out['metrics']}; {time.perf_counter() - t0:.1f} s for (d) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("zoo13 tools.test over PNG files")
+    shutil.rmtree(IMAGES_WORK, ignore_errors=True)
+    del out
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[zoo13] phase 13 wall time {rec['phase_s']:.1f} s (limit "
+        f"{ZOO13_PHASE_LIMIT_S} s)")
+    if rec["phase_s"] > ZOO13_PHASE_LIMIT_S:
+        failures.append(f"phase 13 took {rec['phase_s']:.1f} s")
+    return failures, rec, lsk_launches
 
 
 def main():
@@ -5022,6 +5638,17 @@ def main():
         if k in recs:
             recs[k].extra["babelrs_joint_launches"] = n
 
+    # ---- 13. the single-stem LSK / VAN detectors, the zoo's rest, images --
+    torch.cuda.empty_cache()
+    zoo13_failures, zoo13_rec, zoo13_launches = phase13(torch, dev, smi,
+                                                        build)
+    if zoo13_failures:
+        fail(f"LSK / VAN zoo, zoo rest and images phase failed: "
+             f"{zoo13_failures}")
+    for k, n in zoo13_launches.items():
+        if k in recs:
+            recs[k].extra["lsk_t_orcnn_launches"] = n
+
     script_s = time.perf_counter() - t_main
     log(f"[smoke] whole script wall time {script_s:.1f} s (limit "
         f"{SCRIPT_LIMIT_S} s)")
@@ -5052,7 +5679,7 @@ def main():
         "lsk_van_reweight": lsk_rec,
         "variants_zoo": var_rec, "h2r2_train_step_launches": var_launches,
         "refine_cascade": ref_rec, "da_baseline": da_rec,
-        "babelrs": vit_rec,
+        "babelrs": vit_rec, "zoo13": zoo13_rec,
         "script_s": script_s, "card": smi}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

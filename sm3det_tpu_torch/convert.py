@@ -20,7 +20,8 @@ for a ConvNeXt, LSKNet, VAN or InternViT-adapter backbone
 (``backbone.block3.qkv.weight``, ``backbone.spm.gn1.weight``,
 ``backbone.extract0.sampling_offsets.weight``, ``backbone.pos_embed``):
 
-- conv kernels HWIO -> OIHW (the stems, patch embeds, 1x1 convs, the
+- conv kernels HWIO -> OIHW (the stems, patch embeds (a single-stem LSK /
+  VAN's ``patch_embed0`` among them), 1x1 convs, the
   squeeze conv, the heads' convs), the depthwise (k, k, 1, C) ->
   (C, 1, k, k); ORConv's base ``weight`` (k, k, Cin, O_in, Cout) ->
   (Cout, Cin, O_in, k, k);
@@ -28,7 +29,8 @@ for a ConvNeXt, LSKNet, VAN or InternViT-adapter backbone
   GEMM kernel reads, and ``SimpleFPN``'s transposed-conv kernels
   (``fpn1_up1``, ``fpn1_up2``, ``fpn2_up``) their flax (2, 2, in, out)
   layout, which ``UpConv2x2`` reads; the gate's ``cosine_projector``, the
-  RoI heads' Dense layers and the Domain-Attention layers' bias-free
+  RoI heads' Dense layers (GV's ``fc_fix`` and ``fc_ratio`` among them)
+  and the Domain-Attention layers' bias-free
   ``fc{d}_{0,1}`` become Linear weights (out, in), and so do the ViT's
   and the adapter's Dense layers (``qkv``, ``proj``, ``fc1``, ``fc2``,
   ``vit_proj``, ``vit_unproj``, the deformable attention's
@@ -42,8 +44,9 @@ for a ConvNeXt, LSKNet, VAN or InternViT-adapter backbone
   SPM's ``gn{i}`` among them); an RMSNorm's ``weight`` (the ViT's
   ``q_norm`` / ``k_norm``) keeps its name; the ``gamma``,
   ``layer_scale_{1,2}`` and ``ls{1,2}`` vectors, ``pos_embed``, GRN's
-  ``gamma`` / ``beta``, ``mtl_sigma`` and the scalar ``Scale``s keep their
-  names (a block without layer scale has no ``gamma``, in either tree).
+  ``gamma`` / ``beta``, ``mtl_sigma`` and the scalar ``Scale``s
+  (``scale{i}``, FCOS's ``scale_angle``) keep their names (a block
+  without layer scale has no ``gamma``, in either tree).
 
 A port name is the flax module path joined by dots, then the leaf's name:
 ``flax_modules`` gives that path back (``train/extras.py`` picks each
@@ -72,6 +75,7 @@ _TOP = re.compile(r"backbone|neck|((sar|rgb|ifr)_)?(bbox|rpn|roi)_head"
 # top-level leaves a tree may hold: the uncertainty reweighting's sigmas
 OPTIONAL_LEAVES = ("mtl_sigma",)
 _LINEAR = re.compile(r"cosine_projector|shared_fc[01]|fc_cls|fc_reg"
+                     r"|fc_fix|fc_ratio"
                      r"|fc\d+_[01]|qkv|proj|fc[12]|vit_(un)?proj|value_proj"
                      r"|sampling_offsets|attention_weights|output_proj")
 _KEPT = {"gamma", "beta", "temperature", "sim_matrix", "w_gate", "w_noise",
@@ -113,7 +117,7 @@ def _rule(path: tuple, v: np.ndarray):
         name, perm = "weight", _TRANSPOSE
     elif leaf == "bias":
         name = "bias"
-    elif leaf == "scale" and re.fullmatch(r"scale\d+", parent) \
+    elif leaf == "scale" and re.fullmatch(r"scale(\d+|_angle)", parent) \
             and v.ndim == 0:
         name = "scale"
     elif leaf == "scale" and _NORM.fullmatch(parent):

@@ -28,6 +28,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from ..ops.box_convert import obb2poly_np, poly2obb_np
+from ..utils.image import check_image_files
 
 # 26-class union of SARDet-50K + DOTA + DroneVehicle
 SOI_CLASSES = (
@@ -80,7 +81,7 @@ class DOTADataset(BaseDetDataset):
     def __init__(self, ann_folder: str, img_folder: str,
                  classes: Sequence[str] = DOTA_CLASSES,
                  version: str = "le90", filter_difficulty: int = 100,
-                 cache: bool = True):
+                 cache: bool = True, device=None):
         self.CLASSES = tuple(classes)
         self.cls_to_id = {c: i for i, c in enumerate(self.CLASSES)}
         self.ann_folder = ann_folder
@@ -98,6 +99,11 @@ class DOTADataset(BaseDetDataset):
                     fileio.dump(self.infos, cache_path)
                 except OSError:
                     pass
+        self.device = device
+        self._paths = _image_paths(img_folder, self.infos,
+                                   (".png", ".jpg", ".bmp", ".tif"))
+        check_image_files([p for p in self._paths if p], device,
+                          "DOTADataset")
 
     def _load_annotations(self) -> List[Dict]:
         infos = []
@@ -145,20 +151,15 @@ class DOTADataset(BaseDetDataset):
 
     def get_raw(self, idx: int) -> Dict:
         info = self.infos[idx]
-        out = dict(img=self._read_image(info["img_id"]),
+        if self._paths[idx] is None:
+            raise FileNotFoundError(info["img_id"])
+        out = dict(img=_imread(self._paths[idx], self.device),
                    obbs=info["obbs"].copy(), labels=info["labels"].copy(),
                    img_id=info["img_id"])
         if len(info.get("obbs_ignore", ())):
             out["obbs_ignore"] = info["obbs_ignore"].copy()
             out["labels_ignore"] = info["labels_ignore"].copy()
         return out
-
-    def _read_image(self, img_id: str) -> np.ndarray:
-        for ext in (".png", ".jpg", ".bmp", ".tif"):
-            p = os.path.join(self.img_folder, img_id + ext)
-            if os.path.exists(p):
-                return _imread(p)
-        raise FileNotFoundError(img_id)
 
 
 def DOTA15Dataset(ann_folder, img_folder, **kw):
@@ -193,7 +194,7 @@ class HRSCDataset(BaseDetDataset):
 
     def __init__(self, ann_folder: str, img_folder: str,
                  classes: Sequence[str] = HRSC_CLASSES,
-                 version: str = "le90"):
+                 version: str = "le90", device=None):
         import xml.etree.ElementTree as ET
         self.CLASSES = tuple(classes)
         self.img_folder = img_folder
@@ -217,21 +218,22 @@ class HRSCDataset(BaseDetDataset):
             self.infos.append(dict(
                 img_id=fname[:-4], obbs=obbs,
                 labels=np.asarray(labels, np.int32)))
+        self.device = device
+        self._paths = _image_paths(img_folder, self.infos,
+                                   (".bmp", ".png", ".jpg"))
+        check_image_files([p for p in self._paths if p], device,
+                          "HRSCDataset")
 
     def __len__(self):
         return len(self.infos)
 
     def get_raw(self, idx: int) -> Dict:
         info = self.infos[idx]
-        for ext in (".bmp", ".png", ".jpg"):
-            p = os.path.join(self.img_folder, info["img_id"] + ext)
-            if os.path.exists(p):
-                img = _imread(p)
-                break
-        else:
+        if self._paths[idx] is None:
             raise FileNotFoundError(info["img_id"])
-        return dict(img=img, obbs=info["obbs"].copy(),
-                    labels=info["labels"].copy(), img_id=info["img_id"])
+        return dict(img=_imread(self._paths[idx], self.device),
+                    obbs=info["obbs"].copy(), labels=info["labels"].copy(),
+                    img_id=info["img_id"])
 
 
 class CocoDetDataset(BaseDetDataset):
@@ -241,7 +243,7 @@ class CocoDetDataset(BaseDetDataset):
     box_type = "hbb"
 
     def __init__(self, ann_file: str, img_folder: str,
-                 classes: Optional[Sequence[str]] = None):
+                 classes: Optional[Sequence[str]] = None, device=None):
         from ..utils import fileio
         coco = fileio.load(ann_file, file_format="json")
         cats = sorted(coco["categories"], key=lambda c: c["id"])
@@ -287,13 +289,17 @@ class CocoDetDataset(BaseDetDataset):
                 labels_crowd=np.asarray(clabels, np.int32),
                 areas_crowd=np.asarray(careas, np.float64)))
         self.img_folder = img_folder
+        self.device = device
+        check_image_files([os.path.join(img_folder, i["file_name"])
+                           for i in self.infos], device, "CocoDetDataset")
 
     def __len__(self):
         return len(self.infos)
 
     def get_raw(self, idx: int) -> Dict:
         info = self.infos[idx]
-        img = _imread(os.path.join(self.img_folder, info["file_name"]))
+        img = _imread(os.path.join(self.img_folder, info["file_name"]),
+                      self.device)
         return dict(img=img, hbbs=info["hbbs"].copy(),
                     labels=info["labels"].copy(), img_id=info["img_id"],
                     areas=info["areas"].copy(),
@@ -414,10 +420,19 @@ class StructuredSyntheticDetDataset(BaseDetDataset):
         return dict(img=img, hbbs=hbbs, labels=labels, img_id=str(idx))
 
 
-def _imread(path: str) -> np.ndarray:
-    """A BGR image through ``utils/image.py::imread``."""
+def _image_paths(folder: str, infos, exts) -> List[Optional[str]]:
+    """Each image id's file in ``folder``: the first of ``exts`` there
+    (None where there is none), from one listing of the folder."""
+    names = set(os.listdir(folder)) if os.path.isdir(folder) else set()
+    return [next((os.path.join(folder, i["img_id"] + e) for e in exts
+                  if i["img_id"] + e in names), None) for i in infos]
+
+
+def _imread(path: str, device=None) -> np.ndarray:
+    """A BGR image through ``utils/image.py::imread``, decoded by the
+    readers of ``device`` (None: the CPU's)."""
     from ..utils.image import imread
-    return imread(path)
+    return imread(path, device=device)
 
 
 class ConcatDataset(BaseDetDataset):
@@ -505,13 +520,16 @@ _LEAF_TYPES = {
 _PIPELINE_KEYS = ("pipeline", "max_gt")
 
 
-def build_dataset(dcfg, version: str = "le90", synthetic_fallback=None):
+def build_dataset(dcfg, version: str = "le90", synthetic_fallback=None,
+                  device=None):
     """A dataset from a config dict (its ``type`` and keyword arguments;
     ``pipeline`` / ``max_gt`` are dropped). The wrappers recurse:
     ``ConcatDataset`` (``datasets``), ``RepeatDataset`` (``dataset``,
     ``times``), ``ClassBalancedDataset`` (``dataset``,
     ``oversample_thr``). ``synthetic_fallback``: ``SyntheticDetDataset``
-    kwargs used when a leaf's paths are absent."""
+    kwargs used when a leaf's paths are absent. ``device``: where the
+    images are decoded for (the tool's device; None is the CPU); a file
+    leaf checks its images for it before any loop starts."""
     if hasattr(dcfg, "to_dict"):
         dcfg = dcfg.to_dict()
     dcfg = dict(dcfg)
@@ -520,16 +538,16 @@ def build_dataset(dcfg, version: str = "le90", synthetic_fallback=None):
     dtype = dcfg.pop("type")
     if dtype == "ConcatDataset":
         return ConcatDataset([
-            build_dataset(c, version, synthetic_fallback)
+            build_dataset(c, version, synthetic_fallback, device)
             for c in dcfg["datasets"]])
     if dtype == "RepeatDataset":
         return RepeatDataset(
-            build_dataset(dcfg["dataset"], version, synthetic_fallback),
-            times=dcfg.get("times", 1))
+            build_dataset(dcfg["dataset"], version, synthetic_fallback,
+                          device), times=dcfg.get("times", 1))
     if dtype == "ClassBalancedDataset":
         return ClassBalancedDataset(
-            build_dataset(dcfg["dataset"], version, synthetic_fallback),
-            oversample_thr=dcfg.get("oversample_thr", 1e-3))
+            build_dataset(dcfg["dataset"], version, synthetic_fallback,
+                          device), oversample_thr=dcfg.get("oversample_thr", 1e-3))
     cls = _LEAF_TYPES.get(dtype)
     if cls is None:
         raise KeyError(f"unknown dataset type {dtype!r}")
@@ -542,5 +560,5 @@ def build_dataset(dcfg, version: str = "le90", synthetic_fallback=None):
             return SyntheticDetDataset(**synthetic_fallback)
         raise FileNotFoundError(f"{dtype}: missing data paths in {dcfg}")
     if cls is CocoDetDataset:
-        return cls(**dcfg)
-    return cls(**dcfg, version=version)
+        return cls(**dcfg, device=device)
+    return cls(**dcfg, version=version, device=device)

@@ -4,8 +4,9 @@ Port of ``sm3det_tpu/models/backbones/lsknet.py``: the Large Selective
 Kernel spatial gating (a 5x5 depthwise conv, a 7x7 depthwise conv of
 dilation 3, two 1x1 projections to C/2, avg/max spatial attention through
 a 7x7 squeeze conv), LayerNorm-normed blocks with layer scale 1e-2,
-overlapping patch embeds (the MultiInput stem, ``stem_single``),
-and a grid MoE of linear experts that may replace the MLP's fc1 / fc2.
+overlapping patch embeds (the first named ``stem_single`` in the MultiInput
+mode of the TriSource detectors, ``patch_embed0`` in the single-stem mode
+of the zoo's ``LSKNet_moe``), and a grid MoE of linear experts that may replace the MLP's fc1 / fc2.
 
 - Inference (``forward``): the LayerNorms through ``fused_layernorm`` (its
   kernel on a CUDA tensor), the convolutions through ``F.conv2d`` on the
@@ -157,9 +158,10 @@ class LSKNetBlock(nn.Module):
 
 
 class LSKNetMoE(nn.Module):
-    """LSKNet(-MoE) in MultiInput mode (its stem is ``stem_single``);
-    returns the ``out_indices`` features after their LayerNorms. Default
-    arch: T (depths (3, 3, 5, 2), dims (32, 64, 160, 256))."""
+    """LSKNet(-MoE); its stem is ``stem_single`` in the MultiInput mode,
+    ``patch_embed0`` with ``multi_input=False``, as JAX names them. Returns
+    the ``out_indices`` features after their LayerNorms. Default arch: T
+    (depths (3, 3, 5, 2), dims (32, 64, 160, 256))."""
 
     block_cls = LSKNetBlock
 
@@ -174,9 +176,11 @@ class LSKNetMoE(nn.Module):
                                                                 ()),
                  num_experts: int = 2, top_k: int = 2, gate: str = "cosine",
                  noisy_gating: bool = True, capacity_factor: float = 1.5,
+                 multi_input: bool = True,
                  gen: torch.Generator | None = None):
         super().__init__()
         self.depths, self.out_indices = tuple(depths), tuple(out_indices)
+        self.stem_name = "stem_single" if multi_input else "patch_embed0"
         dpr = np.linspace(0, drop_path_rate, sum(depths))
         moe_cfg = dict(num_experts=num_experts, top_k=top_k, gating=gate,
                        noisy_gating=noisy_gating,
@@ -184,8 +188,8 @@ class LSKNetMoE(nn.Module):
         block_idx = 0
         for i, (depth, dim) in enumerate(zip(depths, embed_dims)):
             if i == 0:
-                self.stem_single = Conv2d(3, dim, 7, stride=4, padding=3,
-                                          gen=gen)
+                setattr(self, self.stem_name, Conv2d(
+                    3, dim, 7, stride=4, padding=3, gen=gen))
             else:
                 setattr(self, f"patch_embed{i}", Conv2d(
                     embed_dims[i - 1], dim, 3, stride=2, padding=1, gen=gen))
@@ -203,7 +207,7 @@ class LSKNetMoE(nn.Module):
                 setattr(self, f"out_norm{i}", LayerNormOpt(dim))
 
     def _embed(self, i, x):
-        conv = getattr(self, "stem_single" if i == 0 else f"patch_embed{i}")
+        conv = getattr(self, self.stem_name if i == 0 else f"patch_embed{i}")
         return conv(x)
 
     def forward(self, x, dataset_ids=None):

@@ -13,8 +13,10 @@ what it has:
   ``TriSourceVariant`` (its ``sar_stages`` / ``rot_stages`` from the
   config), and the single-dataset ``OrientedRCNN``, ``GFL``,
   ``RotatedRetinaNet``, ``FasterRCNN``, ``CascadeRCNN``, ``RetinaNet``,
-  ``R3Det``, ``S2ANet`` and ``RoITransformer`` on the single-stem
-  ConvNeXt (``ConvNeXt_moe`` or no backbone type);
+  ``R3Det``, ``S2ANet``, ``RoITransformer``, ``GlidingVertex``,
+  ``RotatedFCOS``, ``RotatedFasterRCNN`` and ``RotatedATSS`` on a
+  single-stem backbone: the ConvNeXt (``ConvNeXt_moe`` or no backbone
+  type), ``LSKNet_moe`` or ``VAN_moe``;
 - the necks ``MultitaskFPN`` and ``FPN`` (the same module: every detector
   builds it and calls it with ``add_extra_convs="on_output"`` on each
   branch, as JAX's do, so a config's ``add_extra_convs`` and
@@ -45,21 +47,24 @@ from .backbones.lsknet import LSKNetMoE
 from .backbones.van import VANMoE
 from .dense_heads.gfl_head import GFLHead
 from .dense_heads.oriented_rpn_head import OrientedRPNHead
+from .dense_heads.rotated_atss_head import RotatedATSSHead
+from .dense_heads.rotated_fcos_head import RotatedFCOSHead
 from .dense_heads.rotated_retina_head import CSLRetinaHead, RotatedRetinaHead
 from .dense_heads.rpn_head import RPNHead
+from .detectors.base import ZOO
 from .detectors.hbb_detectors import CascadeRCNN, FasterRCNN, RetinaNet
 from .detectors.redet_roitrans import RoITransformer
 from .detectors.refine_detectors import (ODMRefineHead, R3Det, RefineHead,
                                          S2ANet)
+from .detectors.single_stage_zoo import GlidingVertex, RotatedFCOS
 from .detectors.trisource import TriSourceDetector
 from .detectors.trisource_variants import DEFAULT_STAGES, TriSourceVariant
 from .detectors.zoo import GFLDetector, OrientedRCNN, RotatedRetinaNet
+from .detectors.zoo_extra import RotatedATSS, RotatedFasterRCNN
 from .necks.fpn import FPN, MultitaskFPN, SimpleFPN, check_extra_convs
-from .roi_heads.cascade_heads import HBB2OBBBBoxHead
+from .roi_heads.cascade_heads import GVBBoxHead, HBB2OBBBBoxHead
 from .roi_heads.oriented_roi_head import RotatedShared2FCBBoxHead
 from .roi_heads.standard_roi_head import Shared2FCBBoxHead
-
-ZOO = "ROADMAP queue 1 item 7 (the zoo)"
 
 
 def _unported(kind: str, name: str, item: str):
@@ -76,6 +81,7 @@ for _name in ("ConvNeXt_moe", "ConvNeXt_moe_MultiInput",
 for _name, _cls in (("LSKNet", LSKNetMoE), ("LSKNet_moe_MultiInput",
                                             LSKNetMoE),
                     ("VAN", VANMoE), ("VAN_moe_MultiInput", VANMoE),
+                    ("LSKNet_moe", LSKNetMoE), ("VAN_moe", VANMoE),
                     ("InternViT", InternViTAdapter),
                     ("InternViTAdapter", InternViTAdapter)):
     BACKBONES.register_module(_name, module=_cls)
@@ -88,7 +94,11 @@ for _name, _cls in (("TriSourceDetector", TriSourceDetector),
                     ("RotatedRetinaNet", RotatedRetinaNet),
                     ("FasterRCNN", FasterRCNN), ("CascadeRCNN", CascadeRCNN),
                     ("RetinaNet", RetinaNet), ("R3Det", R3Det),
-                    ("S2ANet", S2ANet), ("RoITransformer", RoITransformer)):
+                    ("S2ANet", S2ANet), ("RoITransformer", RoITransformer),
+                    ("GlidingVertex", GlidingVertex),
+                    ("RotatedFCOS", RotatedFCOS),
+                    ("RotatedFasterRCNN", RotatedFasterRCNN),
+                    ("RotatedATSS", RotatedATSS)):
     DETECTORS.register_module(_name, module=_cls)
 # the JAX package's head names (the KFIoU ones select the box loss through
 # normalize_model_cfg); CSLRRetinaHead raises on construction
@@ -104,21 +114,22 @@ for _name, _cls in (("GFLHead", GFLHead), ("OrientedRPNHead", OrientedRPNHead),
                     ("ODMRefineHead", ODMRefineHead),
                     ("RotatedRetinaRefineHead", RefineHead),
                     ("KFIoUODMRefineHead", ODMRefineHead),
-                    ("KFIoURRetinaRefineHead", RefineHead)):
+                    ("KFIoURRetinaRefineHead", RefineHead),
+                    ("GVBBoxHead", GVBBoxHead),
+                    ("RotatedFCOSHead", RotatedFCOSHead),
+                    ("RotatedATSSHead", RotatedATSSHead)):
     HEADS.register_module(_name, module=_cls)
-for _name in ("RotatedFCOSHead", "OrientedRepPointsHead", "GVBBoxHead",
-              "RotatedATSSHead", "RotatedRepPointsHead", "SAMRepPointsHead",
-              "CSLRFCOSHead", "RotatedAnchorFreeHead"):
+for _name in ("OrientedRepPointsHead", "RotatedRepPointsHead",
+              "SAMRepPointsHead", "CSLRFCOSHead", "RotatedAnchorFreeHead"):
     HEADS.register_module(_name, module=_unported("head", _name, ZOO))
 
-for _name in ("LSKNet_moe", "VAN_moe", "SwinTransformer_moe",
-              "SwinTransformer_MoE", "SwinTransformer", "ReResNet"):
+for _name in ("SwinTransformer_moe", "SwinTransformer_MoE", "SwinTransformer",
+              "ReResNet"):
     BACKBONES.register_module(_name, module=_unported("backbone", _name,
                                                       ZOO))
 NECKS.register_module("ReFPN", module=_unported("neck", "ReFPN", ZOO))
-for _name in ("ReDet", "RotatedFCOS", "GlidingVertex", "OrientedRepPoints",
-              "RotatedFasterRCNN", "RotatedRepPoints", "SAMRepPoints",
-              "GRepPoints", "RotatedATSS"):
+for _name in ("ReDet", "OrientedRepPoints", "RotatedRepPoints",
+              "SAMRepPoints", "GRepPoints"):
     DETECTORS.register_module(_name, module=_unported("detector", _name,
                                                       ZOO))
 

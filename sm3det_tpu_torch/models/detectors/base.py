@@ -19,6 +19,10 @@ from torch import nn
 
 from ...device import resolve_device
 
+# what the port's NotImplementedError messages cite for the zoo's parts it
+# has not ported
+ZOO = "ROADMAP queue 1 item 7 (the zoo)"
+
 
 class DetectorBase(nn.Module):
     def _place(self, cfg: Dict[str, Any], device, trainable: bool):

@@ -45,6 +45,83 @@ PROPOSALS = 256         # proposals an image (nms_pre and max_per_img)
 ROI_SAMPLE = 128        # RoIs sampled an image by each stage
 
 
+def hbb_rpn_rois(x, rpn_head, gt_hbbs, labels, mask, keys: SampleKeys,
+                 rpn_sample: int = RPN_SAMPLE, proposals: int = PROPOSALS,
+                 roi_sample: int = ROI_SAMPLE, max_per_img: int | None = None):
+    """The horizontal RPN of a gts' enclosing boxes (B, G, 4) and the RoIs
+    sampled for the next stage: the RPN loss on ``rpn_sample`` anchors an
+    image, the ``proposals`` best anchors an image into its NMS, which
+    keeps ``max_per_img`` (default ``proposals``; row 4's mask mode and the
+    keep scan on the card; no gradient), then ``roi_sample``
+    horizontal RoIs an image among the gts and the proposals. ``keys``
+    gives the RPN sampler's keys, then the RoI sampler's. Returns
+    (dict(loss_rpn_cls, loss_rpn_bbox), rois5 (B * roi_sample, 5) with the
+    batch index first, the images' samples)."""
+    bsz, dev = gt_hbbs.shape[0], gt_hbbs.device
+    anchor_gen = make_hbb_rpn_anchor_generator()
+    hbb_coder = DeltaXYWHBBoxCoder()
+    rpn_cls, rpn_reg = rpn_head(x)
+    rpn_cls = [s.float() for s in rpn_cls]
+    rpn_reg = [p.float() for p in rpn_reg]
+    n_anchors = sum(s[0].numel() for s in rpn_cls)
+    losses = hbb_rpn_loss(keys(n_anchors, bsz, dev), rpn_cls, rpn_reg,
+                          gt_hbbs, mask, anchor_gen, hbb_coder,
+                          num_sample=rpn_sample)
+    with torch.no_grad():
+        props, _, p_valid = hbb_rpn_get_proposals(
+            [s.detach() for s in rpn_cls], [p.detach() for p in rpn_reg],
+            anchor_gen, hbb_coder, None, nms_pre=proposals,
+            max_per_img=max_per_img or proposals)
+        k1 = keys(gt_hbbs.shape[1] + props.shape[1], bsz, dev)
+        ious = candidate_gt_overlaps(props, gt_hbbs)
+        sampled = [sample_hbb_rois(
+            (k1[0][i], k1[1][i]), props[i], p_valid[i], gt_hbbs[i],
+            labels[i], mask[i], ious[i], num=roi_sample)
+            for i in range(bsz)]
+        rois = torch.stack([sm["rois"] for sm in sampled])
+        bidx = torch.arange(bsz, dtype=rois.dtype, device=dev) \
+            .repeat_interleave(rois.shape[1])[:, None]
+        rois5 = torch.cat([bidx, rois.reshape(-1, 4)], dim=-1)
+    return losses, rois5, sampled
+
+
+def sampled_targets(sampled, gts, labels, num_classes: int):
+    """The flattened positives, valid slots, each RoI's gt (B * S, D) and
+    its label (the background ``num_classes`` off the positives)."""
+    pos = torch.cat([sm["pos_mask"] for sm in sampled])
+    valid = pos | torch.cat([sm["neg_mask"] for sm in sampled])
+    gt_idx = torch.stack([sm["gt_idx"] for sm in sampled])
+    d = gts.shape[-1]
+    per_roi = torch.gather(gts, 1, gt_idx[..., None].expand(-1, -1, d)) \
+        .reshape(-1, d)
+    lab = torch.where(pos, torch.gather(labels, 1, gt_idx).reshape(-1).long(),
+                      num_classes)
+    return pos, valid, per_roi, lab
+
+
+def hbb2obb_stage_losses(x, rois5, sampled, head, gt_obbs, labels,
+                         num_classes: int, version: str):
+    """RoI Transformer's stage 1 (and RotatedFasterRCNN's R-CNN) on the
+    sampled horizontal RoIs: softmax cross-entropy over the valid slots and
+    Smooth L1 of the deltas of the decoded boxes against the gts'
+    (``make_stage1_coder``), each divided on the device by max(count, 1)
+    (5 a positive for the box loss). Returns (loss_cls, loss_bbox, the
+    decoded boxes (B * S, 5))."""
+    coder = make_stage1_coder(version)
+    cls, obbs = roi_trans_stage1(x, rois5, head, coder, version)
+    pos, valid, gts_per_roi, lab = sampled_targets(sampled, gt_obbs, labels,
+                                                   num_classes)
+    l_cls = softmax_cross_entropy(cls, lab, weight=valid.float(),
+                                  avg_factor=1.0) / \
+        torch.clamp(valid.sum().float(), min=1.0)
+    priors = hbb2obb(rois5[:, 1:5], version)
+    l_bbox = smooth_l1_loss(
+        coder.encode(priors, obbs), coder.encode(priors, gts_per_roi),
+        beta=1.0, weight=pos[:, None].float(), avg_factor=1.0) / \
+        torch.clamp(pos.sum().float() * 5, min=1.0)
+    return l_cls, l_bbox, obbs
+
+
 def make_stage1_coder(version="le90"):
     """Stage 1's deltas of an oriented box against an ``hbb2obb`` prior."""
     return DeltaXYWHAOBBoxCoder(angle_range=version, target_means=(0.,) * 5,
@@ -78,56 +155,13 @@ class RoITransformer(ZooDetector):
                                  batch["gt_mask"])
         bsz = gt_obbs.shape[0]
         dev = gt_obbs.device
-
-        # the horizontal RPN on the gts' enclosing boxes
-        gt_hbbs = obb2xyxy(gt_obbs, version)
-        anchor_gen = make_hbb_rpn_anchor_generator()
-        hbb_coder = DeltaXYWHBBoxCoder()
-        rpn_cls, rpn_reg = self.rpn_head(x)
-        rpn_cls = [s.float() for s in rpn_cls]
-        rpn_reg = [p.float() for p in rpn_reg]
-        n_anchors = sum(s[0].numel() for s in rpn_cls)
-        losses.update(hbb_rpn_loss(
-            keys(n_anchors, bsz, dev), rpn_cls, rpn_reg, gt_hbbs, mask,
-            anchor_gen, hbb_coder, num_sample=RPN_SAMPLE))
-        with torch.no_grad():
-            proposals, _, p_valid = hbb_rpn_get_proposals(
-                [s.detach() for s in rpn_cls], [p.detach() for p in rpn_reg],
-                anchor_gen, hbb_coder, None, nms_pre=PROPOSALS,
-                max_per_img=PROPOSALS)
-
-            # stage 1: horizontal RoIs regressed to oriented boxes
-            k1 = keys(gt_hbbs.shape[1] + proposals.shape[1], bsz, dev)
-            ious = candidate_gt_overlaps(proposals, gt_hbbs)
-            s1 = [sample_hbb_rois(
-                (k1[0][i], k1[1][i]), proposals[i], p_valid[i], gt_hbbs[i],
-                labels[i], mask[i], ious[i], num=ROI_SAMPLE)
-                for i in range(bsz)]
-            rois = torch.stack([sm["rois"] for sm in s1])
-            s = rois.shape[1]
-            bidx = torch.arange(bsz, dtype=rois.dtype, device=dev) \
-                .repeat_interleave(s)[:, None]
-            rois5 = torch.cat([bidx, rois.reshape(-1, 4)], dim=-1)
-        s1_coder = make_stage1_coder(version)
-        cls1, obbs1 = roi_trans_stage1(x, rois5, self.stage1_head, s1_coder,
-                                       version)
-        pos = torch.cat([sm["pos_mask"] for sm in s1])
-        valid = pos | torch.cat([sm["neg_mask"] for sm in s1])
-        gt_idx = torch.stack([sm["gt_idx"] for sm in s1])
-        gts_per_roi = torch.gather(
-            gt_obbs, 1, gt_idx[..., None].expand(-1, -1, 5)).reshape(-1, 5)
-        labels1 = torch.where(
-            pos, torch.gather(labels, 1, gt_idx).reshape(-1).long(), nc)
-        # the losses' averages: max(count, 1), divided on the device
-        losses["s1_loss_cls"] = softmax_cross_entropy(
-            cls1, labels1, weight=valid.float(), avg_factor=1.0) / \
-            torch.clamp(valid.sum().float(), min=1.0)
-        priors1 = hbb2obb(rois5[:, 1:5], version)
-        losses["s1_loss_bbox"] = smooth_l1_loss(
-            s1_coder.encode(priors1, obbs1),
-            s1_coder.encode(priors1, gts_per_roi), beta=1.0,
-            weight=pos[:, None].float(), avg_factor=1.0) / \
-            torch.clamp(pos.sum().float() * 5, min=1.0)
+        rpn_losses, rois5, s1 = hbb_rpn_rois(
+            x, self.rpn_head, obb2xyxy(gt_obbs, version), labels, mask, keys)
+        losses.update(rpn_losses)
+        s = s1[0]["rois"].shape[0]
+        l_cls, l_bbox, obbs1 = hbb2obb_stage_losses(
+            x, rois5, s1, self.stage1_head, gt_obbs, labels, nc, version)
+        losses["s1_loss_cls"], losses["s1_loss_bbox"] = l_cls, l_bbox
 
         # stage 2: rotated RoIs among stage 1's boxes
         with torch.no_grad():

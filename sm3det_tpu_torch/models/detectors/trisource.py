@@ -67,7 +67,7 @@ from ..roi_heads.oriented_roi_head import (RotatedShared2FCBBoxHead,
                                            roi_head_get_bboxes,
                                            sample_rois_for_training)
 from ..roi_heads.standard_roi_head import extract_hbb_roi_feats
-from .base import DetectorBase
+from .base import ZOO, DetectorBase
 
 DEFAULT_MODEL_CFG: Dict[str, Any] = dict(
     num_classes=26,
@@ -119,8 +119,6 @@ def make_rcnn_coder(version="le90"):
         angle_range=version, target_means=(0.,) * 5,
         target_stds=(0.1, 0.1, 0.2, 0.2, 0.1), edge_swap=True, proj_xy=True)
 
-
-ZOO = "ROADMAP queue 1 item 7 (the zoo)"
 
 # the losses the uncertainty and DWA reweighting weigh, in JAX's order
 REWEIGHT_LOSS_KEYS = (

@@ -9,9 +9,12 @@ modality's {img, gt_obbs or gt_bboxes, gt_labels, gt_mask}) and
 ``simple_test(imgs, img_shape)``.
 
 The backbone is built from the config's ``type``: ``ConvNeXt_moe``, or no
-type, is the single-stem ConvNeXt(-MoE) (``stem_conv``); the JAX module
-builds a ConvNeXt whatever the type says. The single-stem LSKNet / VAN
-(``LSKNet_moe``, ``VAN_moe``) are not ported and raise.
+type, is the single-stem ConvNeXt(-MoE) (``stem_conv``); ``LSKNet_moe`` and
+``VAN_moe`` are the single-stem LSKNet / VAN(-MoE) (``patch_embed0``), as
+JAX's ``LSKNetMoE`` / ``VANMoE`` with ``multi_input=False``. The JAX
+factory builds a ConvNeXt whatever the type says; the port builds by type
+and raises, naming it, for any other type or a key its factory does not
+read.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ import torch
 
 from ...core.bbox.samplers import SampleKeys
 from ..backbones.convnext import ConvNeXtMoE
+from ..backbones.lsknet import LSKNetMoE
+from ..backbones.van import VANMoE
 from ..dense_heads.gfl_head import GFLHead, gfl_get_bboxes, gfl_loss
 from ..dense_heads.oriented_rpn_head import (OrientedRPNHead,
                                              rpn_get_proposals)
@@ -34,33 +39,60 @@ from ..dense_heads.rotated_retina_head import (RotatedRetinaHead,
 from ..necks.fpn import MultitaskFPN
 from ..roi_heads.oriented_roi_head import (RotatedShared2FCBBoxHead,
                                            roi_head_get_bboxes)
-from .base import DetectorBase
+from .base import ZOO, DetectorBase
 from .trisource import (make_rcnn_coder, make_rpn_anchor_generator,
                         make_rpn_coder, make_sar_anchor_generator,
                         oriented_rcnn_losses, roi_feats)
 
-ZOO = "ROADMAP queue 1 item 7 (the zoo)"
 SINGLE_STEM_CONVNEXT = (None, "ConvNeXt_moe")
+SINGLE_STEM_LSK_VAN = {"LSKNet_moe": LSKNetMoE, "VAN_moe": VANMoE}
+# the keys each factory reads (``pretrained`` is the tools')
+_MOE_KEYS = {"type", "pretrained", "drop_path_rate", "num_experts", "top_k",
+             "gate", "noisy_gating", "capacity_factor"}
+_FACTORY_KEYS = {"ConvNeXt": _MOE_KEYS | {"arch", "moe_block_inds"},
+                 "LSK/VAN": _MOE_KEYS | {"embed_dims", "depths",
+                                         "moe_block_inds_fc1",
+                                         "moe_block_inds_fc2"}}
+
+
+def _inds(b, key):
+    return tuple(tuple(i) for i in b.get(key, ((), (), (), ())))
 
 
 def build_zoo_backbone(b: Dict[str, Any],
                        gen: torch.Generator | None = None):
-    """The single-stem backbone of a zoo config's ``backbone`` dict."""
+    """The single-stem backbone of a zoo config's ``backbone`` dict, by
+    its ``type``."""
     btype = b.get("type")
-    if btype not in SINGLE_STEM_CONVNEXT:
+    if btype in SINGLE_STEM_CONVNEXT:
+        family = "ConvNeXt"
+    elif btype in SINGLE_STEM_LSK_VAN:
+        family = "LSK/VAN"
+    else:
         raise NotImplementedError(
             f"a single-dataset detector's backbone {btype!r} is not ported "
-            f"to sm3det_tpu_torch (only the single-stem ConvNeXt is): {ZOO}")
-    return ConvNeXtMoE(
-        arch=b.get("arch", "tiny"),
-        drop_path_rate=b.get("drop_path_rate", 0.0),
-        moe_block_inds=tuple(tuple(i) for i in b.get(
-            "moe_block_inds", ((), (), (), ()))),
-        num_experts=b.get("num_experts", 2), top_k=b.get("top_k", 2),
-        gate=b.get("gate", "cosine"),
-        noisy_gating=b.get("noisy_gating", True),
-        capacity_factor=b.get("capacity_factor", 1.5), multi_input=False,
-        gen=gen)
+            f"to sm3det_tpu_torch (the single-stem ConvNeXt, LSKNet_moe and "
+            f"VAN_moe are): {ZOO}")
+    extra = sorted(set(b) - _FACTORY_KEYS[family])
+    if extra:
+        raise NotImplementedError(
+            f"backbone keys {extra} are not taken for a single-stem "
+            f"{btype or 'ConvNeXt'}: its factory reads none of them")
+    common = dict(drop_path_rate=b.get("drop_path_rate", 0.0),
+                  num_experts=b.get("num_experts", 2),
+                  top_k=b.get("top_k", 2), gate=b.get("gate", "cosine"),
+                  noisy_gating=b.get("noisy_gating", True),
+                  capacity_factor=b.get("capacity_factor", 1.5),
+                  multi_input=False, gen=gen)
+    if family == "ConvNeXt":
+        return ConvNeXtMoE(arch=b.get("arch", "tiny"),
+                           moe_block_inds=_inds(b, "moe_block_inds"),
+                           **common)
+    return SINGLE_STEM_LSK_VAN[btype](
+        embed_dims=tuple(b.get("embed_dims", (32, 64, 160, 256))),
+        depths=tuple(b.get("depths", (3, 3, 5, 2))),
+        moe_block_inds_fc1=_inds(b, "moe_block_inds_fc1"),
+        moe_block_inds_fc2=_inds(b, "moe_block_inds_fc2"), **common)
 
 
 class ZooDetector(DetectorBase):

@@ -7,6 +7,9 @@ into one shared library with a plain C interface that is loaded with
 ``.gitignore``) under a name that hashes the sources and flags, so an edit
 rebuilds and an unchanged tree reuses the library.
 
+``csrc/png_unfilter.cu`` is host C++ in the same library (``nvcc`` hands it
+to the host compiler): the PNG reader's row unfilter.
+
 Nothing here runs at import: the first wrapper that launches a kernel calls
 :func:`load_library`. A failed build or a missing ``nvcc`` raises; there is
 no fallback.
@@ -87,6 +90,9 @@ _SIGNATURES = {
     # out_size, sample_num, g bf16, gradient bf16, stream
     "sm3det_roi_align_rotated_bwd": [_P] * 4 + [_I] * 8 + [_F] * 4
     + [_P] * 6 + [_I] * 7 + [_P],
+    # host C++ (utils/image.py's PNG reader): src, dst, height, row_bytes,
+    # bpp; returns 0 or 1 + the row of an unknown filter type
+    "sm3det_png_unfilter": [_P, _P, _I, _I, _I],
 }
 
 

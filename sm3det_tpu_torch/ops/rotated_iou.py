@@ -49,8 +49,11 @@ def _edge_clip_contrib(sub, clip, eps_inside: float):
     d = q - p
     o = clip
     e = torch.roll(clip, -1, dims=-2) - o
-    e_len = torch.clamp(
-        torch.sqrt(e[..., 0] * e[..., 0] + e[..., 1] * e[..., 1]), min=_EPS)
+    # the square clamped before the root: a zero-length edge (a box of
+    # width or height 0) gets the same length _EPS with a finite gradient
+    # (the root's own at 0 is infinite, and 0 * inf is NaN)
+    e_len = torch.sqrt(torch.clamp(e[..., 0] * e[..., 0]
+                                   + e[..., 1] * e[..., 1], min=_EPS * _EPS))
 
     # signed distance of P(t) to clip edge k: a + t * b, positive inside
     po = p[..., :, None, :] - o[..., None, :, :]          # (..., 4s, 4c, 2)

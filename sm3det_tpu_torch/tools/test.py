@@ -77,11 +77,13 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def build_eval_dataset(cfg, sub: str, synthetic: bool, min_n: int = 64):
+def build_eval_dataset(cfg, sub: str, synthetic: bool, min_n: int = 64,
+                       device=None):
     """The eval dataset of one modality: the config's test (else val, else
     train) section, through ``data/datasets.py::build_dataset``; synthetic
     images (seed 7, at least ``min_n``) when asked, when the section is
-    synthetic or when its paths are absent."""
+    synthetic or when its paths are absent. Image files are read by the
+    readers of ``device`` and checked for it before the loop."""
     from ..data.datasets import SyntheticDetDataset, build_dataset
     section = cfg.data
     for split in ("test", "val"):
@@ -96,7 +98,7 @@ def build_eval_dataset(cfg, sub: str, synthetic: bool, min_n: int = 64):
     if synthetic or dcfg["type"] == "SyntheticDetDataset":
         return SyntheticDetDataset(**fallback)
     return build_dataset(dcfg, version=cfg.angle_version,
-                         synthetic_fallback=fallback)
+                         synthetic_fallback=fallback, device=device)
 
 
 def main(argv=None, dataset=None, model=None):
@@ -132,7 +134,8 @@ def main(argv=None, dataset=None, model=None):
 
     sub = args.subdataset
     ds = dataset if dataset is not None else build_eval_dataset(
-        cfg, sub, args.synthetic_data, min_n=args.num_images or 64)
+        cfg, sub, args.synthetic_data, min_n=args.num_images or 64,
+        device=device)
     nc = cfg.num_classes
     classes = list(getattr(ds, "CLASSES", ())) or [
         f"class_{c}" for c in range(nc)]

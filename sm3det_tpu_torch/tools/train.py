@@ -50,8 +50,9 @@ import os
 
 import torch
 
+from ..models.detectors.base import ZOO
+
 PARALLEL = "ROADMAP queue 1 item 6 (parallel)"
-ZOO = "ROADMAP queue 1 item 7 (the zoo)"
 # lr_config keys the JAX tool does not pass to make_optimizer: a config
 # holding one would train on the schedule's defaults
 DROPPED_LR_KEYS = ("periods", "restart_weights", "target_ratio",
@@ -87,11 +88,14 @@ def parse_args(argv=None):
 
 
 def build_datasets(cfg, synthetic: bool, seed_offset: int = 0,
-                   split: str = "train", allow_synthetic: bool = True):
+                   split: str = "train", allow_synthetic: bool = True,
+                   device=None):
     """The three modalities' datasets. ``seed_offset`` > 0 gives held-out
     synthetic draws (val splits); ``split="val"`` reads ``cfg.data.val``
     where the config has it, else the train section. A real-data run
-    whose roots are missing stops unless ``allow_synthetic``."""
+    whose roots are missing stops unless ``allow_synthetic``. Image files
+    are read by the readers of ``device`` and checked for it before the
+    loop."""
     from ..data.datasets import SyntheticDetDataset, build_dataset
     section = cfg.data
     if split == "val" and cfg.data.get("val") is not None:
@@ -117,7 +121,7 @@ def build_datasets(cfg, synthetic: bool, seed_offset: int = 0,
             ds = SyntheticDetDataset(**fallback)
         else:
             ds = build_dataset(dcfg, version=cfg.angle_version,
-                               synthetic_fallback=fallback)
+                               synthetic_fallback=fallback, device=device)
             if isinstance(ds, SyntheticDetDataset) and \
                     dtype != "SyntheticDetDataset":
                 msg = (f"data root(s) missing for {split}/{key} "
@@ -190,7 +194,7 @@ def make_eval_fns(cfg, args, pipes, device):
     n_eval = int(n_eval) if n_eval else 0
     val_sets = build_datasets(
         cfg, args.synthetic_data, seed_offset=int(ev.get("seed_offset", 0)),
-        split="val", allow_synthetic=args.allow_synthetic)
+        split="val", allow_synthetic=args.allow_synthetic, device=device)
     scale_ranges = ev.get("scale_ranges")
     eval_bs = int(ev.get("batch_size", 8))
     eval_workers = int(ev.get("num_workers", 4))
@@ -283,7 +287,8 @@ def main(argv=None):
         torch.use_deterministic_algorithms(True, warn_only=True)
 
     datasets = build_datasets(cfg, args.synthetic_data,
-                              allow_synthetic=args.allow_synthetic)
+                              allow_synthetic=args.allow_synthetic,
+                              device=device)
     ratio = list(cfg.source_ratio)
     pipes = [PipelineCfg.from_config(
                  cfg.data[k], img_size=cfg.img_size,

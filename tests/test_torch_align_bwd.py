@@ -23,6 +23,7 @@ from sm3det_tpu_torch.models.roi_heads.oriented_roi_head import (
 from sm3det_tpu_torch.ops.cuda import roi_align_kernel as rak
 from sm3det_tpu_torch.ops.cuda.rotated_iou_kernel import rotated_iou
 from sm3det_tpu_torch.ops.roi_align_rotated import route_levels
+from torch_jax_refs import one_torch_thread  # noqa: F401
 
 STRIDES = (4, 8, 16, 32)
 SIZE = 256

@@ -64,6 +64,7 @@ from sm3det_tpu_torch.utils.config import Config
 from test_babelrs import CFG as BABELRS, TINY_OVERRIDES, _tiny_batch
 from test_torch_rcnn_slice import _assert_dets
 from test_torch_variant_train import _StageRngs, _split_keys
+from torch_jax_refs import jax_refs_at_lowest_level  # noqa: F401
 
 IMG = 64
 SHAPE = (IMG, IMG)

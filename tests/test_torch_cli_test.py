@@ -32,6 +32,8 @@ from sm3det_tpu_torch.train import checkpoint as port_ckpt
 from sm3det_tpu_torch.utils.config import Config
 
 from test_torch_config_data import IMG, _same_obbs, jax_tiny_params
+from torch_jax_refs import (jax_merge_nms_jitted,  # noqa: F401
+                            jax_refs_at_lowest_level, one_torch_thread)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CLASSES = ("plane", "ship", "bridge", "harbor")
@@ -134,7 +136,8 @@ def _assert_same_dets(got, ref, box_dim):
 
 
 @pytest.mark.parametrize("which", ["dota", "synthetic"])
-def test_eval_matches_the_jax_tool(env, monkeypatch, capsys, which):
+def test_eval_matches_the_jax_tool(env, monkeypatch, capsys, which,
+                                   jax_merge_nms_jitted):
     root = env["root"]
     if which == "dota":
         common = [env["cfg"], "--subdataset", "rgb", "--batch-size", "3",
@@ -202,13 +205,15 @@ def _check_format_only(env, got, jax_dets, jax_ids):
 
 
 def test_the_module_runs_as_a_command(env):
-    """The command of the README, with the default bf16 policy."""
+    """The command of the README, with the default bf16 policy (one torch
+    thread, as the suite's other processes run)."""
     r = subprocess.run(
         [sys.executable, "-m", "sm3det_tpu_torch.tools.test",
          os.path.join(ROOT, "configs", "smoke_tiny.py"), env["port_ckpt"],
          "--device", "cpu", "--synthetic-data", "--num-images", "8",
          "--batch-size", "4"],
-        cwd=ROOT, capture_output=True, text=True, timeout=300)
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert r.returncode == 0, r.stderr[-2000:]
     assert "inference: 8 images" in r.stdout
     assert "'mAP50'" in r.stdout

@@ -14,6 +14,7 @@ from sm3det_tpu_torch.data.datasets import CocoDetDataset
 from sm3det_tpu_torch.models.builder import build_detector
 from sm3det_tpu_torch.tools import test as test_cli
 from sm3det_tpu_torch.utils.config import Config
+from torch_jax_refs import one_torch_thread  # noqa: F401
 
 SMOKE = "configs/smoke_tiny.py"
 CLASSES = ("ship", "aircraft", "car", "tank")       # smoke_tiny: 4 classes

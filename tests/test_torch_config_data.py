@@ -43,6 +43,8 @@ from sm3det_tpu_torch.utils import fileio as port_fileio
 from sm3det_tpu_torch.utils import image as port_image
 from sm3det_tpu_torch.utils.config import Config, compat_cfg
 from sm3det_tpu_torch.utils.registry import Registry, build_from_cfg
+from torch_jax_refs import (jax_refs_at_lowest_level,  # noqa: F401
+                            one_torch_thread)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = ["configs/smoke_tiny.py", "configs/sm3det_convnext_t.py",
@@ -204,24 +206,29 @@ def test_flagship_configs_reach_the_detector(monkeypatch, arch):
 
 
 @pytest.mark.parametrize("path,mtype,name", [
-    ("configs/local_configs/dota_van_t_orcnn.py", None, "VAN_moe"),
-    ("configs/local_configs/dota_lsk_t_orcnn.py", None, "LSKNet_moe"),
+    ("configs/local_configs/dota_van_t_orcnn.py", "OrientedRepPoints",
+     "OrientedRepPoints"),
+    ("configs/local_configs/dota_lsk_t_orcnn.py", "SwinTransformer_moe",
+     "SwinTransformer_moe"),
     ("configs/local_configs/dota_convnext_t_s2anet.py", "ReDet", "ReDet"),
-    ("configs/local_configs/dota_convnext_t_roitrans.py", "GlidingVertex",
-     "GlidingVertex")])
+    ("configs/local_configs/dota_convnext_t_roitrans.py", "ReResNet",
+     "ReResNet")])
 def test_unported_types_raise_by_name(path, mtype, name):
+    """A detector type, or a backbone type (the ``Swin`` and ``ReResNet``
+    names), the port does not have raises, naming it."""
     cfg = Config.fromfile(_cfg(path)).model.to_dict()
-    if mtype:
+    if mtype in ("SwinTransformer_moe", "ReResNet"):
+        cfg["backbone"]["type"] = mtype
+    else:
         cfg["type"] = mtype
     with pytest.raises(NotImplementedError, match=name):
         builder.build_detector(cfg, device="cpu")
 
 
 def test_configs_the_port_builds():
-    """61 of the 79 configs resolve to a detector the port builds (the DA
-    baseline and the BabelRS fine-tune among them); the 18 others are the
-    single-dataset LSKNet-MoE / VAN-MoE detectors, whose single-stem
-    backbone is not ported."""
+    """All 79 configs resolve to a detector the port builds (the DA
+    baseline, the BabelRS fine-tune and the 18 single-dataset LSKNet-MoE /
+    VAN-MoE detectors among them)."""
     paths = sorted(glob.glob(_cfg("configs/*.py"))
                    + glob.glob(_cfg("configs/local_configs/*.py"))
                    + glob.glob(_cfg("configs/BabelRS_configs/*.py")))
@@ -233,9 +240,12 @@ def test_configs_the_port_builds():
         except NotImplementedError as e:
             assert re.search(r"'(LSKNet|VAN)_moe'", str(e)), (path, e)
             refused.append(os.path.basename(path))
-    assert (len(paths), len(built), len(refused)) == (79, 61, 18)
+    assert (len(paths), len(built), len(refused)) == (79, 79, 0)
     assert "main_DA_convnext_t_orcnn_gfl.py" in built
     assert "BabelRS_20kstep.py" in built
+    assert {f"{d}_{b}_{a}_{h}.py" for d, h in (
+        ("dota", "orcnn"), ("dronevehicle", "orcnn"), ("sardet50k", "gfl"))
+        for b in ("lsk", "van") for a in "tsb"} <= set(built)
 
 
 def test_unported_keys_raise():
@@ -425,8 +435,8 @@ def test_coco_dataset_matches_jax(tmp_path):
     images, anns = [], []
     for i in range(3):
         Image.fromarray((rng.rand(32, 40, 3) * 255).astype(np.uint8)).save(
-            tmp_path / f"im{i}.jpg", quality=95)
-        images.append({"id": 100 + i, "file_name": f"im{i}.jpg"})
+            tmp_path / f"im{i}.png")
+        images.append({"id": 100 + i, "file_name": f"im{i}.png"})
         for j in range(3 + i):
             x, y = rng.uniform(0, 20, 2)
             w, h = rng.uniform(3, 12, 2)

@@ -50,6 +50,7 @@ from sm3det_tpu_torch.train.train_state import batch_to, trainable_params
 from test_torch_rcnn_slice import _assert_dets
 from test_torch_train_step import G, make_batch
 from test_torch_variant_train import _StageRngs, _split_keys
+from torch_jax_refs import jax_refs_at_lowest_level  # noqa: F401
 
 IMG = 64
 SHAPE = (IMG, IMG)

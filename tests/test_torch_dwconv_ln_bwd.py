@@ -17,6 +17,8 @@ from sm3det_tpu.ops.pallas.convnext_block_kernel import _dwconv_ln_math
 from sm3det_tpu_torch.ops.cuda import build
 from sm3det_tpu_torch.ops.cuda.convnext_block_kernel import (
     dwconv_ln_bwd_ref, dwconv_ln_ref, fused_dwconv_ln_train)
+from torch_jax_refs import (jax_refs_at_lowest_level,  # noqa: F401
+                            one_torch_thread)
 
 EPS = 1e-6
 CASES = [(16, 16, 96), (16, 16, 36), (9, 13, 96), (9, 13, 36)]

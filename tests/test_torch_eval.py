@@ -28,6 +28,9 @@ from sm3det_tpu_torch.core.patch import split_merge as port_sm
 from sm3det_tpu_torch.ops.cuda.hbb_iou_kernel import hbb_iou_ref
 from sm3det_tpu_torch.ops.cuda.rotated_iou_kernel import rotated_iou_ref
 
+from torch_jax_refs import (jax_merge_nms_jitted,  # noqa: F401
+                            jax_refs_at_lowest_level, one_torch_thread)
+
 THRS = np.round(0.5 + 0.05 * np.arange(10), 2)
 SCALES = [(0, 24), (24, 48), (48, 1000)]
 EDGES = np.array([24.0 ** 2, 48.0 ** 2])
@@ -311,7 +314,7 @@ def test_parse_patch_id_matches_jax():
         ("P0001", 1.0, 0.0, 600.0)
 
 
-def test_merge_and_submission_match_jax(tmp_path):
+def test_merge_and_submission_match_jax(tmp_path, jax_merge_nms_jitted):
     res = _patch_results(0)
     ref = jax_sm.merge_det_by_patch_ids(PATCH_IDS, res, NC)
     got = port_sm.merge_det_by_patch_ids(PATCH_IDS, res, NC, device="cpu")

@@ -28,6 +28,8 @@ from sm3det_tpu_torch.ops import box_convert as tbc
 from sm3det_tpu_torch.ops import nms as tnms
 from sm3det_tpu_torch.ops.cuda import rotated_iou_kernel as rik
 from sm3det_tpu_torch.ops.rotated_iou import box_iou_rotated, obb_corners
+from torch_jax_refs import (jax_refs_at_lowest_level,  # noqa: F401
+                            one_torch_thread)
 
 # the package re-exports the function nms under the module's name
 jnms = importlib.import_module("sm3det_tpu.ops.nms")

@@ -1626,3 +1626,113 @@ def test_linear_gate_moe_goes_through_row_3(cuda, dtype):
     if dtype == torch.float32:
         with torch.no_grad():
             _check(got.cpu(), layer(x), dtype)
+
+
+# ---- the rest of the zoo: GV, rotated FCOS / ATSS / Faster R-CNN --------
+
+ZOO_REST = {
+    # the kernels one bf16 train step launches: row 10 for the 18 blocks
+    # of ConvNeXt-T forward and backward; the horizontal RPN's NMS (row 4's
+    # mask and the keep scan) and the horizontal RoIs' align (rows 7 and
+    # 8) of the two-stage ones; row 5's matrix mode for ATSS's assigner
+    "GlidingVertex": {"hbb_nms_mask": 1, "nms_keep": 1, "rotated_iou": 0,
+                      "roi_align_rotated": 1, "roi_align_rotated_bwd": 1},
+    "RotatedFasterRCNN": {"hbb_nms_mask": 1, "nms_keep": 1,
+                          "rotated_iou": 0, "roi_align_rotated": 1,
+                          "roi_align_rotated_bwd": 1},
+    "RotatedATSS": {"hbb_nms_mask": 0, "rotated_iou": 1,
+                    "roi_align_rotated": 0},
+    "RotatedFCOS": {"hbb_nms_mask": 0, "rotated_iou": 0,
+                    "roi_align_rotated": 0},
+}
+ZOO_DOTA_CFG = "configs/local_configs/dota_convnext_t_orcnn.py"
+
+
+@pytest.mark.parametrize("mtype", list(ZOO_REST))
+def test_zoo_rest_train_steps_go_through_their_kernels(cuda, mtype):
+    """One bf16 AdamW step of each of the four detectors on the ConvNeXt-T
+    zoo config with the type overridden, 2 x 800^2 with 16 gts an image:
+    finite losses and the launches of ``ZOO_REST``."""
+    from sm3det_tpu_torch.train.optim import make_optimizer
+    from sm3det_tpu_torch.train.train_state import (build_train_step,
+                                                    init_train_state,
+                                                    trainable_params)
+    model = _zoo_model(ZOO_DOTA_CFG, mtype, cuda, trainable=True)
+    assert type(model).__name__ == mtype
+    init_fn, update_fn, _ = make_optimizer(list(trainable_params(model)),
+                                           warmup_iters=1)
+    state = init_train_state(model, init_fn)
+    step = build_train_step(model, update_fn)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    gts = _rboxes(gen, 2, 16, cuda, span=700.0) + torch.tensor(
+        [50.0, 50.0, 8.0, 8.0, 0.0], device=cuda)
+    batch = {"img": torch.rand(2, 800, 800, 3, generator=gen, device=cuda),
+             "gt_obbs": gts,
+             "gt_labels": torch.randint(0, 26, (2, 16), generator=gen,
+                                        device=cuda),
+             "gt_mask": torch.ones(2, 16, dtype=torch.bool, device=cuda)}
+    build.reset_launches()
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(v)) for v in metrics.values()), metrics
+    want = dict(ZOO_REST[mtype], fused_dwconv_ln_train=18,
+                fused_dwconv_ln_train_bwd=18)
+    assert {k: build.LAUNCHES[k] for k in want} == want
+
+
+# ---- image files: the compiled PNG unfilter and nvJPEG --------------------
+
+IMAGES = "tests/data/images"
+
+
+def test_png_unfilter_compiled_matches_numpy_bit_for_bit(cuda):
+    """The compiled host unfilter against the numpy one on the committed
+    PNGs and on a 256 x 192 RGB image whose rows cycle through the five
+    filters; the card's reader goes through the compiled one."""
+    import glob
+    import zlib
+
+    from sm3det_tpu_torch.utils import image as image_mod
+    rng = np.random.RandomState(0)
+    arr = rng.randint(0, 256, (192, 256, 3)).astype(np.uint8)
+    files = [open(p, "rb").read() for p in
+             sorted(glob.glob(f"{IMAGES}/*.png"))]
+    files.append(image_mod.encode_png(arr, filters=(0, 1, 2, 3, 4)))
+    for content in files:
+        before = dict(image_mod.DECODES)
+        got = image_mod.imfrombytes(content, "unchanged", device=cuda)
+        ref = image_mod.imfrombytes(content, "unchanged")
+        assert image_mod.DECODES["png_compiled"] == \
+            before["png_compiled"] + 1
+        np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(
+        image_mod.imfrombytes(files[-1], "unchanged", "rgb", device=cuda),
+        arr)
+    # the unfilter alone, on the inflated rows of the five-filter image
+    # (IDAT starts after the 8-byte magic, IHDR's 25 bytes and its own 8)
+    rows = zlib.decompress(files[-1][41:-16])
+    np.testing.assert_array_equal(
+        image_mod.png_unfilter(rows, 192, 256 * 3, 3, device=cuda),
+        image_mod.png_unfilter_ref(rows, 192, 256 * 3, 3))
+
+
+@pytest.mark.parametrize("name", ["j420", "j444", "jgray"])
+def test_nvjpeg_within_two_levels_of_pil(cuda, name):
+    """nvJPEG against PIL's decode stored beside each JPEG (4:2:0, 4:4:4,
+    gray): the IDCTs and chroma upsampling differ, so within 2 levels on
+    the mean and 8 at most."""
+    from sm3det_tpu_torch.ops.cuda import nvjpeg
+    from sm3det_tpu_torch.utils import image as image_mod
+    if nvjpeg.missing() is not None:
+        pytest.skip(nvjpeg.missing())
+    with open(f"{IMAGES}/{name}.jpg", "rb") as f:
+        content = f.read()
+    ref = np.load(f"{IMAGES}/{name}.npy").astype(np.int32)
+    got = image_mod.imfrombytes(content, "unchanged", "rgb", device=cuda)
+    assert got.shape == ref.shape and got.dtype == np.uint8
+    diff = np.abs(got.astype(np.int32) - ref)
+    assert diff.mean() <= 2.0 and diff.max() <= 8, (diff.mean(), diff.max())
+    color = image_mod.imfrombytes(content, "color", device=cuda)
+    assert color.shape == (48, 64, 3)
+    gray = image_mod.imfrombytes(content, "grayscale", device=cuda)
+    assert gray.shape == (48, 64)

@@ -21,6 +21,7 @@ from sm3det_tpu_torch.ops.cuda.convnext_block_kernel import (
     fused_convnext_block, fused_dwconv_ln, fused_layernorm)
 from sm3det_tpu_torch.ops.cuda.hbb_iou_kernel import hbb_iou
 from sm3det_tpu_torch.ops.cuda.moe_groupgemm_kernel import moe_ffn_grouped
+from torch_jax_refs import one_torch_thread  # noqa: F401
 
 
 def _block_params(rng, c, hidden):

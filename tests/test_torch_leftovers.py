@@ -37,6 +37,7 @@ from sm3det_tpu_torch.ops import box_convert as bc
 from sm3det_tpu_torch.ops import nms
 from sm3det_tpu_torch.ops import roi_align_rotated as align
 from sm3det_tpu_torch.ops import rotated_iou as riou
+from torch_jax_refs import jax_refs_at_lowest_level  # noqa: F401
 
 jnms = sys.modules["sm3det_tpu.ops.nms"]
 jalign = sys.modules["sm3det_tpu.ops.roi_align_rotated"]

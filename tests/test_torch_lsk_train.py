@@ -35,6 +35,7 @@ from sm3det_tpu_torch.train.train_state import (batch_to, build_train_step,
 
 from test_torch_lsknet import DIMS
 from test_torch_train_step import CFG, RPN_REG_GAIN, make_batch
+from torch_jax_refs import jax_refs_at_lowest_level  # noqa: F401
 
 LSK_CFG = copy.deepcopy(CFG)
 LSK_CFG["backbone"] = dict(

@@ -41,6 +41,7 @@ from sm3det_tpu_torch.models.builder import build_detector
 from sm3det_tpu_torch.utils.config import Config
 
 from test_torch_rcnn_slice import _assert_dets
+from torch_jax_refs import jax_refs_at_lowest_level  # noqa: F401
 
 IMG = 64
 SHAPE = (IMG, IMG)

@@ -31,6 +31,8 @@ from sm3det_tpu_torch.models import moe
 from sm3det_tpu_torch.models.dense_heads import gfl_head
 from sm3det_tpu_torch.models.necks.fpn import MultitaskFPN
 from sm3det_tpu_torch.ops import nms
+from torch_jax_refs import (jax_refs_at_lowest_level,  # noqa: F401
+                            one_torch_thread)
 
 jnms = sys.modules["sm3det_tpu.ops.nms"]
 

@@ -29,6 +29,8 @@ from sm3det_tpu_torch.ops import nms as tnms
 from sm3det_tpu_torch.ops.cuda import hbb_iou_kernel as hik
 from sm3det_tpu_torch.ops.cuda import nms_keep_kernel as nkk
 from sm3det_tpu_torch.ops.cuda import rotated_iou_kernel as rik
+from torch_jax_refs import (jax_refs_at_lowest_level,  # noqa: F401
+                            one_torch_thread)
 
 # the package re-exports the function nms under the module's name
 jnms = importlib.import_module("sm3det_tpu.ops.nms")

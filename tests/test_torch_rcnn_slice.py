@@ -41,6 +41,8 @@ from sm3det_tpu_torch.models.detectors.trisource import (
     DEFAULT_MODEL_CFG, TriSourceDetector, make_rcnn_coder)
 from sm3det_tpu_torch.models.roi_heads.oriented_roi_head import \
     roi_head_get_bboxes
+from torch_jax_refs import (jax_refs_at_lowest_level,  # noqa: F401
+                            one_torch_thread)
 
 IMG = 64
 SHAPE = (IMG, IMG)

@@ -44,6 +44,7 @@ from test_torch_lsknet import flax_params_of
 from test_torch_train_loop import CFG as NOISY_CFG
 from test_torch_train_loop import _assert_states_equal, _batch
 from test_torch_train_step import make_batch
+from torch_jax_refs import jax_refs_at_lowest_level  # noqa: F401
 
 DWA_CFG = dict(LSK_CFG, multi_tasks_reweight=None)
 

@@ -25,6 +25,7 @@ from sm3det_tpu_torch.models.roi_heads.oriented_roi_head import \
 from sm3det_tpu_torch.ops.cuda import roi_align_kernel as rak
 from sm3det_tpu_torch.ops.roi_align_rotated import (
     roi_align_rotated_pyramid, route_levels)
+from torch_jax_refs import one_torch_thread  # noqa: F401
 
 STRIDES = (4, 8, 16, 32)
 SIZE = 256

@@ -41,6 +41,7 @@ from sm3det_tpu_torch.train.train_state import batch_to
 
 from test_detector_variants import APPLY_RNGS, IMG, _batch
 from test_torch_zoo import CFG
+from torch_jax_refs import jax_refs_at_lowest_level  # noqa: F401
 
 NC, G = CFG["num_classes"], 4
 CH = CFG["neck"]["out_channels"]

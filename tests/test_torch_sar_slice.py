@@ -23,6 +23,8 @@ from sm3det_tpu.models.detectors.trisource import (
 from sm3det_tpu_torch.convert import SUBTREES, from_flax, to_flax
 from sm3det_tpu_torch.models.detectors.trisource import (
     DEFAULT_MODEL_CFG, TriSourceDetector)
+from torch_jax_refs import (jax_refs_at_lowest_level,  # noqa: F401
+                            one_torch_thread)
 
 IMG = 64
 TOL = dict(rtol=1e-4, atol=1e-4)

@@ -20,6 +20,7 @@ from sm3det_tpu_torch.data import loader as port_loader
 from sm3det_tpu_torch.data import sampler as port_sampler
 from sm3det_tpu_torch.data import transforms as port_T
 from sm3det_tpu_torch.utils.config import Config
+from torch_jax_refs import one_torch_thread  # noqa: F401
 
 SOI = "configs/_base_/soi_det.py"
 

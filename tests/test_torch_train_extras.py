@@ -55,6 +55,7 @@ from sm3det_tpu_torch.utils.config import Config
 
 from test_torch_train_loop import CFG as ATTO_CFG
 from test_torch_train_loop import _assert_states_equal, _batch
+from torch_jax_refs import jax_refs_at_lowest_level  # noqa: F401
 
 REL = 1e-6
 ITERS = (0, 1, 5, 9, 10, 11, 37, 59, 60, 61, 99, 100, 119, 150, 199, 200,

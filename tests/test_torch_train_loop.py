@@ -49,6 +49,7 @@ from sm3det_tpu_torch.train.optim import make_optimizer
 from sm3det_tpu_torch.train.train_state import (batch_to, build_train_step,
                                                 init_train_state,
                                                 trainable_params)
+from torch_jax_refs import jax_refs_at_lowest_level  # noqa: F401
 
 TIMING = ("elapsed_s", "data_time", "step_time")
 SMOKE = "configs/smoke_tiny.py"

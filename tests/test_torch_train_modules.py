@@ -46,6 +46,8 @@ from sm3det_tpu_torch.ops.cuda.roi_align_kernel import \
 from sm3det_tpu_torch.ops.roi_align_rotated import route_levels
 from sm3det_tpu_torch.train import dla
 from sm3det_tpu_torch.train.optim import make_optimizer
+from torch_jax_refs import (jax_refs_at_lowest_level,  # noqa: F401
+                            one_torch_thread)
 
 TOL = dict(rtol=1e-5, atol=1e-6)     # fp32, summation order only
 

@@ -8,6 +8,7 @@ import pytest
 from test_torch_lsknet import (check_from_flax, check_joint,  # noqa: F401
                                check_simple_test, check_stages, make_pair,
                                one_thread)
+from torch_jax_refs import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

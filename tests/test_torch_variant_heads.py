@@ -40,6 +40,7 @@ from sm3det_tpu_torch.models.dense_heads import rotated_retina_head as prh
 from sm3det_tpu_torch.models.dense_heads import rpn_head as prpn
 from sm3det_tpu_torch.models.roi_heads import standard_roi_head as psrh
 from sm3det_tpu_torch.ops.rotated_iou import box_iou_rotated_chunked
+from torch_jax_refs import jax_refs_at_lowest_level  # noqa: F401
 
 IMG = 64
 C = 32

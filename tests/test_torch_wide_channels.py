@@ -27,6 +27,8 @@ from sm3det_tpu_torch.models.backbones import convnext
 from sm3det_tpu_torch.ops.cuda import build
 from sm3det_tpu_torch.ops.cuda.convnext_block_kernel import (
     MAX_CHANNELS, fused_dwconv_ln, fused_layernorm)
+from torch_jax_refs import (jax_refs_at_lowest_level,  # noqa: F401
+                            one_torch_thread)
 
 WIDE = [1536, 2048]
 TOL = dict(rtol=1e-4, atol=1e-4)

@@ -64,6 +64,7 @@ from sm3det_tpu_torch.utils.config import Config
 
 from test_detector_variants import APPLY_RNGS, CFG as VARIANT_CFG, IMG, \
     _batch
+from torch_jax_refs import jax_refs_at_lowest_level  # noqa: F401
 
 CFG = copy.deepcopy(VARIANT_CFG)
 CFG["backbone"] = dict(arch="atto", drop_path_rate=0.0,
@@ -308,11 +309,14 @@ def test_unlocked_configs_build(monkeypatch, name):
 
 
 @pytest.mark.parametrize("path,override,name", [
-    (f"{LC}dota_convnext_t_roitrans.py", {"type": "RotatedFCOS"}, "item 7"),
+    (f"{LC}dota_convnext_t_roitrans.py", {"type": "OrientedRepPoints"},
+     "item 7"),
     (f"{LC}dronevehicle_convnext_t_s2anet.py",
      {"backbone": {"type": "ConvNeXt_DA_MultiInput"}}, "single-stem"),
-    (f"{LC}dota_van_t_orcnn.py", {}, "item 7"),
-    (f"{LC}sardet50k_lsk_t_gfl.py", {}, "item 7")])
+    (f"{LC}dota_van_t_orcnn.py", {"backbone": {"type": "SwinTransformer_moe"}},
+     "item 7"),
+    (f"{LC}sardet50k_lsk_t_gfl.py", {"backbone": {"type": "ReResNet"}},
+     "item 7")])
 def test_still_unported_raise(path, override, name):
     mc = Config.fromfile(path).model.to_dict()
     for k, v in override.items():
