@@ -149,7 +149,35 @@ Phases (any failure exits non-zero):
    step of each: finite losses, syncs, launches; (d) the compiled PNG
    unfilter bit for bit, nvJPEG within 2 levels mean and 8 max of PIL's
    stored decodes, ``tools.test`` over 16 PNGs the port wrote. The phase
-   must take at most 120 s, the whole script 1200 s.
+   must take at most 120 s;
+14. the RepPoints family, ReDet and the CSL heads: (a) fp32, TF32 off,
+   2 x 256^2 at full width, card against host: ``OrientedRepPoints``,
+   ``RotatedRepPoints`` (with ``spatial_border``), ``SAMRepPoints`` and
+   ``GRepPoints`` on ``dota_convnext_t_orcnn.py`` (ConvNeXt-T, neck 256,
+   26 classes) and ``ReDet`` (JAX's default ReResNet, ReFPN 256): the
+   backbone levels, neck levels and head outputs within 1e-3 of scale,
+   one train forward's losses within 1e-3 relative and each top-level
+   subtree's gradient norm within 1e-2 (the host handed the card's
+   assignments, proposals and picks among equal-area rectangles, which
+   rounding decides where a point set's hull is a triangle; the host's own
+   assignments from the card's inputs must equal the card's, and how many
+   picks differ is printed); every launch of rows 4, 5, 7, 8 and the keep
+   scan in the card's run held against its plain version on the same
+   inputs (bits, keeps and IoUs bit for bit, the RoI align and its
+   backward within 1e-4 of scale) and counted against the config's
+   launches; ``CSLRetinaHead`` /
+   ``csl_angle_loss`` and ``CSLRotatedFCOSHead`` / ``csl_fcos_loss`` on
+   those neck levels, outputs, losses and gradient norms the same way;
+   (b) one bf16 AdamW train step of each of the five detectors at 2 x
+   800^2: finite losses, host syncs a step, launches a step equal to
+   ``zoo14_launches`` of the config, the first warm step's launches of
+   rows 4, 5, 7, 8 and the scan held against their plain versions as in
+   (a) (bf16 RoI align within 2^-6 of scale), peak memory, the step time
+   by CUDA
+   events (median of 5 steps after 2 warm ones); (c) the plain convex
+   geometry at that step's shapes (``min_area_polygons``, ``convex_giou``
+   forward + backward) beside its least time. The phase must take at
+   most 150 s, the whole script 1200 s.
 
 Phase 3 also holds the variants' new shapes: row 4's mask mode and the
 keep scan at the H2 SAR RPN's 4507 candidates an image, row 5's matrix
@@ -3931,6 +3959,580 @@ def phase13(torch, dev, smi, build):
     return failures, rec, lsk_launches
 
 
+# the RepPoints family, ReDet and the CSL heads (phase 14)
+REPPOINTS_TYPES = ("OrientedRepPoints", "RotatedRepPoints", "SAMRepPoints",
+                   "GRepPoints")
+REDET_CFG = dict(type="ReDet", num_classes=26, angle_version="le90",
+                 backbone=dict(type="ReResNet"),
+                 neck=dict(type="ReFPN", out_channels=256, num_outs=5))
+ZOO14_HOST = (2, 256)       # 14a: images, size
+ZOO14_TRAIN = (2, 800)      # 14b: images, size
+ZOO14_STEPS = 5             # 14b: timed steps after 2 warm ones
+ZOO14_PHASE_LIMIT_S = 150
+
+
+def zoo14_mc(mtype):
+    """The model config of a phase-14 detector: ``ZOO_DOTA_CFG`` with the
+    type overridden (``spatial_border`` on for ``RotatedRepPoints``), or
+    ``REDET_CFG``."""
+    import copy
+
+    from sm3det_tpu_torch.utils.config import Config
+    if mtype == "ReDet":
+        return copy.deepcopy(REDET_CFG)
+    mc = Config.fromfile(ZOO_DOTA_CFG).model.to_dict()
+    mc["type"] = mtype
+    if mtype == "RotatedRepPoints":
+        mc["spatial_border"] = True
+    return mc
+
+
+def zoo14_launches(mc):
+    """The kernel launches of one train step, worked out from the config:
+    for a ConvNeXt zoo detector the trainable dw7x7 + LN forward and
+    backward once a block (row 10; the train step runs no row 2 or row 9
+    launch) and, for ``OrientedRepPoints``, the refine assignment's one
+    matrix launch of row 5 for the batch (the variants assign on the
+    plain convex IoU); for ReDet the RPN's one horizontal mask launch for
+    every image and level (row 4) and its keep scan, the R-CNN sampler's
+    one matrix launch (row 5), one pyramid align (row 7) and its backward
+    (row 8)."""
+    from sm3det_tpu_torch.models.backbones.convnext import ARCH_SETTINGS
+    if mc["type"] == "ReDet":
+        return dict(hbb_nms_mask=1, nms_keep=1, rotated_iou=1,
+                    roi_align_rotated=1, roi_align_rotated_bwd=1)
+    blocks = sum(ARCH_SETTINGS[mc["backbone"].get("arch", "tiny")]["depths"])
+    want = dict(fused_dwconv_ln_train=blocks,
+                fused_dwconv_ln_train_bwd=blocks)
+    if mc["type"] == "OrientedRepPoints":
+        want["rotated_iou"] = 1
+    return want
+
+
+def geometry14(torch, dev, smi):
+    """14c. The plain convex geometry on the card at a RepPoints train
+    step's shapes (2 x 13343 point sets of 9 at 800^2, strides 8-128):
+    ``min_area_polygons`` forward, and ``convex_giou`` against aligned gt
+    quads forward + backward, by CUDA events (median of 20 after 3 warm),
+    beside the least time of the same work: each set's 81 candidate
+    directions project its 9 points (2 x 3 flops a point) and reduce 4
+    extents (4 x 9 compares), ~12 flops a direction more for the area and
+    the choice, in fp32 at the card's 67 TFLOP/s; the points read once
+    and the corners written once at 3.35 TB/s. No kernel: the JAX package
+    computes it in plain jnp, and so does the port."""
+    from sm3det_tpu_torch.ops.geometry_extras import (convex_giou,
+                                                      min_area_polygons)
+    gen = torch.Generator(device=dev).manual_seed(19)
+    n = sum((-(-800 // st)) ** 2 for st in (8, 16, 32, 64, 128))
+    ctr = torch.rand(2, n, 1, 2, generator=gen, device=dev) * 800
+    pts = ctr + torch.randn(2, n, 9, 2, generator=gen, device=dev) * 12
+    gts = (ctr[..., 0, :].repeat(1, 1, 4) + torch.randn(
+        2, n, 8, generator=gen, device=dev) * 20)
+    sets = 2 * n
+    flops = sets * (81 * (9 * 6 + 4 * 9 + 12))
+    nbytes = sets * (9 * 2 * 4 + 8 * 4)
+    bound, bound_by = bound_ms(nbytes, [(flops, "float32")])
+
+    def time_ms(fn):
+        for _ in range(3):
+            fn()
+        times = []
+        for _ in range(20):
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            fn()
+            ev1.record()
+            torch.cuda.synchronize()
+            times.append(ev0.elapsed_time(ev1))
+        return statistics.median(times)
+
+    def giou_fwd_bwd():
+        p = pts.detach().requires_grad_(True)
+        (1 - convex_giou(p, gts)).sum().backward()
+
+    with torch.no_grad():
+        rect_ms = time_ms(lambda: min_area_polygons(pts))
+    giou_ms = time_ms(giou_fwd_bwd)
+    out = dict(sets=sets, min_area_ms=rect_ms, convex_giou_fwd_bwd_ms=giou_ms,
+               bound_ms=bound, bound_by=bound_by)
+    log(f"[zoo14 geometry] {sets} point sets of 9 (2 x {n}, 800^2): "
+        f"min_area_polygons {rect_ms:.3f} ms, convex_giou forward + "
+        f"backward {giou_ms:.3f} ms (CUDA events, median of 20); the "
+        f"rectangles' least time {bound:.4f} ms ({bound_by}); card {smi}")
+    return out
+
+
+def _detached(torch, x, to=None):
+    """``x`` with each tensor in it (in tuples, lists and dicts) detached
+    and copied, to device ``to`` where given."""
+    if torch.is_tensor(x):
+        return x.detach().clone() if to is None else x.detach().to(to)
+    if isinstance(x, (tuple, list)):
+        return type(x)(_detached(torch, v, to) for v in x)
+    if isinstance(x, dict):
+        return {k: _detached(torch, v, to) for k, v in x.items()}
+    return x
+
+
+class _Replay:
+    """Record what a function returns on the card and hand it to the host,
+    so that both sides take the same discrete choices. With ``check`` the
+    host also computes the function itself on the card's inputs and counts
+    the elements that differ from the card's answer; with ``gate`` as
+    well, any difference is a failure."""
+
+    def __init__(self, torch, module, name, check=True, gate=True):
+        self.torch, self.module, self.name = torch, module, name
+        self.real = getattr(module, name)
+        self.check, self.gate = check, check and gate
+        self.recorded, self.i, self.differ = [], 0, 0
+
+    def _card(self, *a, **kw):
+        out = self.real(*a, **kw)
+        self.recorded.append(
+            (_detached(self.torch, (a, kw)) if self.check else None, out))
+        return out
+
+    def _host(self, *a, **kw):
+        card_in, out = self.recorded[self.i]
+        self.i += 1
+        outs = out if isinstance(out, tuple) else (out,)
+        if self.check:
+            ca, ckw = _detached(self.torch, card_in, "cpu")
+            own = self.real(*ca, **ckw)
+            owns = own if isinstance(own, tuple) else (own,)
+            self.differ += sum(int((o != c.cpu()).sum())
+                               for o, c in zip(owns, outs))
+        host = tuple(t.cpu() for t in outs)
+        return host if isinstance(out, tuple) else host[0]
+
+    def side(self, which):
+        setattr(self.module, self.name,
+                self._card if which == "card" else self._host)
+
+    def restore(self):
+        setattr(self.module, self.name, self.real)
+
+
+class _KernelTap:
+    """Hold every launch of rows 4, 5, 7 and 8 and of the keep scan that a
+    run makes against the plain version on the same inputs, at the shapes
+    and values the path gives them. ``on`` wraps the launch functions,
+    which then record their inputs and output; ``off`` restores them;
+    ``verify`` compares: the masks, keeps and IoUs bit for bit (the IoUs on
+    the pairs whose IoU is defined, as phase 3), the RoI align and its
+    backward within phase 3's tolerance of the scale."""
+
+    TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -6}
+
+    def __init__(self, torch):
+        from sm3det_tpu_torch.ops.cuda import hbb_iou_kernel as hik
+        from sm3det_tpu_torch.ops.cuda import nms_keep_kernel as nkk
+        from sm3det_tpu_torch.ops.cuda import roi_align_kernel as rak
+        from sm3det_tpu_torch.ops.cuda import rotated_iou_kernel as rik
+        self.torch, self.hik, self.nkk, self.rak, self.rik = \
+            torch, hik, nkk, rak, rik
+        self.sites = (("hbb_nms_mask", hik, "_launch_mask"),
+                      ("nms_keep", nkk, "_launch"),
+                      ("rotated_iou", rik, "_launch"),
+                      ("roi_align_rotated", rak, "_launch"),
+                      ("roi_align_rotated_bwd", rak,
+                       "roi_align_rotated_pyramid_bwd"))
+        self.calls, self.real = [], {}
+
+    def on(self):
+        self.calls = []
+        for name, mod, attr in self.sites:
+            real = self.real[name] = getattr(mod, attr)
+
+            def wrapped(*a, _real=real, _name=name):
+                out = _real(*a)
+                self.calls.append((_name, _detached(self.torch, a),
+                                   _detached(self.torch, out)))
+                return out
+            setattr(mod, attr, wrapped)
+
+    def off(self):
+        for name, mod, attr in self.sites:
+            setattr(mod, attr, self.real[name])
+
+    def verify(self):
+        """(launches by kernel, [(kernel, what was compared, equal)])."""
+        torch, nkk = self.torch, self.nkk
+        from sm3det_tpu_torch.ops.roi_align_rotated import \
+            roi_align_rotated_pyramid
+        counts, checked = {}, []
+
+        def near(got, ref):
+            tol = self.TOL[str(ref.dtype)[6:]]
+            err, scale = max_err(got, ref)
+            return bool(torch.isfinite(got.float()).all()) and \
+                err <= tol * max(scale, 1.0), err
+
+        for name, a, out in self.calls:
+            counts[name] = counts.get(name, 0) + 1
+            if name == "hbb_nms_mask":
+                n = a[0].shape[-2]
+                bits = nkk.unpack_bits(out, n)
+                ok = torch.equal(bits, nkk.unpack_bits(
+                    self.hik.hbb_nms_mask_ref(*a), n))
+                what = (f"bits of {tuple(a[0].shape)}, {int(bits.sum())} "
+                        f"set, bit-equal {ok}")
+            elif name == "nms_keep":
+                ok = torch.equal(out, nkk.nms_keep_ref(*a))
+                what = (f"keep of {tuple(a[0].shape)}, {int(out.sum())} "
+                        f"kept, equal {ok}")
+            elif name == "rotated_iou":
+                ref = self.rik.rotated_iou_ref(*a)
+                real1 = (a[0][..., 2] * a[0][..., 3]) > 0
+                real2 = (a[1][..., 2] * a[1][..., 3]) > 0
+                defined = real1[..., :, None] == real2[..., None, :]
+                err = float(torch.where(defined, (out - ref).abs(),
+                                        0.0).max())
+                ok = bool(torch.isfinite(out).all()) and err == 0.0
+                what = (f"IoU {tuple(a[0].shape)} x {tuple(a[1].shape)}, "
+                        f"max abs err {err:.3e}")
+            elif name == "roi_align_rotated":
+                feats, rois, lvls, out_size, strides, sample_num = a
+                ok, err = near(out, roi_align_rotated_pyramid(
+                    feats, rois, lvls, out_size, featmap_strides=strides,
+                    sample_num=sample_num))
+                what = f"align {tuple(out.shape)}, max abs err {err:.3e}"
+            else:
+                ref = self.rak.roi_align_rotated_pyramid_bwd_ref(*a)
+                checks = [near(g, r) for g, r in zip(out, ref)]
+                ok = all(c[0] for c in checks)
+                what = (f"backward of {tuple(a[0].shape)}, max abs err "
+                        f"{max(c[1] for c in checks):.3e}")
+            checked.append((name, what, ok))
+        self.calls = []
+        return counts, checked
+
+
+def phase14(torch, dev, smi, build):
+    """14. The RepPoints family, ReDet and the CSL heads on the card (see
+    the module docstring). Returns (failures, record, launches of
+    ``OrientedRepPoints``' train step)."""
+    import copy
+
+    import numpy as np
+
+    from sm3det_tpu_torch.core.bbox.angle_coder import CSLCoder
+    from sm3det_tpu_torch.models.builder import build_detector
+    from sm3det_tpu_torch.models.dense_heads import \
+        oriented_reppoints_head as orh_mod
+    from sm3det_tpu_torch.models.dense_heads import \
+        reppoints_variants as rv_mod
+    from sm3det_tpu_torch.models.dense_heads.rotated_fcos_head import (
+        CSLRotatedFCOSHead, csl_fcos_loss)
+    from sm3det_tpu_torch.models.dense_heads.rotated_retina_head import (
+        CSLRetinaHead, csl_angle_loss)
+    from sm3det_tpu_torch.models.detectors import trisource as tri_mod
+    from sm3det_tpu_torch.ops import geometry_extras as ge_mod
+    from sm3det_tpu_torch.train.optim import make_optimizer
+    from sm3det_tpu_torch.train.train_state import (
+        batch_to, build_train_step, init_train_state, trainable_params)
+
+    failures, rec = [], {"card_host": {}, "train": {}}
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False     # as main: fp32 is fp32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu = torch.device("cpu")
+    tol = 1e-3
+
+    def close(tag, a, b):
+        err, scale = max_err(a.cpu(), b.cpu())
+        ok = bool(torch.isfinite(a.float()).all()) and a.shape == b.shape \
+            and err <= tol * max(scale, 1.0)
+        if not ok:
+            failures.append(f"zoo14 card/host {tag}")
+            log(f"[zoo14 fp32]   {tag} {tuple(a.shape)}: max abs err "
+                f"{err:.3e} (max |ref| {scale:.3e}) FAIL")
+        return err / max(scale, 1.0)
+
+    def flat(x):
+        return [x] if torch.is_tensor(x) else [t for i in x for t in flat(i)]
+
+    def losses_and_norms(tag, runs):
+        (ld, nd), (lh, nh) = runs["card"], runs["host"]
+        bad = [k for k in lh if not (np.isfinite(ld[k]) and abs(
+            ld[k] - lh[k]) <= tol * abs(lh[k]) + 1e-7)]
+        bad += [f"|grad {k}|" for k in nh if not (np.isfinite(nd[k]) and abs(
+            nd[k] - nh[k]) <= 1e-2 * nh[k] + 1e-12)]
+        worst_l = max(abs(ld[k] - lh[k]) / max(abs(lh[k]), 1e-12)
+                      for k in lh)
+        worst_g = max(abs(nd[k] - nh[k]) / max(nh[k], 1e-12) for k in nh)
+        failures.extend(f"zoo14 {tag} card/host {k}" for k in bad)
+        return bad, worst_l, worst_g
+
+    tap = _KernelTap(torch)
+
+    def held(tag, want):
+        """Verify the tap's launches of a run: each equal to the plain
+        version, and as many of each as the config works out."""
+        counts, checked = tap.verify()
+        names = {n for n, _, _ in tap.sites}
+        want = {k: v for k, v in want.items() if k in names}
+        for name, what, ok in checked:
+            if not ok:
+                failures.append(f"zoo14 {tag} {name} differs from the "
+                                f"plain version")
+            log(f"[zoo14 kernels] {tag} {name}: {what} "
+                f"{'ok' if ok else 'FAIL'}")
+        if counts != want:
+            failures.append(f"zoo14 {tag} held launches {counts} != {want}")
+            log(f"[zoo14 kernels] {tag}: launches {counts}, worked out "
+                f"{want} FAIL")
+        return counts
+
+    def grads_of(losses, params):
+        grads = torch.autograd.grad(sum(losses.values()),
+                                    list(params.values()), allow_unused=True)
+        return [torch.zeros_like(p) if g is None else g
+                for p, g in zip(params.values(), grads)]
+
+    # (a) card against host, fp32
+    n_img, size = ZOO14_HOST
+    rng = np.random.RandomState(17)
+    batch = make_train_batch(rng, (0, n_img, 0), size, REFINE_GTS)["rgb"]
+    imgs = torch.from_numpy(batch["img"]).to(dev)
+    csl_levels = None
+    for mtype in REPPOINTS_TYPES + ("ReDet",):
+        t0 = time.perf_counter()
+        mc = zoo14_mc(mtype)
+        card = build_detector(mc, device=dev, compute_dtype="float32",
+                              seed=0, trainable=True)
+        host = copy.deepcopy(card).to(cpu)
+        worst = 0.0
+        with torch.no_grad():
+            if mtype == "ReDet":
+                f_d = card.backbone(imgs)
+                f_h = host.backbone(imgs.cpu())
+                x_d = card.neck(f_d)
+                x_h = host.neck([t.cpu() for t in f_d])
+                heads = [("rpn_head", card.rpn_head(x_d),
+                          host.rpn_head([t.cpu() for t in x_d]))]
+            else:
+                f_d = card.backbone(imgs)
+                f_h = host.backbone(imgs.cpu())
+                x_d = card._neck(f_d)
+                x_h = host._neck([t.cpu() for t in f_d])
+                heads = [("bbox_head", card.bbox_head(x_d),
+                          host.bbox_head([t.cpu() for t in x_d]))]
+                if csl_levels is None:
+                    csl_levels = [t.detach() for t in x_d]
+            for lvl, (a, b) in enumerate(zip(f_d, f_h)):
+                worst = max(worst, close(f"{mtype} level {lvl}", a, b))
+            for lvl, (a, b) in enumerate(zip(x_d, x_h)):
+                worst = max(worst, close(f"{mtype} neck {lvl}", a, b))
+            for hname, od, oh in heads:
+                for j, (a, b) in enumerate(zip(flat(od), flat(oh))):
+                    worst = max(worst, close(f"{mtype} {hname} {j}", a, b))
+        # the host is handed the card's proposals (their sigmoid top-k
+        # orders near-equal scores by each device's rounding; the kernels
+        # inside are held by the tap), least-rectangle picks (equal areas
+        # broken by rounding: counted, not gated) and assignments (its own,
+        # from the card's inputs, must equal them)
+        replays = [_Replay(torch, tri_mod, "rpn_get_proposals", check=False),
+                   _Replay(torch, ge_mod, "_pick", gate=False),
+                   _Replay(torch, orh_mod, "init_assign"),
+                   _Replay(torch, orh_mod, "max_iou_assign"),
+                   _Replay(torch, rv_mod, "init_assign"),
+                   _Replay(torch, rv_mod, "convex_assign"),
+                   _Replay(torch, rv_mod, "sas_assign")]
+        runs = {}
+        for side, m, dv in (("card", card, dev), ("host", host, cpu)):
+            for r in replays:
+                r.side(side)
+            if side == "card":
+                tap.on()
+            try:
+                params = trainable_params(m)
+                losses = m(batch_to({"d": batch}, dv)["d"],
+                           gen=torch.Generator().manual_seed(5))
+                grads = grads_of(losses, params)
+            finally:
+                tap.off()
+                for r in replays:
+                    r.restore()
+            runs[side] = ({k: float(v.detach()) for k, v in losses.items()},
+                          subtree_norms(torch, list(params), grads))
+            del losses, grads
+            if side == "card":
+                tapped = held(f"{mtype} fp32", zoo14_launches(mc))
+        bad, worst_l, worst_g = losses_and_norms(mtype, runs)
+        label = {r: r.name if r.module is not rv_mod else "variant "
+                 + r.name for r in replays}
+        differ = {label[r]: r.differ for r in replays
+                  if r.check and r.recorded}
+        gated = [f"{label[r]} (the host's own differs)" for r in replays
+                 if r.gate and r.differ]
+        failures.extend(f"zoo14 {mtype} card/host {k}" for k in gated)
+        bad += gated
+        rec["card_host"][mtype] = dict(
+            worst_of_scale=worst, card_losses=runs["card"][0],
+            host_losses=runs["host"][0], card_norms=runs["card"][1],
+            host_norms=runs["host"][1], worst_loss_rel=worst_l,
+            worst_grad_norm_rel=worst_g, host_own_differs=differ,
+            kernels_held=tapped)
+        log(f"[zoo14 fp32] {mtype} ({n_img} x {size}^2, full width): "
+            f"levels, neck and head outputs card against host, worst "
+            f"{worst:.2e} of scale (tol {tol}); train forward + backward: "
+            f"{len(runs['host'][0])} losses, worst {worst_l:.2e} relative "
+            f"(tol {tol}); {len(runs['host'][1])} subtree gradient norms, "
+            f"worst {worst_g:.2e} (tol 1e-2); the host's own results from "
+            f"the card's inputs differ from the card's in {differ} "
+            f"elements (assignments gated, least-rectangle picks counted); "
+            f"kernel launches held against the plain version {tapped}; "
+            f"{time.perf_counter() - t0:.1f} s "
+            f"{'ok' if not bad else 'FAIL ' + str(bad)}")
+        log("[zoo14 fp32]   " + ", ".join(
+            f"{k} card {runs['card'][0][k]:.6e} host {runs['host'][0][k]:.6e}"
+            for k in sorted(runs["host"][0])))
+        del card, host
+        torch.cuda.empty_cache()
+
+    # the CSL heads on the ConvNeXt-T neck's levels (P3-P7)
+    t0 = time.perf_counter()
+    gts = batch_to({"d": batch}, dev)["d"]
+    for name in ("CSLRetinaHead", "CSLRotatedFCOSHead"):
+        gen = torch.Generator().manual_seed(7)
+        if name == "CSLRetinaHead":
+            head = CSLRetinaHead(num_classes=26, in_channels=256,
+                                 feat_channels=256, gen=gen)
+        else:
+            head = CSLRotatedFCOSHead(num_classes=26, in_channels=256,
+                                      feat_channels=256, gen=gen)
+        head = head.to(dev)
+        runs = {}
+        outs_by_side = {}
+        for side, dv in (("card", dev), ("host", cpu)):
+            h = head if side == "card" else copy.deepcopy(head).to(cpu)
+            x = [t.to(dv) for t in csl_levels]
+            outs = h(x)
+            outs_by_side[side] = outs
+            g = {k: v.to(dv) for k, v in gts.items()}
+            if name == "CSLRetinaHead":
+                coder = CSLCoder("le90")
+                flat_ang = torch.cat([a.reshape(n_img, -1, coder.coding_len)
+                                      for a in outs[2]], 1)
+                grng = torch.Generator().manual_seed(8)
+                ang = (torch.rand(flat_ang.shape[:2], generator=grng) - 0.5) \
+                    * 3.1
+                pos = (torch.rand(flat_ang.shape[:2], generator=grng)
+                       > 0.9).float()
+                losses = {"loss_angle": csl_angle_loss(
+                    flat_ang, ang.to(dv), pos.to(dv), coder,
+                    avg_factor=float(pos.sum().clamp(min=1.0)))}
+            else:
+                losses = csl_fcos_loss(*outs, g["gt_obbs"], g["gt_labels"],
+                                       g["gt_mask"], 26)
+            params = dict(h.named_parameters())
+            grads = grads_of(losses, params)
+            runs[side] = ({k: float(v.detach()) for k, v in losses.items()},
+                          subtree_norms(torch, list(params), grads))
+        worst = 0.0
+        for j, (a, b) in enumerate(zip(flat(outs_by_side["card"]),
+                                       flat(outs_by_side["host"]))):
+            worst = max(worst, close(f"{name} output {j}", a.detach(),
+                                     b.detach()))
+        bad, worst_l, worst_g = losses_and_norms(name, runs)
+        rec["card_host"][name] = dict(
+            worst_of_scale=worst, card_losses=runs["card"][0],
+            host_losses=runs["host"][0], worst_loss_rel=worst_l,
+            worst_grad_norm_rel=worst_g)
+        log(f"[zoo14 fp32] {name} on the ConvNeXt-T neck's 5 levels: "
+            f"outputs worst {worst:.2e} of scale, {len(runs['host'][0])} "
+            f"losses worst {worst_l:.2e} relative, {len(runs['host'][1])} "
+            f"layer gradient norms worst {worst_g:.2e} "
+            f"{'ok' if not bad else 'FAIL ' + str(bad)}")
+        del head, runs, outs_by_side
+    log(f"[zoo14 fp32] CSL heads {time.perf_counter() - t0:.1f} s")
+    del imgs, csl_levels
+    torch.cuda.empty_cache()
+
+    # (b) one bf16 AdamW train step of each detector, 2 x 800^2
+    n_img, size = ZOO14_TRAIN
+    tb = batch_to({"d": make_train_batch(np.random.RandomState(18),
+                                         (0, n_img, 0), size,
+                                         REFINE_GTS)["rgb"]}, dev)["d"]
+    om_launches = None
+    for mtype in REPPOINTS_TYPES + ("ReDet",):
+        mc = zoo14_mc(mtype)
+        want = zoo14_launches(mc)
+        model = build_detector(mc, device=dev, compute_dtype="bfloat16",
+                               seed=0, trainable=True)
+        init_fn, update_fn, _ = make_optimizer(
+            list(trainable_params(model)), warmup_iters=2)
+        holder = {"state": init_train_state(model, init_fn)}
+        step = build_train_step(model, update_fn)
+
+        def one_step():
+            holder["state"], m = step(holder["state"], tb)
+            return m
+        torch.cuda.reset_peak_memory_stats()
+        tap.on()                # the first warm step's launches are held
+        try:
+            one_step()
+        finally:
+            tap.off()
+        tapped = held(f"{mtype} bf16 {size}^2", want)
+        one_step()
+        torch.cuda.synchronize()
+        build.reset_launches()
+        metrics = one_step()
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in build.LAUNCHES.items() if v}
+        sites = host_syncs(torch, one_step)
+        times = []
+        for _ in range(ZOO14_STEPS):
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            one_step()
+            ev1.record()
+            torch.cuda.synchronize()
+            times.append(ev0.elapsed_time(ev1))
+        step_ms = statistics.median(times)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        metrics = {k: float(v) for k, v in metrics.items()}
+        n_syncs = sum(sites.values())
+        ok = all(np.isfinite(v) for v in metrics.values()) and \
+            launches == want
+        rec["train"][mtype] = dict(
+            step_ms=step_ms, step_ms_all=times, syncs_per_step=n_syncs,
+            sync_sites=sites, peak_gib=peak, losses=metrics,
+            launches_per_step=launches, launches_want=want,
+            kernels_held=tapped)
+        log(f"[zoo14 train] {mtype}, {n_img} x {size}^2 bf16, AdamW: a step "
+            f"{step_ms:.1f} ms (CUDA events, median of {ZOO14_STEPS} after 2 "
+            f"warm steps; all {[round(t, 1) for t in times]}); {n_syncs} "
+            f"syncs a step {sites}; peak {peak:.2f} GiB; launches a step "
+            f"{launches} (worked out from the config: {want}); the first "
+            f"warm step's launches of rows 4, 5, 7, 8 and the scan held "
+            f"against the plain version {tapped}; card {smi} "
+            f"{'ok' if ok else 'FAIL'}")
+        log("[zoo14 train]   losses: " + ", ".join(
+            f"{k} {v:.5f}" for k, v in metrics.items()))
+        if not ok:
+            failures.append(f"zoo14 train {mtype}")
+        if mtype == "OrientedRepPoints":
+            om_launches = launches
+        del model, holder, step
+        torch.cuda.empty_cache()
+    del tb
+
+    # (c) the convex geometry alone at the train step's shapes
+    rec["geometry"] = geometry14(torch, dev, smi)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[zoo14] phase 14 wall time {rec['phase_s']:.1f} s (limit "
+        f"{ZOO14_PHASE_LIMIT_S} s)")
+    if rec["phase_s"] > ZOO14_PHASE_LIMIT_S:
+        failures.append(f"phase 14 took {rec['phase_s']:.1f} s")
+    return failures, rec, om_launches
+
+
 def main():
     t_main = time.perf_counter()
     try:
@@ -5649,6 +6251,16 @@ def main():
         if k in recs:
             recs[k].extra["lsk_t_orcnn_launches"] = n
 
+    # ---- 14. the RepPoints family, ReDet and the CSL heads -----------------
+    torch.cuda.empty_cache()
+    zoo14_failures, zoo14_rec, zoo14_launches_ = phase14(torch, dev, smi,
+                                                         build)
+    if zoo14_failures:
+        fail(f"RepPoints / ReDet / CSL phase failed: {zoo14_failures}")
+    for k, n in zoo14_launches_.items():
+        if k in recs:
+            recs[k].extra["oriented_reppoints_train_launches"] = n
+
     script_s = time.perf_counter() - t_main
     log(f"[smoke] whole script wall time {script_s:.1f} s (limit "
         f"{SCRIPT_LIMIT_S} s)")
@@ -5679,7 +6291,7 @@ def main():
         "lsk_van_reweight": lsk_rec,
         "variants_zoo": var_rec, "h2r2_train_step_launches": var_launches,
         "refine_cascade": ref_rec, "da_baseline": da_rec,
-        "babelrs": vit_rec, "zoo13": zoo13_rec,
+        "babelrs": vit_rec, "zoo13": zoo13_rec, "zoo14": zoo14_rec,
         "script_s": script_s, "card": smi}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -22,9 +22,12 @@ for a ConvNeXt, LSKNet, VAN or InternViT-adapter backbone
 
 - conv kernels HWIO -> OIHW (the stems, patch embeds (a single-stem LSK /
   VAN's ``patch_embed0`` among them), 1x1 convs, the
-  squeeze conv, the heads' convs), the depthwise (k, k, 1, C) ->
-  (C, 1, k, k); ORConv's base ``weight`` (k, k, Cin, O_in, Cout) ->
-  (Cout, Cin, O_in, k, k);
+  squeeze conv, the heads' convs: the RepPoints heads' ``reppoints_*``
+  and the CSL heads' ``*_angle_cls`` among them), the depthwise (k, k, 1,
+  C) -> (C, 1, k, k); ORConv's and the equivariant convs' base ``weight``
+  (k, k, Cin, O_in, Cout) -> (Cout, Cin, O_in, k, k) (S2ANet's
+  ``or_conv``, ReResNet's and ReFPN's ``stem``, ``conv1``, ``conv2``,
+  ``downsample``, ``lateral{i}``, ``fpn_conv{i}``);
 - the ConvNeXt pointwise Dense kernels keep the (in, out) layout that the
   GEMM kernel reads, and ``SimpleFPN``'s transposed-conv kernels
   (``fpn1_up1``, ``fpn1_up2``, ``fpn2_up``) their flax (2, 2, in, out)
@@ -41,8 +44,11 @@ for a ConvNeXt, LSKNet, VAN or InternViT-adapter backbone
   ``w_gate/{temperature, sim_matrix}``, the linear gate's ``w_gate (d,
   E)`` and ``w_noise``;
 - LayerNorm/GroupNorm ``scale``/``bias`` -> ``weight``/``bias`` (the
-  SPM's ``gn{i}`` among them); an RMSNorm's ``weight`` (the ViT's
-  ``q_norm`` / ``k_norm``) keeps its name; the ``gamma``,
+  SPM's ``gn{i}``, the heads' ``cls_gn{i}`` / ``reg_gn{i}`` and the
+  equivariant LayerNorms' ``stem_norm``, ``norm{1,2}``, whose (C,)
+  vectors an orientation field shares, among them); an RMSNorm's
+  ``weight`` (the ViT's ``q_norm`` / ``k_norm``) keeps its name; the
+  ``gamma``,
   ``layer_scale_{1,2}`` and ``ls{1,2}`` vectors, ``pos_embed``, GRN's
   ``gamma`` / ``beta``, ``mtl_sigma`` and the scalar ``Scale``s
   (``scale{i}``, FCOS's ``scale_angle``) keep their names (a block
@@ -109,7 +115,7 @@ def _rule(path: tuple, v: np.ndarray):
         name = "kernel"
     elif leaf == "kernel" and v.ndim == 4:
         name, perm = "weight", _HWIO_TO_OIHW
-    elif leaf == "weight" and v.ndim == 5 and parent == "or_conv":
+    elif leaf == "weight" and v.ndim == 5:
         name, perm = "weight", _ORCONV
     elif leaf == "kernel" and v.ndim == 2 and parent.startswith("pwconv"):
         name = "kernel"

@@ -1,10 +1,11 @@
 """Static-shape box assigners.
 
-Port of ``max_iou_assign`` and ``atss_assign`` of
-``sm3det_tpu/core/bbox/assigners.py``. Ground truths arrive padded to ``G``
-with a validity mask; each assigner returns per prior the mmdet encoding:
--1 ignore, 0 negative, ``k > 0`` the (k - 1)-th gt. The IoU matrix comes
-from the caller, so one assigner serves horizontal and rotated boxes.
+Port of ``max_iou_assign``, ``atss_assign``, ``convex_assign`` and
+``sas_assign`` of ``sm3det_tpu/core/bbox/assigners.py``. Ground truths
+arrive padded to ``G`` with a validity mask; each assigner returns per
+prior the mmdet encoding: -1 ignore, 0 negative, ``k > 0`` the (k - 1)-th
+gt. The IoU matrix comes from the caller (``convex_assign`` makes its
+own), so one assigner serves horizontal and rotated boxes.
 Ties break as the JAX functions' do: ``argmax`` takes the first maximum
 and the per-level top-k keeps the lower index.
 """
@@ -99,3 +100,58 @@ def atss_assign(ious, priors_cxcy, gt_hbboxes, gt_mask, num_level_priors,
     masked = torch.where(gt_mask[None, :], ious, torch.full_like(ious, -1.0))
     max_overlaps = torch.where(has_pos, max_pos, masked.amax(dim=1))
     return assigned.to(torch.int32), max_overlaps
+
+
+def convex_assign(pred_points, gt_polys, gt_mask, pos_iou_thr=0.5,
+                  neg_iou_thr=0.4, valid_points=None):
+    """mmrotate's ConvexAssigner / MaxConvexIoUAssigner: ``max_iou_assign``
+    of point sets (P, K, 2) against gt quads (G, 8) on the IoU of each
+    set's least-area rectangle (``ops/geometry_extras.convex_iou``, in
+    blocks of rows). A leading batch axis, (B, P, K, 2) x (B, G, 8) with
+    gt_mask (B, G), gives (B, P)."""
+    from ...ops.geometry_extras import convex_iou
+    ious = convex_iou(pred_points, gt_polys, valid_points)
+
+    def one(iou, mask):
+        iou = torch.where(mask[None, :], iou, torch.full_like(iou, -1.0))
+        return max_iou_assign(iou, mask, pos_iou_thr=pos_iou_thr,
+                              neg_iou_thr=neg_iou_thr, min_pos_iou=0.0,
+                              match_low_quality=True)
+    if ious.dim() == 3:
+        return torch.stack([one(i, m) for i, m in zip(ious, gt_mask)])
+    return one(ious, gt_mask)
+
+
+def sas_assign(points, stride_vec, gt_obbs, gt_mask, topk: int = 9):
+    """mmrotate's SASAssigner with static shapes: per gt the ``topk``
+    points (P, 2) nearest its centre, in units of sqrt(w h), that lie
+    inside it; a point positive for several gts takes the nearest.
+    ``stride_vec`` is taken, unused, as in JAX. Returns (P,) int32.
+
+    The top-k runs over distances with 1e6 added outside a gt or for a
+    padded gt, ties to the lower index (``lax.top_k``: ``stable_topk``);
+    the candidates are set with a ``scatter_`` into a bool tensor."""
+    from ...models.moe import stable_topk
+    del stride_vec
+    g = gt_obbs.shape[0]
+    cx, cy, w, h, th = (gt_obbs[:, i] for i in range(5))
+    cos_t, sin_t = torch.cos(th), torch.sin(th)
+    dx = points[:, 0][:, None] - cx[None]
+    dy = points[:, 1][:, None] - cy[None]
+    fx = cos_t[None] * dx + sin_t[None] * dy
+    fy = -sin_t[None] * dx + cos_t[None] * dy
+    inside = (fx.abs() < w[None] / 2) & (fy.abs() < h[None] / 2)
+    scale = torch.sqrt(w * h)[None]
+    dist = torch.sqrt(dx * dx + dy * dy) / torch.clamp(scale, min=1e-6)
+    dist = dist + (1.0 - inside.to(dist.dtype)) * 1e6 + \
+        (~gt_mask)[None].to(dist.dtype) * 1e6
+    k = min(topk, points.shape[0])
+    _, top_idx = stable_topk(-dist.T, k)                    # (G, k)
+    cand = torch.zeros((g, points.shape[0]), dtype=torch.bool,
+                       device=points.device)
+    cand.scatter_(1, top_idx, True)
+    is_pos = cand.T & inside & gt_mask[None]
+    d_masked = torch.where(is_pos, dist, torch.full_like(dist, torch.inf))
+    has = torch.isfinite(d_masked.amin(1))
+    best = _argmax_first(-d_masked, 1)
+    return torch.where(has, best + 1, 0).to(torch.int32)

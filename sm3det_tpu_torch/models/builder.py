@@ -14,9 +14,13 @@ what it has:
   config), and the single-dataset ``OrientedRCNN``, ``GFL``,
   ``RotatedRetinaNet``, ``FasterRCNN``, ``CascadeRCNN``, ``RetinaNet``,
   ``R3Det``, ``S2ANet``, ``RoITransformer``, ``GlidingVertex``,
-  ``RotatedFCOS``, ``RotatedFasterRCNN`` and ``RotatedATSS`` on a
-  single-stem backbone: the ConvNeXt (``ConvNeXt_moe`` or no backbone
-  type), ``LSKNet_moe`` or ``VAN_moe``;
+  ``RotatedFCOS``, ``RotatedFasterRCNN``, ``RotatedATSS`` and the RepPoints
+  family (``OrientedRepPoints``, ``RotatedRepPoints``, ``SAMRepPoints``,
+  ``GRepPoints``) on a single-stem backbone: the ConvNeXt
+  (``ConvNeXt_moe`` or no backbone type), ``LSKNet_moe`` or ``VAN_moe``;
+  and ``ReDet`` on its own ``ReResNet`` backbone and ``ReFPN`` neck (the
+  only detector either is taken for: JAX's ReDet builds them whatever
+  the config names, the port raises for any other type there);
 - the necks ``MultitaskFPN`` and ``FPN`` (the same module: every detector
   builds it and calls it with ``add_extra_convs="on_output"`` on each
   branch, as JAX's do, so a config's ``add_extra_convs`` and
@@ -24,7 +28,8 @@ what it has:
   JAX; they are the module's own options, library API) and ``SimpleFPN``
   (library API: it takes one stride-16 map, which no ported backbone
   makes, so a detector config naming it raises), and the heads those
-  detectors use.
+  detectors use, the CSL heads (``CSLRRetinaHead``, ``CSLRFCOSHead``)
+  among them.
 
 Every other name the JAX package registers raises ``NotImplementedError``
 naming the ROADMAP item that ports it; nothing falls back to the flagship.
@@ -44,23 +49,29 @@ from ..utils.registry import BACKBONES, DETECTORS, HEADS, NECKS
 from .backbones.convnext import ConvNeXtMoE
 from .backbones.intern_vit import InternViTAdapter
 from .backbones.lsknet import LSKNetMoE
+from .backbones.re_resnet import ReFPN, ReResNet
 from .backbones.van import VANMoE
 from .dense_heads.gfl_head import GFLHead
+from .dense_heads.oriented_reppoints_head import OrientedRepPointsHead
 from .dense_heads.oriented_rpn_head import OrientedRPNHead
 from .dense_heads.rotated_atss_head import RotatedATSSHead
-from .dense_heads.rotated_fcos_head import RotatedFCOSHead
+from .dense_heads.rotated_fcos_head import (CSLRotatedFCOSHead,
+                                            RotatedFCOSHead)
 from .dense_heads.rotated_retina_head import CSLRetinaHead, RotatedRetinaHead
 from .dense_heads.rpn_head import RPNHead
 from .detectors.base import ZOO
 from .detectors.hbb_detectors import CascadeRCNN, FasterRCNN, RetinaNet
-from .detectors.redet_roitrans import RoITransformer
+from .detectors.redet_roitrans import ReDet, RoITransformer
 from .detectors.refine_detectors import (ODMRefineHead, R3Det, RefineHead,
                                          S2ANet)
-from .detectors.single_stage_zoo import GlidingVertex, RotatedFCOS
+from .detectors.single_stage_zoo import (GlidingVertex, OrientedRepPoints,
+                                         RotatedFCOS)
 from .detectors.trisource import TriSourceDetector
 from .detectors.trisource_variants import DEFAULT_STAGES, TriSourceVariant
 from .detectors.zoo import GFLDetector, OrientedRCNN, RotatedRetinaNet
-from .detectors.zoo_extra import RotatedATSS, RotatedFasterRCNN
+from .detectors.zoo_extra import (GRepPoints, RotatedATSS,
+                                  RotatedFasterRCNN, RotatedRepPoints,
+                                  SAMRepPoints)
 from .necks.fpn import FPN, MultitaskFPN, SimpleFPN, check_extra_convs
 from .roi_heads.cascade_heads import GVBBoxHead, HBB2OBBBBoxHead
 from .roi_heads.oriented_roi_head import RotatedShared2FCBBoxHead
@@ -83,10 +94,11 @@ for _name, _cls in (("LSKNet", LSKNetMoE), ("LSKNet_moe_MultiInput",
                     ("VAN", VANMoE), ("VAN_moe_MultiInput", VANMoE),
                     ("LSKNet_moe", LSKNetMoE), ("VAN_moe", VANMoE),
                     ("InternViT", InternViTAdapter),
-                    ("InternViTAdapter", InternViTAdapter)):
+                    ("InternViTAdapter", InternViTAdapter),
+                    ("ReResNet", ReResNet)):
     BACKBONES.register_module(_name, module=_cls)
 for _name, _cls in (("MultitaskFPN", MultitaskFPN), ("FPN", FPN),
-                    ("SimpleFPN", SimpleFPN)):
+                    ("SimpleFPN", SimpleFPN), ("ReFPN", ReFPN)):
     NECKS.register_module(_name, module=_cls)
 for _name, _cls in (("TriSourceDetector", TriSourceDetector),
                     ("TriSourceVariant", TriSourceVariant),
@@ -98,10 +110,14 @@ for _name, _cls in (("TriSourceDetector", TriSourceDetector),
                     ("GlidingVertex", GlidingVertex),
                     ("RotatedFCOS", RotatedFCOS),
                     ("RotatedFasterRCNN", RotatedFasterRCNN),
-                    ("RotatedATSS", RotatedATSS)):
+                    ("RotatedATSS", RotatedATSS), ("ReDet", ReDet),
+                    ("OrientedRepPoints", OrientedRepPoints),
+                    ("RotatedRepPoints", RotatedRepPoints),
+                    ("SAMRepPoints", SAMRepPoints),
+                    ("GRepPoints", GRepPoints)):
     DETECTORS.register_module(_name, module=_cls)
 # the JAX package's head names (the KFIoU ones select the box loss through
-# normalize_model_cfg); CSLRRetinaHead raises on construction
+# normalize_model_cfg)
 for _name, _cls in (("GFLHead", GFLHead), ("OrientedRPNHead", OrientedRPNHead),
                     ("RotatedRetinaHead", RotatedRetinaHead),
                     ("RotatedAnchorHead", RotatedRetinaHead),
@@ -117,20 +133,17 @@ for _name, _cls in (("GFLHead", GFLHead), ("OrientedRPNHead", OrientedRPNHead),
                     ("KFIoURRetinaRefineHead", RefineHead),
                     ("GVBBoxHead", GVBBoxHead),
                     ("RotatedFCOSHead", RotatedFCOSHead),
-                    ("RotatedATSSHead", RotatedATSSHead)):
+                    ("RotatedAnchorFreeHead", RotatedFCOSHead),
+                    ("RotatedATSSHead", RotatedATSSHead),
+                    ("OrientedRepPointsHead", OrientedRepPointsHead),
+                    ("RotatedRepPointsHead", OrientedRepPointsHead),
+                    ("SAMRepPointsHead", OrientedRepPointsHead),
+                    ("CSLRFCOSHead", CSLRotatedFCOSHead)):
     HEADS.register_module(_name, module=_cls)
-for _name in ("OrientedRepPointsHead", "RotatedRepPointsHead",
-              "SAMRepPointsHead", "CSLRFCOSHead", "RotatedAnchorFreeHead"):
-    HEADS.register_module(_name, module=_unported("head", _name, ZOO))
 
-for _name in ("SwinTransformer_moe", "SwinTransformer_MoE", "SwinTransformer",
-              "ReResNet"):
+for _name in ("SwinTransformer_moe", "SwinTransformer_MoE",
+              "SwinTransformer"):
     BACKBONES.register_module(_name, module=_unported("backbone", _name,
-                                                      ZOO))
-NECKS.register_module("ReFPN", module=_unported("neck", "ReFPN", ZOO))
-for _name in ("ReDet", "OrientedRepPoints", "RotatedRepPoints",
-              "SAMRepPoints", "GRepPoints"):
-    DETECTORS.register_module(_name, module=_unported("detector", _name,
                                                       ZOO))
 
 # the backbone keys TriSourceDetector reads (besides pretrained)
@@ -147,6 +160,10 @@ _INDEX_KEYS = ("moe_block_inds", "da_block_inds", "moe_block_inds_fc1",
                "moe_block_inds_fc2")
 _NECK_KEYS = {"in_channels", "out_channels", "num_outs", "extra_level",
               "add_extra_convs", "relu_before_extra_convs"}
+# what ReDet reads of its backbone and neck
+_RE_BACKBONE_KEYS = {"type", "stem_channels", "stage_channels",
+                     "stage_blocks"}
+_RE_NECK_KEYS = {"type", "in_channels", "out_channels", "num_outs"}
 
 
 def normalize_model_cfg(mc):
@@ -163,6 +180,39 @@ def normalize_model_cfg(mc):
         if any(_head_type(h).startswith("KFIoU") for h in heads):
             mc.setdefault("refine_reg_loss", "kfiou")
     return mc
+
+
+def _check_redet(det_type: str, mc: Dict[str, Any]):
+    """Raise unless ``mc`` is a ReDet on a ReResNet backbone and a ReFPN
+    neck, with only the keys they read; the neck's ``in_channels``, where
+    given, must be the backbone's level widths (JAX ignores the key and
+    ``ReFPN`` takes the widths it is given). Drops the neck's type."""
+    b, n = mc["backbone"], mc["neck"]
+    btype, ntype = b.get("type"), n.get("type", "ReFPN")
+    if det_type != "ReDet":
+        raise NotImplementedError(
+            f"backbone 'ReResNet' is ReDet's (its levels carry the "
+            f"orientation channels ReFPN reads), not a {det_type!r}'s: the "
+            f"other detectors take the ConvNeXt, LSKNet_moe or VAN_moe "
+            f"({ZOO})")
+    if btype != "ReResNet" or ntype != "ReFPN":
+        raise NotImplementedError(
+            f"ReDet takes the ReResNet backbone and the ReFPN neck, not "
+            f"{btype or 'ConvNeXt_moe'!r} / {ntype!r} (JAX's ReDet builds "
+            f"them whatever the config names)")
+    for part, keys, allowed in (("backbone", b, _RE_BACKBONE_KEYS),
+                                ("neck", n, _RE_NECK_KEYS)):
+        extra = sorted(set(keys) - allowed)
+        if extra:
+            raise NotImplementedError(
+                f"ReDet {part} keys {extra} are not taken: its factory reads "
+                f"none of them")
+    from .detectors.redet_roitrans import ORIENTATIONS, RE_STAGES
+    widths = [c * ORIENTATIONS for c in b.get("stage_channels", RE_STAGES)]
+    if "in_channels" in n and list(n["in_channels"]) != widths:
+        raise ValueError(f"ReDet neck in_channels {list(n['in_channels'])} "
+                         f"are not the ReResNet's level widths {widths}")
+    n.pop("type", None)
 
 
 def _check_vit_keys(b: Dict[str, Any]):
@@ -205,6 +255,9 @@ def resolve_model_cfg(cfg_model: Dict[str, Any],
     b = mc["backbone"]
     b.pop("pretrained", None)
     _check_built(BACKBONES, b.get("type", "ConvNeXt_moe"))
+    if det_type == "ReDet" or b.get("type") == "ReResNet":
+        _check_redet(det_type, mc)
+        return DETECTORS.get(det_type), mc, kwargs
     vit = b.get("type") in ("InternViT", "InternViTAdapter")
     if vit:
         _check_vit_keys(b)

@@ -9,7 +9,12 @@ coder of the retina recipe, ``retina_loss`` (MaxIoU on rotated IoU over
 all anchors, sigmoid focal loss, L1 or Smooth L1 on the deltas, or a
 decoded-box loss: GWD, KLD, KFIoU or the rotated IoU loss) and
 ``retina_get_bboxes`` (per-level top-k by best class score, decode,
-multi-class rotated NMS), batched over images instead of ``vmap``.
+multi-class rotated NMS), batched over images instead of ``vmap``; and the
+circular-smooth-label variant ``CSLRetinaHead`` (4 box parameters and an
+angle classifier ``retina_angle_cls`` of ``CSLCoder.coding_len`` bins an
+anchor on the regression tower) with ``csl_angle_loss`` (the smooth focal
+loss against the coder's labels). JAX has no combined CSL retina loss, and
+the port adds none.
 
 The assigner's IoU of every anchor with every gt is
 ``ops/rotated_iou.box_iou_rotated_chunked``: the rotated IoU kernel's
@@ -28,17 +33,18 @@ import torch
 from torch import nn
 
 from ...core.anchor import RotatedAnchorGenerator
+from ...core.bbox.angle_coder import CSLCoder
 from ...core.bbox.assigners import max_iou_assign
 from ...core.bbox.coders import DeltaXYWHAOBBoxCoder
 from ...ops.nms import _take, _topk_scores, multiclass_nms_rotated
 from ...ops.rotated_iou import box_iou_rotated_chunked
 from ..layers import Conv2d
 from ..losses import (gwd_loss, kfiou_loss, kld_loss, l1_loss,
-                      rotated_iou_loss, sigmoid_focal_loss, smooth_l1_loss)
+                      rotated_iou_loss, sigmoid_focal_loss, smooth_focal_loss,
+                      smooth_l1_loss)
 
 REG_LOSSES = ("l1", "smooth_l1", "gwd", "kld", "kfiou", "riou")
 
-ANGLE_CODER = "ROADMAP queue 1 item 7 (angle_coder.py)"
 PRIOR_BIAS = -math.log((1 - 0.01) / 0.01)
 
 
@@ -89,17 +95,48 @@ class RotatedRetinaHead(nn.Module):
 
 
 class CSLRetinaHead(nn.Module):
-    """The circular-smooth-label variant: not ported."""
+    """The circular-smooth-label variant: the regressor predicts 4 box
+    parameters an anchor and ``retina_angle_cls`` (3x3, on the regression
+    tower) the angle's ``coding_len`` bins an anchor."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"CSLRetinaHead is not ported to sm3det_tpu_torch: "
-            f"{ANGLE_CODER}")
+    def __init__(self, num_classes: int = 15, in_channels: int = 256,
+                 feat_channels: int = 256, stacked_convs: int = 4,
+                 num_anchors: int = 9, omega: int = 1,
+                 angle_version: str = "le90",
+                 gen: torch.Generator | None = None):
+        super().__init__()
+        build_retina_layers(self, num_classes, in_channels, feat_channels,
+                            stacked_convs, num_anchors, 4, gen)
+        self.coding_len = CSLCoder(angle_version, omega=omega).coding_len
+        self.retina_angle_cls = Conv2d(feat_channels,
+                                       num_anchors * self.coding_len, 3,
+                                       padding=1, gen=gen)
+
+    def forward(self, feats: Sequence[torch.Tensor]):
+        """Per level: (cls (B, H, W, A C), box (B, H, W, A 4), angle bins
+        (B, H, W, A coding_len))."""
+        cls_scores, bbox_preds, angle_clses = [], [], []
+        for x in feats:
+            cf = rf = x
+            for i in range(self.stacked_convs):
+                cf = torch.relu(getattr(self, f"cls_conv{i}")(cf))
+            for i in range(self.stacked_convs):
+                rf = torch.relu(getattr(self, f"reg_conv{i}")(rf))
+            cls_scores.append(self.retina_cls(cf))
+            bbox_preds.append(self.retina_reg(rf))
+            angle_clses.append(self.retina_angle_cls(rf))
+        return cls_scores, bbox_preds, angle_clses
 
 
-def csl_angle_loss(*args, **kwargs):
-    raise NotImplementedError(
-        f"csl_angle_loss is not ported to sm3det_tpu_torch: {ANGLE_CODER}")
+def csl_angle_loss(angle_cls, angle_targets, pos_weight, coder: CSLCoder,
+                   avg_factor=1.0, gamma=2.0, alpha=0.25):
+    """The smooth focal loss of CSL logits (..., coding_len) against the
+    coder's labels of ``angle_targets`` (...,), each row weighted by
+    ``pos_weight`` (...,); the sum over every element / ``avg_factor``."""
+    return smooth_focal_loss(angle_cls, coder.encode(angle_targets),
+                             gamma=gamma, alpha=alpha,
+                             weight=pos_weight[..., None],
+                             avg_factor=avg_factor)
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,8 +1,20 @@
-"""RoI Transformer: the cascade from horizontal to oriented RoIs.
+"""ReDet and RoI Transformer.
 
-Port of ``RoITransformer`` of
-``sm3det_tpu/models/detectors/redet_roitrans.py`` (training losses only,
-as in JAX): a single-stem backbone, the ``MultitaskFPN`` from stride 4,
+Port of ``sm3det_tpu/models/detectors/redet_roitrans.py``, the training
+losses only, as in JAX:
+
+``ReDet``: the equivariant ``ReResNet`` and ``ReFPN`` (the C8 orientation
+channels kept through the neck), the oriented RPN (64 sampled anchors an
+image; its 256 best anchors an image into the NMS, which keeps 256: row
+4's mask mode and the keep scan on the card), 128 rotated RoIs an image
+sampled among the gts and the proposals (the assigner's IoU is row 5's
+matrix mode on the card), the pyramid rotated align (rows 7 and 8), each
+RoI's orientation channels aligned to its angle (``orientation_align``,
+RiRoI align's second half), the rotated shared-2fc head and its loss. The
+samplers' keys come from ``SampleKeys``: the RPN's, then the RoIs'.
+
+``RoITransformer``: a single-stem backbone, the ``MultitaskFPN`` from
+stride 4,
 
 1. the horizontal RPN on the gts' enclosing boxes (``rpn_head``: 64
    sampled anchors an image; 256 proposals an image after its NMS, row 4's
@@ -16,17 +28,22 @@ as in JAX): a single-stem backbone, the ``MultitaskFPN`` from stride 4,
    to them; the assigner's IoU is row 5's matrix mode on the card), the
    rotated align, the R-CNN loss (``s2_loss_cls``, ``s2_loss_bbox``).
 
-The three samplers' keys come from ``SampleKeys``, in that order. ReDet
-(ReResNet, ReFPN, RiRoI align) is not ported.
+The three samplers' keys come from ``SampleKeys``, in that order.
 """
 
 from __future__ import annotations
+
+import copy
+from typing import Any, Dict
 
 import torch
 
 from ...core.bbox.coders import DeltaXYWHAOBBoxCoder, DeltaXYWHBBoxCoder
 from ...core.bbox.samplers import SampleKeys
 from ...ops.box_convert import hbb2obb, obb2xyxy
+from ...ops.orientation import orientation_align
+from ..backbones.re_resnet import ReFPN, ReResNet
+from ..dense_heads.oriented_rpn_head import OrientedRPNHead
 from ..dense_heads.rpn_head import (RPNHead, hbb_rpn_get_proposals,
                                     hbb_rpn_loss)
 from ..losses import smooth_l1_loss, softmax_cross_entropy
@@ -36,8 +53,10 @@ from ..roi_heads.oriented_roi_head import (RotatedShared2FCBBoxHead,
                                            sample_rois_for_training)
 from ..roi_heads.standard_roi_head import (candidate_gt_overlaps,
                                            sample_hbb_rois)
+from .base import DetectorBase
 from .hbb_detectors import make_hbb_rpn_anchor_generator
-from .trisource import make_rcnn_coder, roi_feats
+from .trisource import (make_rcnn_coder, make_rpn_anchor_generator,
+                        oriented_rcnn_losses, roi_feats)
 from .zoo import ZooDetector
 
 RPN_SAMPLE = 64         # anchors sampled an image by the RPN loss
@@ -188,3 +207,54 @@ class RoITransformer(ZooDetector):
         losses["s2_loss_cls"] = l_cls / total
         losses["s2_loss_bbox"] = l_reg / total
         return losses
+
+
+RE_STAGES = (8, 16, 32, 64)      # JAX's ReResNet widths, an orientation
+ORIENTATIONS = 8
+
+
+class ReDet(DetectorBase):
+    """``backbone`` (``ReResNet``: the config's ``stem_channels``,
+    ``stage_channels``, ``stage_blocks``, JAX's defaults without them),
+    ``neck`` (``ReFPN``: ``out_channels`` in all, ``num_outs``),
+    ``rpn_head`` and ``roi_head``. Parameters from ``seed`` on
+    ``device``."""
+
+    def __init__(self, cfg: Dict[str, Any], device=None, seed: int = 0,
+                 trainable: bool = False):
+        super().__init__()
+        self.cfg = c = copy.deepcopy(cfg)
+        gen = torch.Generator().manual_seed(seed)
+        b = c.get("backbone", {})
+        stages = tuple(b.get("stage_channels", RE_STAGES))
+        self.backbone = ReResNet(
+            stem_channels=b.get("stem_channels", 8), stage_channels=stages,
+            stage_blocks=tuple(b.get("stage_blocks", (2, 2, 2, 2))), gen=gen)
+        n = c["neck"]
+        ch = n["out_channels"]
+        self.neck = ReFPN([s * ORIENTATIONS for s in stages], ch,
+                          num_outs=n.get("num_outs", 5), gen=gen)
+        self.rpn_head = OrientedRPNHead(in_channels=ch, gen=gen)
+        self.roi_head = RotatedShared2FCBBoxHead(
+            num_classes=c["num_classes"], in_channels=ch, gen=gen)
+        self._place(c, device, trainable)
+
+    def extract_feat(self, imgs):
+        """The backbone and the neck: the (B, H, W, out_channels) levels,
+        orientation fastest."""
+        return self.neck(self.backbone(self._cast_in(imgs)))
+
+    def forward(self, batch, gen: torch.Generator | None = None,
+                sample_keys=None):
+        """Training losses: dict(loss_rpn_cls, loss_rpn_bbox, loss_cls,
+        loss_bbox); ``gen`` draws the RPN sampler's keys and the RoI
+        sampler's (``sample_keys`` replaces the draws)."""
+        c = self.cfg
+        return oriented_rcnn_losses(
+            self.extract_feat(batch["img"]), self.rpn_head, self.roi_head,
+            batch, SampleKeys(gen, sample_keys), make_rpn_anchor_generator(),
+            c.get("angle_version", "le90"), c["num_classes"],
+            rpn_sample=RPN_SAMPLE, rcnn_sample=ROI_SAMPLE,
+            rpn_nms_pre=PROPOSALS, rpn_max=PROPOSALS,
+            align=lambda feats, rois: orientation_align(
+                feats, rois[:, 4], ORIENTATIONS))

@@ -1,6 +1,6 @@
-"""Gliding Vertex and rotated FCOS.
+"""Gliding Vertex, rotated FCOS and Oriented RepPoints.
 
-Port of ``GlidingVertex`` and ``RotatedFCOS`` of
+Port of ``GlidingVertex``, ``RotatedFCOS`` and ``OrientedRepPoints`` of
 ``sm3det_tpu/models/detectors/single_stage_zoo.py``, with the training
 losses only, as in JAX (``forward(batch, gen)``, ``batch`` one modality's
 {img, gt_obbs, gt_labels, gt_mask}):
@@ -13,10 +13,10 @@ losses only, as in JAX (``forward(batch, gen)``, ``batch`` one modality's
   (``loss_bbox``), on the sliding fractions (``loss_fix``, beta 1/3) and on
   the area ratio (``loss_ratio``, beta 1/3, times 16);
 - ``RotatedFCOS``: the neck from stride 8 (P3-P7) and ``RotatedFCOSHead``
-  with ``fcos_loss``.
-
-``OrientedRepPoints`` waits for the convex geometry (ROADMAP queue 1 item
-7).
+  with ``fcos_loss``;
+- ``OrientedRepPoints``: the neck from stride 8 and
+  ``OrientedRepPointsHead`` (GroupNorm of ``gn_groups`` groups) with
+  ``reppoints_loss``.
 """
 
 from __future__ import annotations
@@ -27,6 +27,8 @@ from ...core.bbox.coders import DeltaXYWHBBoxCoder
 from ...core.bbox.gv_coders import GVFixCoder, GVRatioCoder
 from ...core.bbox.samplers import SampleKeys
 from ...ops.box_convert import obb2xyxy
+from ..dense_heads.oriented_reppoints_head import (OrientedRepPointsHead,
+                                                   reppoints_loss)
 from ..dense_heads.rotated_fcos_head import RotatedFCOSHead, fcos_loss
 from ..dense_heads.rpn_head import RPNHead
 from ..losses import smooth_l1_loss, softmax_cross_entropy
@@ -102,6 +104,33 @@ class RotatedFCOS(ZooDetector):
         losses = fcos_loss(*outs, batch["gt_obbs"], batch["gt_labels"],
                            batch["gt_mask"], c["num_classes"],
                            version=c.get("angle_version", "le90"))
+        if gate_loss is not None:
+            losses["gate_loss"] = gate_loss
+        return losses
+
+
+class OrientedRepPoints(ZooDetector):
+    """``bbox_head`` (``OrientedRepPointsHead``, GroupNorm of
+    ``gn_groups`` groups)."""
+
+    start_level = 1
+    head_cls = OrientedRepPointsHead
+
+    def build_heads(self, c, channels, gen):
+        self.bbox_head = self.head_cls(
+            num_classes=c["num_classes"], in_channels=channels,
+            feat_channels=channels, gn_groups=c.get("gn_groups", 32),
+            gen=gen)
+
+    def loss(self, outs, batch):
+        c = self.cfg
+        return reppoints_loss(*outs, batch["gt_obbs"], batch["gt_labels"],
+                              batch["gt_mask"], c["num_classes"],
+                              version=c.get("angle_version", "le90"))
+
+    def forward(self, batch, gen: torch.Generator | None = None):
+        x, gate_loss = self.extract_feat_train(batch["img"], gen)
+        losses = self.loss(self.bbox_head(x), batch)
         if gate_loss is not None:
             losses["gate_loss"] = gate_loss
         return losses

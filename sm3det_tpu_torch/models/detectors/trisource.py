@@ -210,13 +210,16 @@ def oriented_rcnn_losses(x, rpn_head, roi_head, data, keys: SampleKeys,
                          rpn_gen: AnchorGenerator, version: str,
                          num_classes: int, rpn_sample: int = 256,
                          rcnn_sample: int = 512, rpn_nms_pre: int = 2000,
-                         rpn_max: int = 2000, rpn_nms_iou: float = 0.8):
+                         rpn_max: int = 2000, rpn_nms_iou: float = 0.8,
+                         align=None):
     """The losses of one Oriented R-CNN branch on the neck's levels ``x``
     (the JAX ``__call__``'s RGB / infrared branch): the RPN loss, the
     proposals (no gradient), the RoI sampling, the align and the R-CNN
     loss. ``data``: {gt_obbs (B, G, 5), gt_labels, gt_mask}. ``keys``
-    gives the RPN sampler's keys, then the RoI sampler's. Returns
-    dict(loss_rpn_cls, loss_rpn_bbox, loss_cls, loss_bbox)."""
+    gives the RPN sampler's keys, then the RoI sampler's. ``align(feats,
+    rois)`` re-aligns the pooled (B S, 7, 7, C) features of the RoIs (B S,
+    5) (ReDet's orientation alignment). Returns dict(loss_rpn_cls,
+    loss_rpn_bbox, loss_cls, loss_bbox)."""
     rpn_coder = make_rpn_coder(version)
     rpn_cls, rpn_reg = rpn_head(x)
     rpn_cls = [s.float() for s in rpn_cls]
@@ -241,7 +244,10 @@ def oriented_rcnn_losses(x, rpn_head, roi_head, data, keys: SampleKeys,
             ious[i], num=rcnn_sample) for i in range(bsz)]
         rois = torch.stack([sm["rois"] for sm in sampled])
     s = rois.shape[1]
-    cls_logits, reg_pred = roi_head(roi_feats(x, rois))
+    feats = roi_feats(x, rois)
+    if align is not None:
+        feats = align(feats, rois.reshape(-1, 5))
+    cls_logits, reg_pred = roi_head(feats)
     cls_logits = cls_logits.reshape(bsz, s, -1).float()
     reg_pred = reg_pred.reshape(bsz, s, -1).float()
     rcnn_coder = make_rcnn_coder(version)

@@ -1,6 +1,7 @@
-"""Rotated Faster R-CNN and rotated ATSS.
+"""Rotated Faster R-CNN, rotated ATSS and the RepPoints variants.
 
-Port of ``RotatedFasterRCNN`` and ``RotatedATSS`` of
+Port of ``RotatedFasterRCNN``, ``RotatedATSS``, ``RotatedRepPoints``,
+``SAMRepPoints`` and ``GRepPoints`` of
 ``sm3det_tpu/models/detectors/zoo_extra.py``, with the training losses
 only, as in JAX:
 
@@ -13,10 +14,11 @@ only, as in JAX:
   Transformer's stage 1 under the names ``loss_cls`` / ``loss_bbox``;
 - ``RotatedATSS``: the neck from stride 8 and ``RotatedATSSHead`` (one
   anchor a cell) with ``atss_loss``; the assigner's IoU is row 5's matrix
-  mode on the card.
-
-The RepPoints variants wait for the convex geometry (ROADMAP queue 1 item
-7).
+  mode on the card;
+- ``RotatedRepPoints``, ``SAMRepPoints``, ``GRepPoints``: Oriented
+  RepPoints' neck and tower with ``reppoints_variant_loss`` of the
+  ``rotated``, ``sam`` and ``kld`` variants (the config's
+  ``spatial_border`` adds the spatial border losses).
 """
 
 from __future__ import annotations
@@ -26,11 +28,13 @@ import torch
 from ...core.bbox.coders import DeltaXYWHAOBBoxCoder
 from ...core.bbox.samplers import SampleKeys
 from ...ops.box_convert import obb2xyxy
+from ..dense_heads.reppoints_variants import reppoints_variant_loss
 from ..dense_heads.rotated_atss_head import (RotatedATSSHead, atss_loss,
                                              make_atss_anchor_generator)
 from ..dense_heads.rpn_head import RPNHead
 from ..roi_heads.cascade_heads import HBB2OBBBBoxHead
 from .redet_roitrans import hbb2obb_stage_losses, hbb_rpn_rois
+from .single_stage_zoo import OrientedRepPoints
 from .zoo import ZooDetector
 
 
@@ -92,3 +96,34 @@ class RotatedATSS(ZooDetector):
         if gate_loss is not None:
             losses["gate_loss"] = gate_loss
         return losses
+
+
+class _RepPointsVariant(OrientedRepPoints):
+    """``OrientedRepPoints``' head (``OrientedRepPointsHead``, registered
+    under the variants' head names too); the loss differs."""
+
+    variant = "rotated"
+
+    def loss(self, outs, batch):
+        c = self.cfg
+        return reppoints_variant_loss(
+            *outs, batch["gt_obbs"], batch["gt_labels"], batch["gt_mask"],
+            c["num_classes"], version=c.get("angle_version", "le90"),
+            variant=self.variant,
+            spatial_border=c.get("spatial_border", False))
+
+
+class RotatedRepPoints(_RepPointsVariant):
+    """The convex GIoU recipe, MaxConvexIoU refine assignment."""
+
+
+class SAMRepPoints(_RepPointsVariant):
+    """SASM: the refine stage assigned by ``sas_assign``."""
+
+    variant = "sam"
+
+
+class GRepPoints(_RepPointsVariant):
+    """G-RepPoints: the KLD point-set loss on both stages."""
+
+    variant = "kld"

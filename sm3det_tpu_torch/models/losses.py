@@ -5,9 +5,12 @@ cross-entropy, sigmoid focal (RetinaNet), Quality Focal and Distribution
 Focal (GFL), Smooth L1, L1 and GIoU, and the rotated-box losses of the
 refinement detectors and the retina head's ``reg_loss`` families: the
 Gaussian distances (``obb2gaussian``, GWD, KLD), KFIoU and the rotated IoU
-loss. Every loss takes an elementwise ``weight`` and an ``avg_factor``
-(the reference's ``weighted_loss`` contract): without ``avg_factor`` the
-mean, with it the sum divided by ``max(avg_factor, 1e-6)``.
+loss; CSL's smooth focal loss; the RepPoints point-set losses
+(``points_gaussian``, ``poly_gaussian``, ``kld_reppoints_loss``,
+``spatial_border_loss``). Every loss takes an elementwise ``weight`` and
+an ``avg_factor`` (the reference's ``weighted_loss`` contract): without
+``avg_factor`` the mean, with it the sum divided by ``max(avg_factor,
+1e-6)``.
 """
 
 from __future__ import annotations
@@ -286,3 +289,93 @@ def kld_loss(pred, target, fun="log1p", tau=1.0, alpha=1.0, sqrt=True,
     """Kullback-Leibler divergence loss between the box Gaussians."""
     d = _kld_v2_distance(pred, target, alpha=alpha, sqrt=sqrt)
     return _reduce(_gd_postprocess_v2(d, fun, tau), weight, avg_factor)
+
+
+def smooth_focal_loss(logits, targets, gamma=2.0, alpha=0.25, weight=None,
+                      avg_factor=None):
+    """CSL's smooth focal loss: the focal BCE against soft targets (the
+    angle coder's circular smooth labels), per element (no sum over the
+    classes); ``weight`` broadcasts, e.g. an (N, 1) positive mask."""
+    p = torch.sigmoid(logits)
+    pt = (1 - p) * targets + p * (1 - targets)
+    focal_weight = (alpha * targets + (1 - alpha) * (1 - targets)) * \
+        pt ** gamma
+    return _reduce(_bce_with_logits(logits, targets) * focal_weight, weight,
+                   avg_factor)
+
+
+# ---- RepPoints point-set losses ---------------------------------------------
+
+def points_gaussian(pts):
+    """The one-component Gaussian fit of (..., K, 2) point sets: the mean
+    and the (biased) sample covariance plus 1e-4 I, so that its
+    determinant stays positive."""
+    mu = pts.mean(-2)
+    d = pts - mu[..., None, :]
+    var = d.transpose(-1, -2) @ d / pts.shape[-2]
+    return mu, var + 1e-4 * torch.eye(2, dtype=pts.dtype, device=pts.device)
+
+
+def poly_gaussian(polys):
+    """A gt quad (..., 8) as a Gaussian (mmrotate's ``gt2gaussian``): the
+    corners' mean, and the covariance ``R diag(w^2, h^2) R^T / (4 L^2)``
+    (L = 3) of the edges 0-1 (w, R's direction) and 1-2 (h)."""
+    big_l = 3.0
+    quad = polys.reshape(polys.shape[:-1] + (4, 2))
+    center = quad.mean(-2)
+    edge1 = quad[..., 1, :] - quad[..., 0, :]
+    edge2 = quad[..., 2, :] - quad[..., 1, :]
+    w = (edge1 * edge1).sum(-1, keepdim=True)
+    h = (edge2 * edge2).sum(-1, keepdim=True)
+    cos_sin = edge1 / torch.sqrt(_clip(w, 1e-7))
+    c, s = cos_sin[..., 0], cos_sin[..., 1]
+    rot = torch.stack([torch.stack([c, -s], -1), torch.stack([s, c], -1)],
+                      -2)
+    diag = torch.diag_embed(torch.cat([w, h], -1) / (4 * big_l * big_l))
+    return center, rot @ diag @ rot.transpose(-1, -2)
+
+
+def kld_reppoints_loss(pred_pts, target_polys, weight=None, avg_factor=None,
+                       eps=1e-6):
+    """KLD RepPoints loss: KL(points' Gaussian || the gt quad's), the
+    target covariance (plus eps I) inverted; ``1 - 1 / (2 + sqrt(KL))``,
+    KL clipped at eps. pred_pts (..., K, 2), target_polys (..., 8)."""
+    p_mu, p_var = points_gaussian(pred_pts)
+    t_mu, t_var = poly_gaussian(target_polys)
+    delta = (p_mu - t_mu)[..., None]
+    eye = torch.eye(2, dtype=t_var.dtype, device=t_var.device)
+    t_inv = _inv2(t_var + eps * eye)
+    term1 = (delta.transpose(-1, -2) @ t_inv @ delta)[..., 0, 0]
+    term2 = _trace2(t_inv @ p_var) + torch.log(_clip(
+        _det2(t_var) / _clip(_det2(p_var), 1e-7), 1e-7))
+    kld = _clip(0.5 * (term1 + term2) - 1.0, eps)
+    return _reduce(1.0 - 1.0 / (2.0 + torch.sqrt(kld)), weight, avg_factor)
+
+
+def _safe_norm(v):
+    """The L2 norm over the last axis, with a 0 gradient at 0 (JAX's
+    ``jnp.linalg.norm`` gives NaN there: 0 times the root's infinity)."""
+    sq = (v * v).sum(-1)
+    nz = sq > 0
+    return torch.where(nz, torch.sqrt(torch.where(nz, sq, 1.0)), 0.0)
+
+
+def spatial_border_loss(pts, gt_polys, weight, avg_factor=None):
+    """Spatial border loss of one image: each point of a positive set
+    (weight > 0) outside its gt quad costs 0.2 times its distance to the
+    quad's centre; the mean over those points (1 if none).
+
+    pts (N, K, 2); gt_polys (N, 8), aligned; weight (N,). ``avg_factor``
+    is taken and unused, as in JAX (the loss is a mean already)."""
+    del avg_factor
+    quad = gt_polys.reshape(-1, 4, 2)
+    o = quad[:, None]
+    e = torch.roll(quad, -1, dims=-2)[:, None]
+    p = pts[:, :, None, :]
+    cr = (e[..., 0] - o[..., 0]) * (p[..., 1] - o[..., 1]) - \
+        (e[..., 1] - o[..., 1]) * (p[..., 0] - o[..., 0])
+    inside = (cr >= 0).all(-1) | (cr <= 0).all(-1)
+    d = _safe_norm(pts - quad.mean(-2)[:, None, :])
+    out = ~inside & (weight[:, None] > 0)
+    n_out = torch.clamp(out.sum().float(), min=1.0)
+    return (0.2 * d * out).sum() / n_out

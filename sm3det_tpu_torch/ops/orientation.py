@@ -1,19 +1,25 @@
-"""Orientation ops of S2ANet's ODM head: ORConv's filter expansion and the
-rotation-invariant pooling.
+"""Orientation ops of S2ANet's ODM head and of ReDet.
 
 Port of ``sm3det_tpu/ops/orientation.py``: ``orconv_indices`` (ORConv2d's
 discrete 45-degree index tables; the port keeps its own numpy copy),
 ``arf_expand`` (ActiveRotatedFilter: one base filter an output plane,
-expanded into ``n_rot`` rotated copies) and ``rotation_invariant_pool``
-(max over each output plane's rotations). The expansion is a static
-permutation, one ``index_select`` of the base weight, so its gradient
-reaches the base filter through plain autograd.
+expanded into ``n_rot`` rotated copies), ``rotation_invariant_pool`` (max
+over each output plane's rotations), ``_rotation_interp_matrix`` (the
+bilinear map that rotates a k x k kernel; numpy) with
+``active_rotated_filter`` on it, ``orientation_align`` (RiRoIAlign's cyclic
+interpolation of the orientation channels by each RoI's angle) and
+``riroi_align_rotated`` (the single-level rotated align, then that
+alignment). The expansion is a static permutation, one ``index_select`` of
+the base weight, so its gradient reaches the base filter through plain
+autograd; the index tables and rotation matrices are made once a device.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .roi_align_rotated import roi_align_rotated
 
 # ORConv2d's kernel index tables: for a k x k kernel rotated by ``angle``
 # degrees, entry j is the 1-based cell that source cell j lands on
@@ -107,3 +113,99 @@ def rotation_invariant_pool(x: torch.Tensor, n_orient: int = 8):
     ``n_orient`` consecutive channels (orientation fastest)."""
     return x.reshape(x.shape[:-1] + (x.shape[-1] // n_orient,
                                      n_orient)).amax(dim=-1)
+
+
+def _rotation_interp_matrix(k: int, angle: float) -> np.ndarray:
+    """(k k, k k) float32 bilinear map rotating a k x k kernel by
+    ``angle`` radians about its centre: row ``oy k + ox`` reads the four
+    cells around the rotated source position."""
+    c = (k - 1) / 2.0
+    cos_a, sin_a = np.cos(-angle), np.sin(-angle)
+    m = np.zeros((k * k, k * k), np.float32)
+    for oy in range(k):
+        for ox in range(k):
+            sx = cos_a * (ox - c) - sin_a * (oy - c) + c
+            sy = sin_a * (ox - c) + cos_a * (oy - c) + c
+            x0, y0 = int(np.floor(sx)), int(np.floor(sy))
+            for dy in (0, 1):
+                for dx in (0, 1):
+                    xx, yy = x0 + dx, y0 + dy
+                    if 0 <= xx < k and 0 <= yy < k:
+                        wx = 1 - abs(sx - xx)
+                        wy = 1 - abs(sy - yy)
+                        if wx > 0 and wy > 0:
+                            m[oy * k + ox, yy * k + xx] += wx * wy
+    return m
+
+
+_MATS = {}      # (k, n, device) -> (n, k k, k k) rotation matrices
+
+
+def rotation_matrices(k: int, n: int, device) -> torch.Tensor:
+    """The n rotations by 2 pi r / n of a k x k kernel,
+    ``_rotation_interp_matrix`` stacked, on ``device``; made once, outside
+    inference mode."""
+    key = (k, n, str(device))
+    if key not in _MATS:
+        with torch.inference_mode(False):
+            _MATS[key] = torch.from_numpy(np.stack([
+                _rotation_interp_matrix(k, 2 * np.pi * r / n)
+                for r in range(n)])).to(device)
+    return _MATS[key]
+
+
+def active_rotated_filter(weights: torch.Tensor, num_rotations: int = 8):
+    """Rotated copies of orientation-grouped filters.
+
+    weights: ``(Cout, Cin O, k, k)``, input channels grouped (Cin, O),
+    orientation fastest (the OIHW form of JAX's ``(k, k, Cin O, Cout)``).
+    Returns ``(O, Cout, Cin O, k, k)``: copy r is the filter rotated by
+    2 pi r / O (bilinear) with its orientation channels shifted
+    cyclically by r."""
+    cout, cin_o, k, _ = weights.shape
+    o = num_rotations
+    cin = cin_o // o
+    mats = rotation_matrices(k, o, weights.device).to(weights.dtype)
+    w = weights.reshape(cout, cin, o, k * k)
+    rotated = torch.einsum("rab,dcob->rdcoa", mats, w)
+    outs = [torch.roll(rotated[r], r, dims=2) for r in range(o)]
+    return torch.stack(outs).reshape(o, cout, cin_o, k, k)
+
+
+def orientation_align(pooled: torch.Tensor, theta: torch.Tensor,
+                      num_orientations: int = 8):
+    """RiRoIAlign's channel alignment: pooled (N, s, s, Cin O),
+    orientation fastest, and the RoIs' angles (N,) in radians. Each RoI's
+    orientation channels are read from ``floor(theta / (2 pi / O))``
+    places on, cyclically (a negative angle wraps: ``remainder``, not
+    ``fmod``), interpolated linearly by the fractional part, in fp32 for
+    an fp32 angle; the result is rounded once to the pooled dtype."""
+    n, s, _, co = pooled.shape
+    o = num_orientations
+    cin = co // o
+    p = pooled.reshape(n, s, s, cin, o)
+    shift = theta / (2 * np.pi / o)
+    lo = torch.floor(shift)
+    frac = (shift - lo)[:, None, None, None, None]
+    idx = torch.remainder(torch.arange(o, device=pooled.device)[None]
+                          + lo.long()[:, None], o)            # (N, O)
+    idx1 = torch.remainder(idx + 1, o)
+
+    def take(i):
+        return torch.gather(p, -1, i[:, None, None, None, :].expand(
+            n, s, s, cin, o))
+    out = (1 - frac) * take(idx) + frac * take(idx1)
+    return out.reshape(n, s, s, co).to(pooled.dtype)
+
+
+def riroi_align_rotated(features, rois, out_size: int,
+                        spatial_scale: float, num_orientations: int = 8,
+                        sample_num: int = 2):
+    """Rotation-invariant RoI align (ReDet): the rotated align of
+    features (B, H, W, Cin O), orientation fastest, at rois (N, 6)
+    ``(batch, cx, cy, w, h, theta)`` (``aligned``, ``clockwise``), then
+    :func:`orientation_align` by each RoI's angle."""
+    pooled = roi_align_rotated(features, rois, out_size, spatial_scale,
+                               sample_num=sample_num, aligned=True,
+                               clockwise=True)
+    return orientation_align(pooled, rois[:, 5], num_orientations)

@@ -35,9 +35,12 @@ def obb_corners(obbs: torch.Tensor) -> torch.Tensor:
     return corners.reshape(corners.shape[:-1] + (4, 2))
 
 
-def _edge_clip_contrib(sub, clip, eps_inside: float):
+def _edge_clip_contrib(sub, clip, eps_inside: float, sub_sign=None,
+                       clip_sign=None):
     """Green's-theorem contribution of ``sub``'s edges clipped to the inside
-    of the convex quad ``clip``; both ``(..., 4, 2)``, counter-clockwise.
+    of the convex quad ``clip``; both ``(..., 4, 2)``, counter-clockwise, or
+    of the winding that ``sub_sign`` / ``clip_sign`` (``(...,)``, +1 or -1)
+    give.
 
     An edge P(t) = p + t (q - p) is inside ``clip`` on one interval
     [t_lo, t_hi]; its contribution is 0.5 * cross(P(t_lo), P(t_hi)).
@@ -62,6 +65,9 @@ def _edge_clip_contrib(sub, clip, eps_inside: float):
     a = (ek[..., 0] * po[..., 1] - ek[..., 1] * po[..., 0]) / el
     dk = d[..., :, None, :]
     b = (ek[..., 0] * dk[..., 1] - ek[..., 1] * dk[..., 0]) / el
+    if clip_sign is not None:       # a clockwise clip flips its inside
+        a = a * clip_sign[..., None, None]
+        b = b * clip_sign[..., None, None]
     a = a + eps_inside
     safe_b = torch.where(b.abs() < _EPS, torch.full_like(b, _EPS), b)
     t_cross = -a / safe_b
@@ -79,7 +85,8 @@ def _edge_clip_contrib(sub, clip, eps_inside: float):
     y1 = p[..., 1] + t_hi * d[..., 1]
     c = 0.5 * (x0 * y1 - y0 * x1)
     c = torch.where(valid, c, torch.zeros_like(c))
-    return ((c[..., 0] + c[..., 1]) + c[..., 2]) + c[..., 3]
+    total = ((c[..., 0] + c[..., 1]) + c[..., 2]) + c[..., 3]
+    return total if sub_sign is None else total * sub_sign
 
 
 def rotated_intersection_area(corners1, corners2):

@@ -214,13 +214,20 @@ def test_flagship_configs_reach_the_detector(monkeypatch, arch):
     ("configs/local_configs/dota_convnext_t_roitrans.py", "ReResNet",
      "ReResNet")])
 def test_unported_types_raise_by_name(path, mtype, name):
-    """A detector type, or a backbone type (the ``Swin`` and ``ReResNet``
-    names), the port does not have raises, naming it."""
+    """A detector type, or a backbone type (the ``Swin`` names), the port
+    does not have raises, naming it; so do ``ReResNet`` under another
+    detector than ReDet and ReDet on another backbone. ``OrientedRepPoints``
+    is ported now: on the VAN-T config it builds, as that class."""
     cfg = Config.fromfile(_cfg(path)).model.to_dict()
     if mtype in ("SwinTransformer_moe", "ReResNet"):
         cfg["backbone"]["type"] = mtype
     else:
         cfg["type"] = mtype
+    if mtype == "OrientedRepPoints":
+        model = builder.build_detector(cfg, device="cpu")
+        assert type(model) is builder.DETECTORS.get(name)
+        assert hasattr(model.backbone, "patch_embed0")
+        return
     with pytest.raises(NotImplementedError, match=name):
         builder.build_detector(cfg, device="cpu")
 

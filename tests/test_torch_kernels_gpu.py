@@ -254,9 +254,18 @@ def test_moe_ffn_grouped_kernel(cuda, dtype, n, d, e, k):
 
 def _cuda_kernels(fn):
     """``fn()`` and the names of the CUDA kernels it launched
-    (``torch.profiler``)."""
+    (``torch.profiler``), from a second traced call: in a process's first
+    profiler session the trace can miss kernels (10 of 12 cases once
+    failed that way, the launch counters right), so a first traced call
+    warms the profiler up, its names are dropped and the launch counters
+    are set back to what they were before it."""
     from torch.profiler import ProfilerActivity, profile
+    before = dict(build.LAUNCHES)
     torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        fn()
+        torch.cuda.synchronize()
+    build.LAUNCHES.update(before)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         out = fn()
         torch.cuda.synchronize()
@@ -672,6 +681,69 @@ def test_rotated_iou_assigner_batched(cuda):
         assert torch.equal(rik.rotated_iou(cands[i], gts[i]), got[i])
 
 
+def test_rotated_iou_reppoints_refine_assign(cuda):
+    """Row 5's matrix mode at Oriented RepPoints' refine assignment at
+    800^2: the init boxes of 2 images at every location of the five levels
+    (strides 8-128, 13343 of them), small and large, against 16 gts an
+    image, in one launch through ``box_iou_rotated_chunked``; every IoU
+    equal to the plain version's where both boxes are real."""
+    from sm3det_tpu_torch.ops.rotated_iou import box_iou_rotated_chunked
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    ctrs, strides = [], []
+    for st in (8, 16, 32, 64, 128):
+        n = -(-800 // st)
+        c = (torch.arange(n, device=cuda, dtype=torch.float32) + 0.5) * st
+        gy, gx = torch.meshgrid(c, c, indexing="ij")
+        ctrs.append(torch.stack([gx.reshape(-1), gy.reshape(-1)], -1))
+        strides.append(torch.full((n * n,), float(st), device=cuda))
+    ctr, st = torch.cat(ctrs), torch.cat(strides)
+    assert ctr.shape[0] == 13343
+    u = lambda *sh: torch.rand(*sh, generator=gen, device=cuda)  # noqa
+    boxes = torch.cat([
+        ctr[None] + (u(2, 13343, 2) - 0.5) * st[None, :, None],
+        st[None, :, None] * (0.5 + 3 * u(2, 13343, 2)),
+        (u(2, 13343, 1) - 0.5) * 3.1], -1)
+    gts = torch.cat([u(2, 16, 2) * 800, 10 + u(2, 16, 2) * 300,
+                     (u(2, 16, 1) - 0.5) * 3.1], -1)
+    boxes[:, 100:116] = gts                          # IoU 1
+    build.reset_launches()
+    got = box_iou_rotated_chunked(boxes, gts)
+    assert build.LAUNCHES["rotated_iou"] == 1
+    ref = rik.rotated_iou_ref(boxes, gts)
+    torch.cuda.synchronize()
+    assert got.shape == (2, 13343, 16)
+    assert torch.equal(got, ref)
+    assert float(ref.max()) > 0.99 and int((ref > 0.4).sum()) > 32
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_nms_quadri_on_the_card(cuda, batched):
+    """``nms_quadri``'s keep through the keep scan on the card (one
+    launch), its output equal to the host's on the same quads: the quad
+    IoU is plain PyTorch on both, and no pair's IoU lies within 1e-5 of
+    the threshold, where the two could round to either side."""
+    from sm3det_tpu_torch.ops.box_convert import obb2poly
+    from sm3det_tpu_torch.ops.geometry_extras import box_iou_quadri, \
+        nms_quadri
+    rng = np.random.RandomState(19)
+    boxes = np.concatenate([rng.rand(2, 500, 2) * 300,
+                            4 + rng.rand(2, 500, 2) * 90,
+                            (rng.rand(2, 500, 1) - 0.5) * 3.1], -1)
+    quads = obb2poly(torch.from_numpy(boxes).float()).to(cuda)
+    scores = torch.from_numpy(rng.rand(2, 500)).float().to(cuda)
+    assert not bool(((box_iou_quadri(quads, quads) - 0.3).abs()
+                     < 1e-5).any())
+    if not batched:
+        quads, scores = quads[0], scores[0]
+    build.reset_launches()
+    got = nms_quadri(quads, scores, 0.3, 500)
+    assert build.LAUNCHES["nms_keep"] == 1
+    ref = nms_quadri(quads.cpu(), scores.cpu(), 0.3, 500)
+    for g, r in zip(got, ref):
+        assert torch.equal(g.cpu(), r)
+    assert 20 < int(got[1].sum(-1).max()) < 500
+
+
 # n = 30000 is past two staged steps in shared memory: rows read from
 # device memory
 KEEP_CASES = [(b, n, d) for b, n in ((1, 1), (8, 31), (40, 33), (8, 2000),
@@ -790,6 +862,27 @@ def test_roi_align_rotated_kernel(cuda, dtype, b, n, size, c):
     _check(got, ref, dtype)
     assert float(got[5::50].abs().max()) == 0.0      # far outside: zeros
     assert torch.equal(got, rak.roi_align_rotated_pyramid_fused(feats, rois))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_rotated_redet_rois(cuda, dtype):
+    """Row 7 at ReDet's train step at 800^2: the 2 x 128 sampled RoIs on
+    the ReFPN's 256-channel levels (orientation fastest), one launch, equal
+    to the plain version; then RiRoI align's orientation alignment of both,
+    equal too."""
+    from sm3det_tpu_torch.ops.orientation import orientation_align
+    gen = torch.Generator(device=cuda).manual_seed(18)
+    feats = _pyramid(gen, 2, 800, 256, dtype, cuda)
+    rois = _rois(gen, 2, 256, 800, cuda)
+    lvls = route_levels(rois)
+    assert set(lvls.tolist()) == {0, 1, 2, 3}
+    build.reset_launches()
+    got = rak.roi_align_rotated_pyramid_fused(feats, rois)
+    assert build.LAUNCHES["roi_align_rotated"] == 1
+    ref = roi_align_rotated_pyramid(feats, rois, lvls, 7)
+    _check(got, ref, dtype)
+    _check(orientation_align(got, rois[:, 5]),
+           orientation_align(ref, rois[:, 5]), dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -404,7 +404,11 @@ def test_unported_retina_parts_raise():
                         torch.ones(1, G, dtype=bool),
                         prh.make_retina_anchor_generator(),
                         prh.make_retina_coder(), NC, reg_loss="csl")
-    with pytest.raises(NotImplementedError, match="angle_coder"):
-        prh.CSLRetinaHead(num_classes=NC)
-    with pytest.raises(NotImplementedError, match="angle_coder"):
-        prh.csl_angle_loss(None, None, None, None)
+    # the CSL head and its angle loss are ported (tests/test_torch_reppoints
+    # .py holds them against JAX): 180 bins an anchor, a finite loss
+    head = prh.CSLRetinaHead(num_classes=NC)
+    assert head.retina_angle_cls.weight.shape[0] == 9 * 180
+    from sm3det_tpu_torch.core.bbox.angle_coder import CSLCoder
+    loss = prh.csl_angle_loss(torch.zeros(3, 180), torch.zeros(3),
+                              torch.ones(3), CSLCoder())
+    assert bool(torch.isfinite(loss)) and float(loss) > 0
